@@ -1,0 +1,43 @@
+"""Base encodings for the PyTorch k-mer engine (host tables, NumPy only).
+
+Counterpart of ``genome_kmers_tpu/ops/encoding.py``, restricted to what the
+2-bit path needs. On an ACGT genome each base maps to a 2-bit rank
+(A0 C1 G2 T3) and 16 ranks pack big-endian into one uint32 word, so
+unsigned comparison of packed words is byte-wise lexicographic comparison
+of the bases. With rank(A) = 0, zero padding past a segment end looks like
+a run of As, so the 2-bit sort carries the compare cap as an explicit key
+lane (see ops/sort.py).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# IUPAC complement, as a 256-entry byte-to-byte table so reverse complement
+# is a flip plus one table gather.
+COMPLEMENT_PAIRS = {
+    "A": "T", "C": "G", "G": "C", "T": "A",
+    "R": "Y", "Y": "R", "S": "S", "W": "W",
+    "K": "M", "M": "K", "B": "V", "D": "H",
+    "H": "D", "V": "B", "N": "N", "$": "$",
+}
+COMPLEMENT_TABLE = np.zeros(256, dtype=np.uint8)
+for _k, _v in COMPLEMENT_PAIRS.items():
+    COMPLEMENT_TABLE[ord(_k)] = ord(_v)
+
+# uint8 byte -> 2-bit rank; every other byte ('$', 'N', ...) maps to 0.
+RANK2_TABLE = np.zeros(256, dtype=np.uint8)
+for _i, _c in enumerate("ACGT"):
+    RANK2_TABLE[ord(_c)] = _i
+
+BASES_PER_WORD2 = 16  # 16 2-bit fields per uint32
+
+# DIBIT_MASKS[r] keeps the top r 2-bit fields of a packed word (r in [0, 16]).
+DIBIT_MASKS = np.zeros(17, dtype=np.uint32)
+for _r in range(17):
+    DIBIT_MASKS[_r] = (0xFFFFFFFF << (2 * (16 - _r))) & 0xFFFFFFFF if _r else 0
+
+
+def reverse_complement_bytes(sba: np.ndarray) -> np.ndarray:
+    """Reverse complement of an ASCII SBA: one table gather and a flip."""
+    return COMPLEMENT_TABLE[sba][::-1].copy()

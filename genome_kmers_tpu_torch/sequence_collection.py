@@ -1,0 +1,647 @@
+"""SequenceCollection: the genome container of the PyTorch engine.
+
+Counterpart of ``genome_kmers_tpu/sequence_collection.py``. The host side
+is the same NumPy code with the same error strings: records joined by '$'
+into one ASCII "sequence byte array" (SBA), uint32 segment starts, record
+names in read order. The device side is a ``_DeviceCache`` of torch tensors
+on the collection's explicit ``device``: the segment starts and ends and,
+on an ACGT genome, the 2-bit pack, built on a CUDA device by the hand
+written kernel ``kernels/pack2.py``.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+from pathlib import Path
+from typing import Callable, List, Union
+
+import numpy as np
+import torch
+
+from .io.fasta import _get_fasta_record_name, parse_fasta_file
+from .kernels.pack2 import pack_rank2_words_cuda
+from .ops.encoding import reverse_complement_bytes
+from .ops.keys import compute_seg_ends
+
+
+def resolve_device(device) -> torch.device:
+    """The torch.device for ``device``; CUDA must be present when asked for."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device '{device}' was requested but CUDA is not available "
+                "(pass device='cpu' to run on the CPU)"
+            )
+    elif dev.type != "cpu":
+        raise ValueError(f"device ({device}) must be a CUDA device or the CPU")
+    return dev
+
+
+def get_segment_num_from_sba_index(sba_idx: int, sba_strand: str, sba_seg_starts: np.ndarray) -> int:
+    return int(np.searchsorted(sba_seg_starts, sba_idx, side="right")) - 1
+
+
+def get_forward_seq_idx(
+    sba_idx: int,
+    sba_strand: str,
+    seg_sba_start_idx: int,
+    seg_sba_end_idx: int,
+    one_based: bool = False,
+) -> int:
+    if sba_idx < seg_sba_start_idx:
+        raise ValueError(f"sba_idx ({sba_idx}) must be >= seg_sba_start_idx ({seg_sba_start_idx})")
+    if sba_idx > seg_sba_end_idx:
+        raise ValueError(f"sba_idx ({sba_idx}) must be <= seg_end_start_idx ({seg_sba_end_idx})")
+    if seg_sba_start_idx > seg_sba_end_idx:
+        raise ValueError(
+            f"seg_sba_start_idx ({seg_sba_start_idx}) must be <= seg_sba_end_idx ({seg_sba_end_idx})"
+        )
+    if seg_sba_start_idx < 0:
+        raise ValueError(f"seg_sba_start_idx ({seg_sba_start_idx}) must be > 0")
+
+    if sba_strand == "forward":
+        seq_idx = sba_idx - seg_sba_start_idx
+    elif sba_strand == "reverse_complement":
+        seq_idx = seg_sba_end_idx - sba_idx
+    else:
+        raise ValueError(f"sba_strand ({sba_strand}) not recognized")
+
+    if one_based:
+        seq_idx += 1
+    return int(seq_idx)
+
+
+def get_sba_start_end_indices_for_segment(
+    segment_num: int, sba_strand: str, sba_seg_starts: np.ndarray, len_sba: int
+) -> tuple[int, int]:
+    if segment_num < 0:
+        raise ValueError(f"segment_num ({segment_num}) is out of bounds")
+    elif segment_num >= len(sba_seg_starts):
+        raise ValueError(f"segment_num ({segment_num}) is out of bounds")
+
+    sba_start_index = int(sba_seg_starts[segment_num])
+    if segment_num == len(sba_seg_starts) - 1:
+        sba_end_index = len_sba - 1
+    else:
+        sba_end_index = int(sba_seg_starts[segment_num + 1]) - 2
+    return sba_start_index, sba_end_index
+
+
+class _DeviceCache:
+    """Lazily built device tensors of one strand's SBA: the raw bytes, the
+    segment starts and ends (int64) and the 2-bit pack (int32 bit patterns
+    of uint32 words)."""
+
+    def __init__(self, sba: np.ndarray, seg_starts: np.ndarray, device: torch.device):
+        self._sba_np = sba
+        self._seg_starts_np = seg_starts
+        self.device = device
+        self._is_acgt_only = None
+        self._sba_dev = None
+        self._packed2 = None
+        self._seg_starts_dev = None
+        self._seg_ends_dev = None
+
+    @property
+    def sba(self) -> torch.Tensor:
+        """The SBA bytes on the device, uploaded once."""
+        if self._sba_dev is None:
+            self._sba_dev = torch.from_numpy(self._sba_np).to(self.device)
+        return self._sba_dev
+
+    @property
+    def is_acgt_only(self) -> bool:
+        """True when the SBA alphabet is a subset of {A,C,G,T,$}, which the
+        2-bit keys need. Counted on the device from the uploaded bytes (a
+        host ``np.bincount`` of 2^27 bytes took 0.6 s beside an H100 80GB
+        HBM3 at 700 W)."""
+        if self._is_acgt_only is None:
+            counts = torch.bincount(self.sba, minlength=256).cpu().numpy()
+            present = set(np.flatnonzero(counts))
+            self._is_acgt_only = present <= {ord(c) for c in "ACGT$"}
+        return self._is_acgt_only
+
+    @property
+    def packed2(self):
+        """2-bit packed words, or None when the alphabet rules them out. On a
+        CUDA device the pack kernel builds them from the uploaded bytes."""
+        if not self.is_acgt_only:
+            return None
+        if self._packed2 is None:
+            self._packed2 = pack_rank2_words_cuda(self.sba)
+        return self._packed2
+
+    @property
+    def seg_starts(self) -> torch.Tensor:
+        if self._seg_starts_dev is None:
+            self._seg_starts_dev = torch.from_numpy(
+                self._seg_starts_np.astype(np.int64)
+            ).to(self.device)
+        return self._seg_starts_dev
+
+    @property
+    def seg_ends(self) -> torch.Tensor:
+        if self._seg_ends_dev is None:
+            self._seg_ends_dev = compute_seg_ends(self.seg_starts, len(self._sba_np))
+        return self._seg_ends_dev
+
+
+class SequenceCollection:
+    """Holds all the information contained within a fasta file in a format
+    conducive to k-mer sorting on a GPU.
+
+    Terminology, invariants and members match the JAX package: record =
+    header + sequence in read order; segment = leftmost-numbered span in the
+    current SBA; '$' separators; >= 1 sequence; all sequence lengths > 0;
+    unique record names. ``device`` (default "cuda") is where the k-mer
+    engine's tensors live; it raises if CUDA was asked for and is absent.
+    """
+
+    def __init__(
+        self,
+        fasta_file_path: Union[Path, None] = None,
+        sequence_list: Union[list, None] = None,
+        strands_to_load: str = "forward",
+        device="cuda",
+    ) -> None:
+        self.device = resolve_device(device)
+        self.forward_sba = None
+        self._forward_sba_seg_starts = None
+        self.forward_record_names = None
+        self.revcomp_sba = None
+        self._revcomp_sba_seg_starts = None
+        self.revcomp_record_names = None
+        self._strands_loaded = None
+        self._fasta_file_path = None
+        self._device = {}
+
+        self._initialize_mapping_arrays()
+
+        if fasta_file_path is None and sequence_list is None:
+            return
+
+        if fasta_file_path is not None and sequence_list is not None:
+            raise ValueError("Only one of fasta_file_path and sequence_list can be specified")
+        if strands_to_load not in ("forward", "reverse_complement", "both"):
+            raise ValueError(f"strands_to_load unrecognized ({strands_to_load})")
+
+        if fasta_file_path is not None:
+            self._fasta_file_path = fasta_file_path
+            self._initialize_from_fasta(fasta_file_path, strands_to_load)
+        else:
+            self._initialize_from_sequence_list(sequence_list, strands_to_load)
+
+    # ------------------------------------------------------------------ #
+    # device cache
+    # ------------------------------------------------------------------ #
+
+    def _invalidate_device_cache(self):
+        self._device = {}
+
+    def device_cache(self, sba_strand: str) -> _DeviceCache:
+        """Device tensors for the given strand's SBA (the forward strand: the
+        reverse-complement index is not ported yet, ROADMAP.md A6)."""
+        if sba_strand != "forward":
+            raise ValueError(f"sba_strand ({sba_strand}) not recognized")
+        if sba_strand not in self._device:
+            if self.forward_sba is None:
+                raise ValueError("forward strand is not loaded")
+            self._device[sba_strand] = _DeviceCache(
+                self.forward_sba, self._forward_sba_seg_starts, self.device
+            )
+        return self._device[sba_strand]
+
+    # ------------------------------------------------------------------ #
+    # dunder / info
+    # ------------------------------------------------------------------ #
+
+    def __len__(self) -> int:
+        if self._strands_loaded == "forward" or self._strands_loaded == "both":
+            return len(self._forward_sba_seg_starts)
+        elif self._strands_loaded == "reverse_complement":
+            return len(self._revcomp_sba_seg_starts)
+        else:
+            raise AssertionError(f"strands_loaded ({self._strands_loaded}) not recognized")
+
+    def __str__(self) -> str:
+        sba_strand = (
+            "reverse_complement" if self._strands_loaded == "reverse_complement" else "forward"
+        )
+        sba = self.forward_sba if sba_strand == "forward" else self.revcomp_sba
+        lines = []
+        for record_name, s, e in self.iter_records(sba_strand):
+            seq = bytearray(sba[s : e + 1]).decode()
+            lines.append(f">{record_name}")
+            lines.append(seq)
+        return "\n".join(lines)
+
+    def sequence_length(self, record_num=None, record_name=None):
+        """Length of one record's sequence, or the total across all records."""
+        if record_name is not None and record_num is not None:
+            raise ValueError(
+                f"record_num ({record_num}) and record_name ({record_name}) cannot both be specified"
+            )
+        strand = (
+            "reverse_complement"
+            if self._strands_loaded == "reverse_complement"
+            else "forward"
+        )
+        records = list(self.iter_records(strand))
+        if record_num is not None:
+            if record_num < 0 or record_num >= len(records):
+                raise ValueError(f"record_num ({record_num}) is out of bounds")
+            _, s, e = records[record_num]
+            return e - s + 1
+        if record_name is not None:
+            for name, s, e in records:
+                if name == record_name:
+                    return e - s + 1
+            raise ValueError(f"record_name ({record_name}) not found")
+        return sum(e - s + 1 for _, s, e in records)
+
+    def iter_records(self, sba_strand: str = None):
+        """Yield (record_name, sba_start, sba_end) in record_num order."""
+        sba_strand = self._get_sba_strand_to_use(sba_strand)
+        if sba_strand == "forward":
+            for segment_num in range(len(self)):
+                record_name = self.forward_record_names[segment_num]
+                s, e = get_sba_start_end_indices_for_segment(
+                    segment_num, sba_strand, self._forward_sba_seg_starts, len(self.forward_sba)
+                )
+                yield (record_name, s, e)
+        elif sba_strand == "reverse_complement":
+            # reverse segment order to keep record_num ordering
+            for segment_num in range(len(self) - 1, -1, -1):
+                record_name = self.revcomp_record_names[segment_num]
+                s, e = get_sba_start_end_indices_for_segment(
+                    segment_num, sba_strand, self._revcomp_sba_seg_starts, len(self.revcomp_sba)
+                )
+                yield (record_name, s, e)
+        else:
+            raise ValueError(f"sba_strand ({sba_strand}) must be 'forward' or 'reverse_complement'")
+
+    def strands_loaded(self) -> str:
+        return self._strands_loaded
+
+    # ------------------------------------------------------------------ #
+    # construction
+    # ------------------------------------------------------------------ #
+
+    def _initialize_mapping_arrays(self):
+        self._allowed_bases = set("ACGTRYSWKMBDHVN$")
+        self._allowed_uint8 = {ord(b) for b in self._allowed_bases}
+
+    @staticmethod
+    def _get_fasta_record_name(line: str) -> str:
+        return _get_fasta_record_name(line)
+
+    def _validate_alphabet(self, sba: np.ndarray) -> None:
+        """Reject bytes outside IUPAC + '$'; the message lists every
+        offending byte value."""
+        counts = np.bincount(sba, minlength=256)
+        values_not_allowed = {int(v) for v in np.flatnonzero(counts)} - self._allowed_uint8
+        if values_not_allowed != set():
+            raise ValueError(f"Sequence contains non-allowed characters! ({values_not_allowed})")
+
+    def _load_forward_sba_from_fasta(self, fasta_file_path):
+        sba, sba_seg_starts, record_names = parse_fasta_file(fasta_file_path)
+        SequenceCollection._verify_record_names_are_unique(record_names)
+        self._validate_alphabet(sba)
+        return sba, sba_seg_starts, record_names
+
+    def _initialize_from_fasta(self, fasta_file_path, strands_to_load: str) -> None:
+        if strands_to_load not in ("forward", "reverse_complement", "both"):
+            raise ValueError(f"strands_to_load not recognized ({strands_to_load})")
+
+        self.forward_sba = None
+        self._forward_sba_seg_starts = None
+        self.revcomp_sba = None
+        self._revcomp_sba_seg_starts = None
+        self.forward_record_names = None
+        self.revcomp_record_names = None
+        self._invalidate_device_cache()
+
+        if strands_to_load in ("forward", "both"):
+            self.forward_sba, self._forward_sba_seg_starts, self.forward_record_names = (
+                self._load_forward_sba_from_fasta(fasta_file_path)
+            )
+
+        if strands_to_load == "both":
+            self.revcomp_sba = reverse_complement_bytes(self.forward_sba)
+            self._revcomp_sba_seg_starts = self._get_opposite_strand_sba_start_indices(
+                self._forward_sba_seg_starts, len(self.revcomp_sba)
+            )
+            self.revcomp_record_names = self.forward_record_names.copy()
+            self.revcomp_record_names.reverse()
+        elif strands_to_load == "reverse_complement":
+            self.forward_sba, self._forward_sba_seg_starts, self.forward_record_names = (
+                self._load_forward_sba_from_fasta(fasta_file_path)
+            )
+            self._strands_loaded = "forward"
+            self.reverse_complement()
+
+        self._strands_loaded = strands_to_load
+
+    @staticmethod
+    def _get_required_sba_length_from_sequence_list(sequence_list) -> int:
+        total_seq_len = 0
+        for record_name, seq in sequence_list:
+            if len(seq) == 0:
+                raise ValueError(
+                    f"Each sequence in the collection must have length > 0.  Record '{record_name}' has a sequence lengt of 0"
+                )
+            total_seq_len += len(seq)
+        return total_seq_len + len(sequence_list) - 1
+
+    def _get_sba_from_sequence_list(self, sequence_list) -> np.ndarray:
+        """No uppercasing: invalid characters, lowercase included, raise."""
+        sba_length = SequenceCollection._get_required_sba_length_from_sequence_list(sequence_list)
+        parts = []
+        for i, (_, seq) in enumerate(sequence_list):
+            parts.append(np.frombuffer(seq.encode("utf-8"), dtype=np.uint8))
+            if i != len(sequence_list) - 1:
+                parts.append(np.array([ord("$")], dtype=np.uint8))
+        sba = np.concatenate(parts) if parts else np.zeros(0, dtype=np.uint8)
+        if len(sba) != sba_length:
+            raise AssertionError("logic error building sba from sequence_list")
+        self._validate_alphabet(sba)
+        return sba
+
+    @staticmethod
+    def _get_sba_starts_from_sequence_list(sequence_list) -> np.ndarray:
+        lens = np.array([len(seq) for _, seq in sequence_list], dtype=np.int64)
+        starts = np.zeros(len(sequence_list), dtype=np.uint32)
+        if len(sequence_list) > 1:
+            starts[1:] = np.cumsum(lens[:-1] + 1).astype(np.uint32)
+        return starts
+
+    @staticmethod
+    def _verify_record_names_are_unique(record_names):
+        counter = Counter(record_names)
+        if len(record_names) != len(counter):
+            num_repeated = len([1 for c in counter.values() if c > 1])
+            raise ValueError(f"sequence_list contains {num_repeated} repeated record_names")
+
+    @staticmethod
+    def _get_record_names_from_sequence_list(sequence_list) -> List[str]:
+        record_names = [record_name for record_name, _ in sequence_list]
+        SequenceCollection._verify_record_names_are_unique(record_names)
+        return record_names
+
+    def _initialize_from_sequence_list(self, sequence_list, strands_to_load: str):
+        if strands_to_load not in ("forward", "reverse_complement", "both"):
+            raise ValueError(f"strands_to_load not recognized ({strands_to_load})")
+
+        self.forward_sba = None
+        self._forward_sba_seg_starts = None
+        self.revcomp_sba = None
+        self._revcomp_sba_seg_starts = None
+        self.forward_record_names = None
+        self.revcomp_record_names = None
+        self._invalidate_device_cache()
+
+        if strands_to_load in ("forward", "both"):
+            self.forward_sba = self._get_sba_from_sequence_list(sequence_list)
+            self._forward_sba_seg_starts = self._get_sba_starts_from_sequence_list(sequence_list)
+            self.forward_record_names = self._get_record_names_from_sequence_list(sequence_list)
+
+        if strands_to_load == "both":
+            self.revcomp_sba = reverse_complement_bytes(self.forward_sba)
+            self._revcomp_sba_seg_starts = self._get_opposite_strand_sba_start_indices(
+                self._forward_sba_seg_starts, len(self.revcomp_sba)
+            )
+            self.revcomp_record_names = self.forward_record_names.copy()
+            self.revcomp_record_names.reverse()
+        elif strands_to_load == "reverse_complement":
+            fwd = self._get_sba_from_sequence_list(sequence_list)
+            self.revcomp_sba = reverse_complement_bytes(fwd)
+            starts = self._get_sba_starts_from_sequence_list(sequence_list)
+            self._revcomp_sba_seg_starts = self._get_opposite_strand_sba_start_indices(
+                starts, len(self.revcomp_sba)
+            )
+            self.revcomp_record_names = self._get_record_names_from_sequence_list(sequence_list)
+            self.revcomp_record_names.reverse()
+
+        self._strands_loaded = strands_to_load
+
+    # ------------------------------------------------------------------ #
+    # strand manipulation
+    # ------------------------------------------------------------------ #
+
+    def reverse_complement(self):
+        if self._strands_loaded == "both":
+            raise ValueError(f"self._strands_loaded ({self._strands_loaded}) cannot be 'both'")
+        self._invalidate_device_cache()
+
+        if self._strands_loaded == "forward":
+            self.revcomp_sba = reverse_complement_bytes(self.forward_sba)
+            self.forward_sba = None
+            self._revcomp_sba_seg_starts = self._get_opposite_strand_sba_start_indices(
+                self._forward_sba_seg_starts, len(self.revcomp_sba)
+            )
+            self._forward_sba_seg_starts = None
+            self.revcomp_record_names = self.forward_record_names
+            self.revcomp_record_names.reverse()
+            self.forward_record_names = None
+            self._strands_loaded = "reverse_complement"
+        elif self._strands_loaded == "reverse_complement":
+            self.forward_sba = reverse_complement_bytes(self.revcomp_sba)
+            self.revcomp_sba = None
+            self._forward_sba_seg_starts = self._get_opposite_strand_sba_start_indices(
+                self._revcomp_sba_seg_starts, len(self.forward_sba)
+            )
+            self._revcomp_sba_seg_starts = None
+            self.forward_record_names = self.revcomp_record_names
+            self.forward_record_names.reverse()
+            self.revcomp_record_names = None
+            self._strands_loaded = "forward"
+
+    @staticmethod
+    def _get_opposite_strand_sba_index(sba_idx: int, sba_len: int) -> int:
+        if sba_idx < 0 or sba_idx >= sba_len:
+            raise ValueError(f"sba_idx ({sba_idx}) is out of bounds")
+        return sba_len - 1 - sba_idx
+
+    @staticmethod
+    def _get_opposite_strand_sba_indices(sba_indices: np.ndarray, sba_len: int) -> np.ndarray:
+        if (sba_indices.astype(np.int64) < 0).any() or (
+            sba_indices.astype(np.int64) >= sba_len
+        ).any():
+            raise ValueError("There is at least one sba index that is out of bounds")
+        return (sba_len - 1 - sba_indices.astype(np.int64)).astype(sba_indices.dtype)
+
+    @staticmethod
+    def _get_opposite_strand_sba_start_indices(sba_starts: np.ndarray, sba_len: int) -> np.ndarray:
+        """End-index flip: the opposite strand's segment starts."""
+        sba_end_indices = np.copy(sba_starts)
+        if len(sba_end_indices) > 1:
+            sba_end_indices[:-1] = sba_end_indices[1:] - 2
+        sba_end_indices[-1] = sba_len - 1
+        return SequenceCollection._get_opposite_strand_sba_indices(
+            np.flip(sba_end_indices), sba_len
+        )
+
+    # ------------------------------------------------------------------ #
+    # record lookups
+    # ------------------------------------------------------------------ #
+
+    def get_record_loc_from_sba_index(
+        self, sba_idx: int, sba_strand: str = None, one_based: bool = False
+    ) -> tuple[str, str, int]:
+        """(strand, record_name, seq_idx) for an SBA index."""
+        sba_strand = self._get_sba_strand_to_use(sba_strand)
+        if sba_strand == "forward":
+            seg_starts, names, sba = (
+                self._forward_sba_seg_starts,
+                self.forward_record_names,
+                self.forward_sba,
+            )
+        elif sba_strand == "reverse_complement":
+            seg_starts, names, sba = (
+                self._revcomp_sba_seg_starts,
+                self.revcomp_record_names,
+                self.revcomp_sba,
+            )
+        else:
+            raise ValueError(f"sba_strand ({sba_strand}) not recognized")
+
+        segment_num = get_segment_num_from_sba_index(sba_idx, sba_strand, seg_starts)
+        record_name = names[segment_num]
+        s, e = get_sba_start_end_indices_for_segment(segment_num, sba_strand, seg_starts, len(sba))
+        seq_idx = get_forward_seq_idx(sba_idx, sba_strand, s, e, one_based=one_based)
+        strand = "+" if sba_strand == "forward" else "-"
+        return (strand, record_name, seq_idx)
+
+    def get_record_name_from_sba_index(self, sba_idx: int, sba_strand: str = None) -> str:
+        sba_strand = self._get_sba_strand_to_use(sba_strand)
+        if sba_strand == "forward":
+            segment_num = get_segment_num_from_sba_index(
+                sba_idx, sba_strand, self._forward_sba_seg_starts
+            )
+            return self.forward_record_names[segment_num]
+        elif sba_strand == "reverse_complement":
+            segment_num = get_segment_num_from_sba_index(
+                sba_idx, sba_strand, self._revcomp_sba_seg_starts
+            )
+            return self.revcomp_record_names[segment_num]
+        raise ValueError(f"sba_strand ({sba_strand}) not recognized")
+
+    def _get_sba_strand_to_use(self, sba_strand: str) -> str:
+        if sba_strand is not None:
+            if sba_strand == "forward":
+                if self._strands_loaded == "reverse_complement":
+                    raise ValueError(
+                        f"sba_strand ({sba_strand}) does not match _strands_loaded ({self._strands_loaded})"
+                    )
+            elif sba_strand == "reverse_complement":
+                if self._strands_loaded == "forward":
+                    raise ValueError(
+                        f"sba_strand ({sba_strand}) does not match _strands_loaded ({self._strands_loaded})"
+                    )
+            else:
+                raise ValueError(f"sba_strand ({sba_strand}) not recognized")
+        if self._strands_loaded == "both" and sba_strand is None:
+            raise ValueError("sba_strand must be specified when both strands are loaded")
+        return self._strands_loaded if self._strands_loaded != "both" else sba_strand
+
+    def get_segment_num_from_sba_index(self, sba_idx: int, sba_strand: str = None) -> int:
+        sba_strand = self._get_sba_strand_to_use(sba_strand)
+        if sba_strand == "forward":
+            if sba_idx < 0 or sba_idx >= len(self.forward_sba):
+                raise IndexError(f"sba_idx ({sba_idx}) is out of bounds")
+            return get_segment_num_from_sba_index(
+                sba_idx, sba_strand, self._forward_sba_seg_starts
+            )
+        elif sba_strand == "reverse_complement":
+            if sba_idx < 0 or sba_idx >= len(self.revcomp_sba):
+                raise IndexError(f"sba_idx ({sba_idx}) is out of bounds")
+            return get_segment_num_from_sba_index(
+                sba_idx, sba_strand, self._revcomp_sba_seg_starts
+            )
+
+    def get_sba_start_end_indices_for_segment(
+        self, segment_num: int, sba_strand: str = None
+    ) -> tuple[int, int]:
+        sba_strand = self._get_sba_strand_to_use(sba_strand)
+        if sba_strand == "forward":
+            seg_starts, sba = self._forward_sba_seg_starts, self.forward_sba
+        elif sba_strand == "reverse_complement":
+            seg_starts, sba = self._revcomp_sba_seg_starts, self.revcomp_sba
+        if segment_num < 0 or segment_num >= len(seg_starts):
+            raise ValueError(f"segment_num ({segment_num}) is out of bounds")
+        return get_sba_start_end_indices_for_segment(segment_num, sba_strand, seg_starts, len(sba))
+
+    def generate_get_record_info_from_sba_index_func(self, one_based: bool = False) -> Callable:
+        """Host closure mapping an SBA index to full record info."""
+        sba_strand = self._get_sba_strand_to_use(self.strands_loaded())
+        if sba_strand == "forward":
+            record_names = tuple(self.forward_record_names)
+            sba_seg_starts = self._forward_sba_seg_starts
+            seq_strand = "+"
+            len_sba = len(self.forward_sba)
+        elif sba_strand == "reverse_complement":
+            record_names = tuple(self.revcomp_record_names)
+            sba_seg_starts = self._revcomp_sba_seg_starts
+            seq_strand = "-"
+            len_sba = len(self.revcomp_sba)
+        else:
+            raise ValueError(f"sba_strand ({sba_strand}) not recognized")
+
+        def get_record_info_from_sba_index(sba_idx: int):
+            seg_num = get_segment_num_from_sba_index(sba_idx, sba_strand, sba_seg_starts)
+            s, e = get_sba_start_end_indices_for_segment(
+                seg_num, sba_strand, sba_seg_starts, len_sba
+            )
+            seq_start_idx = get_forward_seq_idx(sba_idx, sba_strand, s, e, one_based=one_based)
+            return (seg_num, s, e, seq_strand, record_names[seg_num], seq_start_idx)
+
+        return get_record_info_from_sba_index
+
+    # ------------------------------------------------------------------ #
+    # equality
+    # ------------------------------------------------------------------ #
+
+    def __ne__(self, other):
+        return not self.__eq__(other)
+
+    def __eq__(self, other):
+        """Memberwise equality ignoring _fasta_file_path and the device."""
+
+        def _arr_eq(a, b):
+            if a is None and b is not None:
+                return False
+            if a is not None and b is None:
+                return False
+            if a is None and b is None:
+                return True
+            return np.array_equal(a, b)
+
+        def _val_eq(a, b):
+            if (a is None) != (b is None):
+                return False
+            return a == b
+
+        return (
+            _arr_eq(self.forward_sba, other.forward_sba)
+            and _arr_eq(self._forward_sba_seg_starts, other._forward_sba_seg_starts)
+            and _val_eq(self.forward_record_names, other.forward_record_names)
+            and _arr_eq(self.revcomp_sba, other.revcomp_sba)
+            and _arr_eq(self._revcomp_sba_seg_starts, other._revcomp_sba_seg_starts)
+            and _val_eq(self.revcomp_record_names, other.revcomp_record_names)
+            and _val_eq(self._strands_loaded, other._strands_loaded)
+        )
+
+    # ------------------------------------------------------------------ #
+    # persistence
+    # ------------------------------------------------------------------ #
+
+    def save(self, save_file_path, mode: str = "a", format: str = "hdf5") -> None:
+        raise NotImplementedError(
+            "SequenceCollection.save is not ported yet (ROADMAP.md A10: persistence)"
+        )
+
+    def load(self, load_file_path, format: str = "hdf5"):
+        raise NotImplementedError(
+            "SequenceCollection.load is not ported yet (ROADMAP.md A10: persistence)"
+        )

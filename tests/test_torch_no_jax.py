@@ -1,0 +1,37 @@
+"""The port never imports JAX, and ``chip_smoke.py`` refuses to run, and
+prints no result, without a CUDA card."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize(
+    "module",
+    ["genome_kmers_tpu_torch", "genome_kmers_tpu_torch.interop", "chip_smoke"],
+)
+def test_import_loads_no_jax(module):
+    code = (
+        f"import sys, {module}\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_chip_smoke_fails_without_cuda():
+    code = (
+        "import runpy, torch\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "runpy.run_path('chip_smoke.py', run_name='__main__')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    for line in proc.stdout.splitlines():
+        assert not (line.startswith("{") and json.loads(line).get("ok"))
