@@ -1,25 +1,55 @@
 """Kmers: the k-mer index and its group statistics, on torch tensors.
 
-Counterpart of ``genome_kmers_tpu/kmers.py`` for the main path: an index
-over every k-mer start of an ACGT genome, ``sort()`` from the fresh index
-(the gather-free dense sort of ops/sort.py), and ``get_kmer_group_counts``
-/ ``get_kmer_count`` over the sorted key lanes that the sort retains.
-Construction checks and their messages are the JAX package's. The index
-inherits its collection's device.
+Counterpart of ``genome_kmers_tpu/kmers.py`` for a forward-strand index at
+a bounded ``max_kmer_len`` of one compare window (64 bases on an ACGT
+genome's 2-bit keys, 32 on the 4-bit keys of a genome with N runs or IUPAC
+codes):
 
-Everything outside that path raises NotImplementedError naming the
-ROADMAP.md item that will port it.
+* ``sort()`` of the fresh index, gather-free over every SBA position
+  (ops/sort.sort_positions_dense), and of any other index (a re-sort, an
+  assigned ``kmer_sba_start_indices``) through gathered keys with the
+  position as the last key (ops/sort.sort_positions);
+* ``get_kmer_group_counts`` / ``get_kmer_count`` over the sorted key lanes
+  that the sort retains (rebuilt once for an assigned sorted index), or
+  over gathered keys when ``kmer_len`` exceeds them;
+* ``get_kmers``, ``get_kmers_arrays``, ``get_kmer_str`` and
+  ``get_kmer_strs``.
+
+Construction checks and their messages are the JAX package's. The index
+inherits its collection's device. Everything else raises
+NotImplementedError naming the ROADMAP.md item that will port it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Union
+from typing import Callable, Generator, Union
 
 import numpy as np
+import torch
 
 from .ops.filters import KeepAllFilter, kmer_filter_keep_all
-from .ops.groups import hist_from_sizes, lanes_group_total, lanes_sizes_digest
-from .ops.sort import sort_positions_dense
+from .ops.groups import (
+    group_geometry,
+    hist_from_sizes,
+    lanes_group_total,
+    lanes_sizes_digest,
+    selection_masks,
+    sizes_digest,
+)
+from .ops.keys import (
+    build_key2_words,
+    build_key_words,
+    cap_lengths,
+    compute_valid_len,
+)
+from .ops.sort import (
+    WINDOW2_BASES,
+    WINDOW_BASES,
+    adjacent_boundaries,
+    boundaries_from_sorted_lanes,
+    sort_positions,
+    sort_positions_dense,
+)
 from .sequence_collection import SequenceCollection
 
 
@@ -60,7 +90,7 @@ class Kmers:
 
     @classmethod
     def from_strand(cls, *args, **kwargs) -> "Kmers":
-        raise _not_ported("Kmers.from_strand", "A6: gather path")
+        raise _not_ported("Kmers.from_strand", "A6: reverse-complement indexes")
 
     def _construct(
         self,
@@ -174,6 +204,31 @@ class Kmers:
             raise AssertionError("logic error filling kmer_sba_start_indices")
         return out
 
+    def _build_positions_device(self) -> torch.Tensor:
+        """The initial position array computed on the device: the record of
+        each index by a search of the cumulative counts, then its start
+        plus the offset within it."""
+        seg_starts, counts, num_kmers = self._init_geometry
+        cum_excl = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+        cum_excl = torch.from_numpy(cum_excl).to(self.device)
+        starts = torch.from_numpy(seg_starts.astype(np.int64)).to(self.device)
+        idx = torch.arange(num_kmers, dtype=torch.int64, device=self.device)
+        rec = torch.searchsorted(cum_excl, idx, right=True) - 1
+        return starts[rec] + (idx - cum_excl[rec])
+
+    def _device_positions(self) -> torch.Tensor:
+        """The index as an int64 device tensor, materialized lazily."""
+        if self._pos_dev is None:
+            if self._pos_host is None and self._init_geometry is not None:
+                self._pos_dev = self._build_positions_device()
+            else:
+                host = np.asarray(self.kmer_sba_start_indices).astype(np.int64)
+                self._pos_dev = torch.from_numpy(host).to(self.device)
+        return self._pos_dev
+
+    def _dc(self):
+        return self.seq_coll.device_cache("forward")
+
     def _get_unfiltered_kmer_count(self) -> int:
         num_kmers = 0
         num_records = 0
@@ -224,7 +279,7 @@ class Kmers:
                 "sequence_collection.strands_loaded() must be 'forward'"
             )
 
-    def _check_group_params_unsorted(self, min_group_size, max_group_size):
+    def _check_group_params_unsorted(self, min_group_size, max_group_size, yield_first_n=None):
         """Group params require a sorted index."""
         if not self._is_sorted:
             if min_group_size != 1:
@@ -237,29 +292,211 @@ class Kmers:
                 msg += f" sorted. max_group_size ({max_group_size}) cannot be specified. Did you"
                 msg += " mean to run sort() before getting kmers?"
                 raise ValueError(msg)
+            if yield_first_n is not None:
+                msg = "Returning group parameters is not supported when kmers has not been"
+                msg += f" sorted. yield_first_n ({yield_first_n}) cannot be specified. Did you"
+                msg += " mean to run sort() before getting kmers?"
+                raise ValueError(msg)
 
-    def _stats_lanes(self, kmer_len, kmer_filter_func, mesh):
-        """The retained sorted lanes that answer a statistics query, or the
-        NotImplementedError of the part of the engine that would."""
-        if mesh is not None:
-            raise _not_ported("statistics over a mesh (mesh=)", "A11: torch.distributed")
+    @staticmethod
+    def _check_filter_ported(kmer_filter_func):
         if not isinstance(kmer_filter_func, KeepAllFilter):
-            raise _not_ported("statistics with a filter other than keep-all", "A8: filters")
-        if kmer_len is None:
-            raise _not_ported("statistics at kmer_len=None (suffix identity)", "A7: suffix mode")
-        if not self._is_sorted:
-            raise _not_ported("statistics over an unsorted index", "A6: gather path")
-        if self._lanes_cache is None or kmer_len > self._lanes_cache["built_k"]:
-            raise _not_ported(
-                f"statistics at kmer_len ({kmer_len}) beyond the sorted lanes "
-                f"(max_kmer_len {self.max_kmer_len})",
-                "A6: gather path",
-            )
+            raise _not_ported("a filter other than keep-all", "A8: filters")
+
+    # ------------------------------------------------------------------ #
+    # group structure on the device
+    # ------------------------------------------------------------------ #
+
+    def _survivors(self, kmer_filter_func):
+        """The positions a filter keeps and their valid lengths. Only the
+        keep-all filter is ported: every position survives."""
+        self._check_filter_ported(kmer_filter_func)
+        dc = self._dc()
+        positions = self._device_positions()
+        return positions, compute_valid_len(positions, dc.seg_starts, dc.seg_ends)
+
+    def _ensure_lanes(self):
+        """The retained sorted key lanes, rebuilt ONCE from the sorted
+        positions when absent: an assigned index has no sort of this
+        process to retain lanes from. The one key gather makes every later
+        statistics query gather-free."""
+        lanes = self._lanes_cache
+        if lanes is not None or not self._is_sorted or self.max_kmer_len is None:
+            return lanes
+        dc = self._dc()
+        use2 = self.max_kmer_len <= WINDOW2_BASES and dc.packed2 is not None
+        if not use2 and self.max_kmer_len > WINDOW_BASES:
+            return None
+        positions = self._device_positions()
+        if positions.shape[0] <= 1:
+            return None
+        valid_len = compute_valid_len(positions, dc.seg_starts, dc.seg_ends)
+        cap = cap_lengths(valid_len, self.max_kmer_len)
+        if use2:
+            words = build_key2_words(dc.packed2, positions, cap, -(-self.max_kmer_len // 16))
+            uniform = self.min_kmer_len == self.max_kmer_len
+        else:
+            words = build_key_words(dc.packed, positions, cap, -(-self.max_kmer_len // 8))
+            uniform = True  # the 4-bit encoding carries termination in-word
+        self._lanes_cache = {
+            "two_bit": use2,
+            "built_k": self.max_kmer_len,
+            "words": words,
+            "cap": None if uniform else cap,
+        }
         return self._lanes_cache
 
+    def _lanes_fast(self, kmer_len):
+        """The retained sorted lanes when the whole statistics query can
+        run over them (sorted index, bounded kmer_len within the built
+        length), else None."""
+        if not (
+            self._is_sorted
+            and kmer_len is not None
+            # rebuilt lanes are built at max_kmer_len: no rebuild for a
+            # query they could never serve
+            and (self.max_kmer_len is None or kmer_len <= self.max_kmer_len)
+        ):
+            return None
+        lanes = self._ensure_lanes()
+        if lanes is not None and kmer_len <= lanes["built_k"]:
+            return lanes
+        return None
+
+    def _boundary_parts(self, kmer_len, kmer_filter_func):
+        """(surviving positions, group-boundary mask) on the device, in
+        index order. An unsorted index has every k-mer as its own group."""
+        dc = self._dc()
+        surv_pos, surv_vl = self._survivors(kmer_filter_func)
+        m = surv_pos.shape[0]
+        if m == 0:
+            return surv_pos, torch.zeros(0, dtype=torch.bool, device=self.device)
+        if not self._is_sorted:
+            return surv_pos, torch.ones(m, dtype=torch.bool, device=self.device)
+        lanes = self._lanes_fast(kmer_len)
+        if lanes is not None:
+            boundary = boundaries_from_sorted_lanes(
+                lanes["words"], lanes["cap"], kmer_len, lanes["two_bit"]
+            )
+        else:
+            cap = cap_lengths(surv_vl, kmer_len)
+            use2 = kmer_len is not None and kmer_len <= WINDOW2_BASES
+            packed2 = dc.packed2 if use2 else None
+            packed = dc.packed if packed2 is None else None
+            uniform = kmer_len is not None and self.min_kmer_len >= kmer_len
+            boundary = adjacent_boundaries(
+                packed, surv_pos, cap, kmer_len, packed2=packed2, uniform_cap=uniform
+            )
+        return surv_pos, boundary
+
+    def _group_arrays(self, kmer_len, kmer_filter_func, min_group_size, max_group_size,
+                      yield_first_n):
+        """Host arrays for the yielding calls, over the filter's survivors
+        in index order: (kmer numbers, positions, yielded mask, group size
+        yielded, group size total)."""
+        surv_pos, boundary = self._boundary_parts(kmer_len, kmer_filter_func)
+        m = surv_pos.shape[0]
+        if m == 0:
+            empty_u32 = np.zeros(0, dtype=np.uint32)
+            return (np.zeros(0, dtype=np.int64), empty_u32, np.zeros(0, dtype=bool),
+                    empty_u32, empty_u32)
+        _, _, size, rank = group_geometry(boundary)
+        yielded, gsy = selection_masks(size, rank, min_group_size, max_group_size, yield_first_n)
+        return (
+            np.arange(m, dtype=np.int64),
+            surv_pos.cpu().numpy().astype(np.uint32),
+            yielded.cpu().numpy(),
+            gsy.cpu().numpy().astype(np.uint32),
+            size.cpu().numpy().astype(np.uint32),
+        )
+
     # ------------------------------------------------------------------ #
-    # statistics
+    # public queries
     # ------------------------------------------------------------------ #
+
+    def get_kmers(
+        self,
+        kmer_len: Union[int, None],
+        one_based_seq_index: bool = False,
+        kmer_filter_func: Callable = kmer_filter_keep_all,
+        kmer_info_to_yield: str = "minimum",
+        min_group_size: int = 1,
+        max_group_size: Union[int, None] = None,
+        yield_first_n: Union[int, None] = None,
+    ) -> Generator[tuple, None, None]:
+        """Generator of k-mer info tuples: (kmer_num, group_size_yielded,
+        group_size_total), or with ``kmer_info_to_yield="full"`` (kmer_num,
+        strand, record name, seq_start_idx, kmer_len, group_size_yielded,
+        group_size_total)."""
+        self._check_forward_only()
+        if kmer_len is not None and kmer_len < 1:
+            raise ValueError(f"kmer_len ({kmer_len}) must be > 0")
+        self._check_group_params_unsorted(min_group_size, max_group_size, yield_first_n)
+        if kmer_info_to_yield not in ("minimum", "full"):
+            raise ValueError(f"kmer_info_to_yield ({kmer_info_to_yield}) not recognized")
+
+        surv_nums, surv_pos, yielded, gsy, gst = self._group_arrays(
+            kmer_len, kmer_filter_func, min_group_size, max_group_size, yield_first_n
+        )
+        full = kmer_info_to_yield == "full"
+        if full:
+            get_record_info = self.seq_coll.generate_get_record_info_from_sba_index_func(
+                one_based_seq_index
+            )
+        for j in np.flatnonzero(yielded):
+            kmer_num = int(surv_nums[j])
+            if not full:
+                yield (kmer_num, int(gsy[j]), int(gst[j]))
+                continue
+            sba_idx = int(surv_pos[j])
+            _, _, e, seq_strand, seq_chrom, seq_start_idx = get_record_info(sba_idx)
+            if kmer_len is None:
+                out_kmer_len = e - sba_idx + 1
+            else:
+                if sba_idx + kmer_len - 1 > e:
+                    raise ValueError(
+                        f"kmer_len ({kmer_len}) for kmer_num ({kmer_num}) extends beyond the end of the segment"
+                    )
+                out_kmer_len = kmer_len
+            yield (kmer_num, seq_strand, seq_chrom, seq_start_idx, out_kmer_len,
+                   int(gsy[j]), int(gst[j]))
+
+    def get_kmers_arrays(
+        self,
+        kmer_len: Union[int, None],
+        kmer_filter_func: Callable = kmer_filter_keep_all,
+        min_group_size: int = 1,
+        max_group_size: Union[int, None] = None,
+        yield_first_n: Union[int, None] = None,
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Bulk form of ``get_kmers(kmer_info_to_yield="minimum")``:
+        (kmer_nums, sba_start_indices, group_size_yielded, group_size_total)
+        as NumPy arrays in yield order."""
+        self._check_forward_only()
+        if kmer_len is not None and kmer_len < 1:
+            raise ValueError(f"kmer_len ({kmer_len}) must be > 0")
+        self._check_group_params_unsorted(min_group_size, max_group_size, yield_first_n)
+        surv_nums, surv_pos, yielded, gsy, gst = self._group_arrays(
+            kmer_len, kmer_filter_func, min_group_size, max_group_size, yield_first_n
+        )
+        sel = np.flatnonzero(yielded)
+        return (
+            surv_nums[sel].astype(np.int64),
+            surv_pos[sel].astype(np.uint32),
+            gsy[sel].astype(np.int64),
+            gst[sel].astype(np.int64),
+        )
+
+    def _check_stats_args(self, kmer_len, min_group_size, max_group_size):
+        self._check_forward_only()
+        if kmer_len is not None and kmer_len < 1:
+            raise ValueError(f"kmer_len ({kmer_len}) must be > 0")
+        self._check_group_params_unsorted(min_group_size, max_group_size)
+
+    def _check_stats_ported(self, kmer_filter_func, mesh):
+        if mesh is not None:
+            raise _not_ported("statistics over a mesh (mesh=)", "A11: torch.distributed")
+        self._check_filter_ported(kmer_filter_func)
 
     def get_kmer_count(
         self,
@@ -270,15 +507,20 @@ class Kmers:
         mesh=None,
     ) -> int:
         """Total k-mers in groups of size in [min_group_size, max_group_size]
-        at ``kmer_len`` base identity."""
-        self._check_forward_only()
-        if kmer_len is not None and kmer_len < 1:
-            raise ValueError(f"kmer_len ({kmer_len}) must be > 0")
-        self._check_group_params_unsorted(min_group_size, max_group_size)
-        lanes = self._stats_lanes(kmer_len, kmer_filter_func, mesh)
-        return lanes_group_total(
-            lanes["words"], lanes["cap"], min_group_size, max_group_size, kmer_len
-        )
+        at ``kmer_len`` base identity. On an unsorted index every k-mer is
+        its own group."""
+        self._check_stats_args(kmer_len, min_group_size, max_group_size)
+        self._check_stats_ported(kmer_filter_func, mesh)
+        lanes = self._lanes_fast(kmer_len)
+        if lanes is not None:
+            return lanes_group_total(
+                lanes["words"], lanes["cap"], min_group_size, max_group_size, kmer_len,
+                lanes["two_bit"],
+            )
+        _, boundary = self._boundary_parts(kmer_len, kmer_filter_func)
+        if boundary.shape[0] == 0:
+            return 0
+        return sizes_digest(boundary, min_group_size, max_group_size)[2]
 
     def get_kmer_group_counts(
         self,
@@ -292,20 +534,103 @@ class Kmers:
         """Histogram of group sizes (int64, max_counts_bin + 1 bins, larger
         groups in the top bin) and the total k-mer count of the qualifying
         groups."""
-        self._check_forward_only()
-        if kmer_len is not None and kmer_len < 1:
-            raise ValueError(f"kmer_len ({kmer_len}) must be > 0")
-        self._check_group_params_unsorted(min_group_size, max_group_size)
+        self._check_stats_args(kmer_len, min_group_size, max_group_size)
         if not self._is_sorted:
             raise AssertionError("The kmers must be sorted when calling get_kmer_group_counts")
         if max_counts_bin <= 0:
             raise ValueError(f"max_counts_bin ({max_counts_bin}) must be >= 1")
-        lanes = self._stats_lanes(kmer_len, kmer_filter_func, mesh)
-        size, qualifies, total = lanes_sizes_digest(
-            lanes["words"], lanes["cap"], kmer_len, min_group_size, max_group_size
-        )
+        self._check_stats_ported(kmer_filter_func, mesh)
+        lanes = self._lanes_fast(kmer_len)
+        if lanes is not None:
+            size, qualifies, total = lanes_sizes_digest(
+                lanes["words"], lanes["cap"], kmer_len, min_group_size, max_group_size,
+                lanes["two_bit"],
+            )
+        else:
+            _, boundary = self._boundary_parts(kmer_len, kmer_filter_func)
+            if boundary.shape[0] == 0:
+                return np.zeros(max_counts_bin + 1, dtype=np.int64), 0
+            size, qualifies, total = sizes_digest(boundary, min_group_size, max_group_size)
         counts = hist_from_sizes(size, qualifies, max_counts_bin)
         return counts.cpu().numpy().astype(np.int64), total
+
+    # ------------------------------------------------------------------ #
+    # k-mer strings (host)
+    # ------------------------------------------------------------------ #
+
+    def _segment_ends(self, pos: np.ndarray) -> np.ndarray:
+        """Inclusive SBA end of the segment of each int64 position."""
+        seg_starts = self.seq_coll._forward_sba_seg_starts.astype(np.int64)
+        seg_ids = np.searchsorted(seg_starts, pos, side="right") - 1
+        return np.where(
+            seg_ids == len(seg_starts) - 1,
+            len(self.seq_coll.forward_sba) - 1,
+            seg_starts[np.minimum(seg_ids + 1, len(seg_starts) - 1)] - 2,
+        )
+
+    def get_kmer_strs(self, kmer_nums, kmer_len: Union[int, None]) -> list:
+        """Decode many k-mers at once. A k-mer running past its segment end
+        raises like ``get_kmer_str``; ``kmer_len=None`` decodes each k-mer
+        at its natural length, min(max_kmer_len, bases to segment end)."""
+        if kmer_len is not None and kmer_len < 1:
+            raise ValueError(f"kmer_len ({kmer_len}) must be a positive int")
+        self._check_forward_only()
+        nums = np.asarray(kmer_nums, dtype=np.int64)
+        if nums.size == 0:
+            return []
+        if (nums < 0).any() or (nums >= len(self)).any():
+            raise ValueError("kmer_num out of bounds")
+        pos = self.kmer_sba_start_indices[nums].astype(np.int64)
+        sba = self.seq_coll.forward_sba
+        seg_e = self._segment_ends(pos)
+        if kmer_len is None:
+            lens = seg_e - pos + 1
+            if self.max_kmer_len is not None:
+                lens = np.minimum(lens, self.max_kmer_len)
+            offsets = np.zeros(len(pos) + 1, dtype=np.int64)
+            np.cumsum(lens, out=offsets[1:])
+            idx = np.repeat(pos - offsets[:-1], lens) + np.arange(offsets[-1], dtype=np.int64)
+            b = sba[idx].tobytes()
+            return [b[offsets[r] : offsets[r + 1]].decode("ascii") for r in range(len(pos))]
+        if (pos + kmer_len - 1 > seg_e).any():
+            bad = int(nums[np.flatnonzero(pos + kmer_len - 1 > seg_e)[0]])
+            raise ValueError(
+                f"kmer_len ({kmer_len}) for kmer_num ({bad}) extends beyond the end of the segment"
+            )
+        block = np.empty((len(pos), kmer_len), dtype=np.uint8)
+        for j in range(kmer_len):
+            block[:, j] = sba[pos + j]
+        return block.view(f"S{kmer_len}").ravel().astype(f"U{kmer_len}").tolist()
+
+    def get_kmer_str(self, kmer_num: int, kmer_len: Union[int, None] = None) -> str:
+        self._check_forward_only()
+        if kmer_num < 0:
+            raise ValueError(f"kmer_num ({kmer_num}) cannot be less than zero")
+        if kmer_num >= len(self):
+            raise ValueError(f"kmer_num ({kmer_num}) is out of bounds (num kmers = {len(self)})")
+        if kmer_len is not None and kmer_len < self.min_kmer_len:
+            raise ValueError(
+                f"kmer_len ({kmer_len}) is less than min_kmer_len ({self.min_kmer_len})"
+            )
+        if self.max_kmer_len is not None and kmer_len is not None and kmer_len > self.max_kmer_len:
+            raise ValueError(
+                f"kmer_len ({kmer_len}) is greater than max_kmer_len ({self.max_kmer_len})"
+            )
+        sba_start_idx = int(self.kmer_sba_start_indices[kmer_num])
+        seg_num = self.seq_coll.get_segment_num_from_sba_index(sba_start_idx)
+        _, sba_seg_end_idx = self.seq_coll.get_sba_start_end_indices_for_segment(seg_num)
+        if kmer_len is None:
+            largest_kmer_len = sba_seg_end_idx - sba_start_idx + 1
+            if self.max_kmer_len is None:
+                kmer_len = largest_kmer_len
+            else:
+                kmer_len = min(self.max_kmer_len, largest_kmer_len)
+        if sba_start_idx + kmer_len - 1 > sba_seg_end_idx:
+            raise ValueError(
+                f"kmer_len ({kmer_len}) for kmer_num ({kmer_num}) extends beyond the end of the segment"
+            )
+        sba = self.seq_coll.forward_sba
+        return bytearray(sba[sba_start_idx : sba_start_idx + kmer_len]).decode("utf-8")
 
     # ------------------------------------------------------------------ #
     # sort
@@ -315,38 +640,57 @@ class Kmers:
         """Sort the index lexicographically by the k-mers it defines, on the
         collection's device. Equal k-mers end up ordered by start index.
 
-        Only the fresh index of an ACGT genome with a bounded
-        ``max_kmer_len <= 64`` sorts here: the pack, a shifted-slice key
-        build and stable sorts over every SBA position
-        (ops/sort.sort_positions_dense). The sorted key lanes are retained
-        for the statistics calls."""
+        The fresh index sorts gather-free over every SBA position
+        (ops/sort.sort_positions_dense): 2-bit keys at max_kmer_len <= 64
+        on an ACGT genome, else 4-bit keys at max_kmer_len <= 32. Any other
+        index (a re-sort, an assigned ``kmer_sba_start_indices``) sorts by
+        gathered keys with the position as the last key
+        (ops/sort.sort_positions). The sorted key lanes are retained for
+        the statistics calls."""
         self._check_forward_only()
         if mesh is not None:
             raise _not_ported("Kmers.sort(mesh=...)", "A11: torch.distributed")
-        if self._init_geometry is None:
-            raise _not_ported(
-                "sorting an index that is not the fresh one (a re-sort or an "
-                "assigned kmer_sba_start_indices)",
-                "A6: gather path",
+        self._lanes_cache = None  # every branch below re-establishes or clears
+        dc = self._dc()
+        uniform = self.max_kmer_len is not None and self.min_kmer_len == self.max_kmer_len
+
+        if self._init_geometry is not None and int(self._init_geometry[2]) > 1:
+            use2 = (
+                self.max_kmer_len is not None
+                and self.max_kmer_len <= WINDOW2_BASES
+                and dc.packed2 is not None
             )
-        if self.max_kmer_len is None or self.max_kmer_len > 64:
-            raise _not_ported(
-                f"sorting at max_kmer_len ({self.max_kmer_len}) beyond 64 bases",
-                "A7: suffix mode",
+            limit = WINDOW2_BASES if use2 else WINDOW_BASES
+            if self.max_kmer_len is None or self.max_kmer_len > limit:
+                raise _not_ported(
+                    f"sorting at max_kmer_len ({self.max_kmer_len}) beyond {limit} bases "
+                    f"on {'2' if use2 else '4'}-bit keys",
+                    "A7: suffix mode",
+                )
+            self._pos_dev, self._lanes_cache = sort_positions_dense(
+                dc.packed2 if use2 else dc.packed, dc.seg_starts, dc.seg_ends,
+                int(self._init_geometry[2]), self.min_kmer_len, self.max_kmer_len,
+                two_bit=use2,
             )
-        dc = self.seq_coll.device_cache("forward")
-        packed2 = dc.packed2
-        if packed2 is None:
-            raise _not_ported(
-                "sorting a genome with bases other than A, C, G, T (4-bit keys)",
-                "A3: the 4-bit pack and sort",
+        else:
+            positions = self._device_positions()
+            valid_len = compute_valid_len(positions, dc.seg_starts, dc.seg_ends)
+            if self.min_kmer_len > 1:
+                vl_min = int(valid_len.min()) if positions.shape[0] else self.min_kmer_len
+                if vl_min < self.min_kmer_len:
+                    raise AssertionError(
+                        f"kmers compared were less than min_kmer_len ({self.min_kmer_len}).  Was kmer_sba_start_indices initialized correctly?"
+                    )
+            # 2-bit keys whenever the alphabet allows; only then is the
+            # 4-bit pack never built
+            packed2 = dc.packed2
+            packed = dc.packed if packed2 is None else None
+            self._pos_dev, self._lanes_cache = sort_positions(
+                packed, positions, cap_lengths(valid_len, self.max_kmer_len),
+                self.max_kmer_len, packed2=packed2, uniform_cap=uniform,
             )
-        self._pos_dev, self._lanes_cache = sort_positions_dense(
-            packed2, dc.seg_starts, dc.seg_ends, int(self._init_geometry[2]),
-            self.min_kmer_len, self.max_kmer_len,
-        )
         self._pos_host = None
-        self._init_geometry = None
+        self._init_geometry = None  # no longer describes the (sorted) order
         self._is_sorted = True
 
     # ------------------------------------------------------------------ #

@@ -1,12 +1,20 @@
 """Base encodings for the PyTorch k-mer engine (host tables, NumPy only).
 
-Counterpart of ``genome_kmers_tpu/ops/encoding.py``, restricted to what the
-2-bit path needs. On an ACGT genome each base maps to a 2-bit rank
-(A0 C1 G2 T3) and 16 ranks pack big-endian into one uint32 word, so
+Counterpart of ``genome_kmers_tpu/ops/encoding.py``. The 15 IUPAC codes
+and the '$' record separator are 16 symbols whose ASCII order
+
+    $ < A < B < C < D < G < H < K < M < N < R < S < T < V < W < Y
+
+is the comparison order of k-mers, so each byte maps to a 4-bit rank
+('$' 0, A 1, ... Y 15) and 8 ranks pack big-endian into one uint32 word:
 unsigned comparison of packed words is byte-wise lexicographic comparison
-of the bases. With rank(A) = 0, zero padding past a segment end looks like
-a run of As, so the 2-bit sort carries the compare cap as an explicit key
-lane (see ops/sort.py).
+of the bases, and rank 0 past a segment end gives "the shorter of two equal
+prefixes is smaller" for free.
+
+On an ACGT genome each base maps to a 2-bit rank (A0 C1 G2 T3) instead and
+16 ranks pack into one word. With rank(A) = 0, zero padding past a segment
+end looks like a run of As, so the 2-bit sort carries the compare cap as an
+explicit key lane (see ops/sort.py).
 """
 
 from __future__ import annotations
@@ -24,6 +32,22 @@ COMPLEMENT_PAIRS = {
 COMPLEMENT_TABLE = np.zeros(256, dtype=np.uint8)
 for _k, _v in COMPLEMENT_PAIRS.items():
     COMPLEMENT_TABLE[ord(_k)] = ord(_v)
+
+# The 16 allowed symbols in ASCII (== comparison) order.
+ALLOWED_CHARS = "$ABCDGHKMNRSTVWY"
+
+# uint8 byte -> 4-bit rank. Other bytes map to 0; SequenceCollection rejects
+# them, so they never reach the device.
+RANK_TABLE = np.zeros(256, dtype=np.uint8)
+for _i, _c in enumerate(ALLOWED_CHARS):
+    RANK_TABLE[ord(_c)] = _i
+
+BASES_PER_WORD = 8  # 8 nibbles per uint32
+
+# NIBBLE_MASKS[r] keeps the top r nibbles of a packed word (r in [0, 8]).
+NIBBLE_MASKS = np.zeros(9, dtype=np.uint32)
+for _r in range(9):
+    NIBBLE_MASKS[_r] = (0xFFFFFFFF << (4 * (8 - _r))) & 0xFFFFFFFF if _r else 0
 
 # uint8 byte -> 2-bit rank; every other byte ('$', 'N', ...) maps to 0.
 RANK2_TABLE = np.zeros(256, dtype=np.uint8)

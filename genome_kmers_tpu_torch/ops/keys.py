@@ -1,22 +1,37 @@
 """K-mer key construction on torch tensors.
 
-Counterpart of ``genome_kmers_tpu/ops/keys.py`` for the 2-bit path. A k-mer
-is identified by its start position in the SBA; its sort key is the 2-bit
-ranks of its bases, zeroed at and past its compare cap (min(valid_len, k)).
+Counterpart of ``genome_kmers_tpu/ops/keys.py``. A k-mer is identified by
+its start position in the SBA; its sort key is the ranks of its bases,
+zeroed at and past its compare cap (min(valid_len, k)): 2-bit ranks, 16 to
+a word, on an ACGT genome, else 4-bit ranks, 8 to a word.
 
 Conventions: torch's unsigned types do not support shifts, compares,
 ``where``, ``cummax``, ``scatter_reduce`` or ``searchsorted``, and int32
-shifts are arithmetic, so key lanes are int64 tensors holding uint32 values.
-The 2-bit pack itself is an int32 tensor holding the uint32 bit pattern
-(4 bytes a position); ``widen_u32`` turns it into such an int64 lane before
-any shift or compare.
+shifts are arithmetic. So a uint32 word is held in one of two forms:
+
+* an **int32 bit pattern** (4 bytes a row): the packs, every key word this
+  module builds, and the lanes the multi-lane sort takes and returns.
+  Masking and equality are right on bit patterns; order and shifts are not.
+* an **int64 lane holding the uint32 value**: what the 2-bit dense sort
+  works on, because it shifts and compares. ``widen_u32`` goes from the
+  first form to the second, ``u32_bits_as_int32`` back.
+
+Positions, lengths and caps are int64 tensors.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .encoding import BASES_PER_WORD2, DIBIT_MASKS, RANK2_TABLE
+from .encoding import (
+    BASES_PER_WORD,
+    BASES_PER_WORD2,
+    DIBIT_MASKS,
+    NIBBLE_MASKS,
+    RANK2_TABLE,
+    RANK_TABLE,
+)
 
 _U32 = 0xFFFFFFFF
 
@@ -31,6 +46,26 @@ def u32_bits_as_int32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
+def _mask_table(masks_u32: np.ndarray, device) -> torch.Tensor:
+    """A uint32 mask table as int32 bit patterns on ``device``."""
+    return torch.as_tensor(masks_u32.view(np.int32), device=device)
+
+
+def _pack_ranks(sba_u8: torch.Tensor, rank_table: np.ndarray, per_word: int) -> torch.Tensor:
+    """out[i] = ranks of bytes i..i+per_word-1, packed big-endian into a
+    uint32 (32 // per_word bits a rank), as its int32 bit pattern; positions
+    past the end of the array rank 0."""
+    n = sba_u8.shape[0]
+    bits = 32 // per_word
+    table = torch.as_tensor(rank_table, device=sba_u8.device).to(torch.int64)
+    padded = torch.zeros(n + per_word - 1, dtype=torch.int64, device=sba_u8.device)
+    padded[:n] = table[sba_u8.to(torch.int64)]
+    out = torch.zeros(n, dtype=torch.int64, device=sba_u8.device)
+    for j in range(per_word):
+        out |= padded[j : j + n] << (bits * (per_word - 1 - j))
+    return u32_bits_as_int32(out)
+
+
 def pack_rank2_words(sba_u8: torch.Tensor) -> torch.Tensor:
     """P2[i] = 2-bit ranks of bytes i..i+15, packed big-endian into a uint32
     (returned as its int32 bit pattern). Bytes other than ACGT rank 0, and
@@ -38,14 +73,14 @@ def pack_rank2_words(sba_u8: torch.Tensor) -> torch.Tensor:
 
     The plain version of the CUDA kernel ``kernels/pack2.py``, which must be
     bit-identical to it at every position."""
-    n = sba_u8.shape[0]
-    table = torch.as_tensor(RANK2_TABLE, device=sba_u8.device).to(torch.int64)
-    padded = torch.zeros(n + BASES_PER_WORD2 - 1, dtype=torch.int64, device=sba_u8.device)
-    padded[:n] = table[sba_u8.to(torch.int64)]
-    out = torch.zeros(n, dtype=torch.int64, device=sba_u8.device)
-    for j in range(BASES_PER_WORD2):
-        out |= padded[j : j + n] << (2 * (BASES_PER_WORD2 - 1 - j))
-    return u32_bits_as_int32(out)
+    return _pack_ranks(sba_u8, RANK2_TABLE, BASES_PER_WORD2)
+
+
+def pack_rank_words(sba_u8: torch.Tensor) -> torch.Tensor:
+    """P[i] = 4-bit ranks of bytes i..i+7, nibble-packed big-endian into a
+    uint32 (returned as its int32 bit pattern); positions past the end of
+    the array pack as 0, like '$'."""
+    return _pack_ranks(sba_u8, RANK_TABLE, BASES_PER_WORD)
 
 
 def compute_seg_ends(seg_starts: torch.Tensor, sba_len: int) -> torch.Tensor:
@@ -55,12 +90,17 @@ def compute_seg_ends(seg_starts: torch.Tensor, sba_len: int) -> torch.Tensor:
     return torch.cat([seg_starts[1:] - 2, last])
 
 
+def segment_ids_for_positions(positions: torch.Tensor, seg_starts: torch.Tensor) -> torch.Tensor:
+    """Batched segment lookup: searchsorted(seg_starts, pos, 'right') - 1."""
+    return torch.searchsorted(seg_starts, positions, right=True) - 1
+
+
 def compute_valid_len(
     positions: torch.Tensor, seg_starts: torch.Tensor, seg_ends: torch.Tensor
 ) -> torch.Tensor:
     """Number of real bases from each position to the end of its segment:
     seg_end(segment containing p) - p + 1."""
-    seg_ids = torch.searchsorted(seg_starts, positions, right=True) - 1
+    seg_ids = segment_ids_for_positions(positions, seg_starts)
     return seg_ends[seg_ids] - positions + 1
 
 
@@ -78,18 +118,81 @@ def valid_len_all(seg_starts: torch.Tensor, seg_ends: torch.Tensor, length: int)
     return compute_valid_len(iota, seg_starts, seg_ends)
 
 
-def build_key2_words_dense(packed2: torch.Tensor, cap_len: torch.Tensor, n_words: int):
-    """2-bit key words (int64 lanes of uint32 values) for every position
-    0..L-1 of the int32 2-bit pack: word w of position p is the pack at
-    p + 16w (0 past the end), a shifted slice and no gather, with the fields
-    at and past ``cap_len`` zeroed."""
-    length = packed2.shape[0]
-    masks = torch.as_tensor(DIBIT_MASKS.astype("int64"), device=packed2.device)
+def cap_lengths(valid_len: torch.Tensor, max_kmer_len) -> torch.Tensor:
+    """min(valid_len, max_kmer_len), with max_kmer_len=None meaning unbounded."""
+    if max_kmer_len is None:
+        return valid_len
+    return torch.clamp_max(valid_len, max_kmer_len)
+
+
+# --------------------------------------------------------------------------- #
+# dense key builds: key words for EVERY position 0..L-1 at once. Word w of
+# position p is the pack at p + per_word * w, a shifted slice and no gather.
+# --------------------------------------------------------------------------- #
+
+
+def _dense_words(packed: torch.Tensor, cap_len, n_words: int, per_word: int, masks_u32):
+    """int32 bit-pattern key words for every position of the int32 pack,
+    zero past its end, with the fields at and past ``cap_len`` zeroed."""
+    length = packed.shape[0]
+    masks = _mask_table(masks_u32, packed.device)
     words = []
     for w in range(n_words):
-        off = BASES_PER_WORD2 * w
-        word = torch.zeros(length, dtype=torch.int64, device=packed2.device)
-        word[: max(length - off, 0)] = widen_u32(packed2[off:])
-        keep = torch.clamp(cap_len - off, 0, BASES_PER_WORD2)
+        off = per_word * w
+        word = torch.zeros(length, dtype=torch.int32, device=packed.device)
+        word[: max(length - off, 0)] = packed[off:]
+        keep = torch.clamp(cap_len - off, 0, per_word)
         words.append(word & masks[keep])
     return tuple(words)
+
+
+def build_key2_words_dense(packed2: torch.Tensor, cap_len, n_words: int):
+    """2-bit key words for every position 0..L-1, as int64 lanes of uint32
+    values (the dense 2-bit sort shifts and compares them)."""
+    words = _dense_words(packed2, cap_len, n_words, BASES_PER_WORD2, DIBIT_MASKS)
+    return tuple(widen_u32(w) for w in words)
+
+
+def build_key_words_dense(packed: torch.Tensor, cap_len, n_words: int):
+    """4-bit key words for every position 0..L-1, as int32 bit patterns.
+    Equal to ``build_key_words(packed, arange(L), cap_len, n_words)``."""
+    return _dense_words(packed, cap_len, n_words, BASES_PER_WORD, NIBBLE_MASKS)
+
+
+# --------------------------------------------------------------------------- #
+# gathered key builds: key words for an arbitrary set of positions
+# --------------------------------------------------------------------------- #
+
+
+def _gathered_words(packed, positions, cap_len, n_words: int, offset: int, per_word: int,
+                    masks_u32):
+    """int32 bit-pattern key words per position: word w covers the bases
+    [offset + per_word * w, offset + per_word * (w + 1)) from the position,
+    read from the pack with the index clipped to its last entry, and the
+    fields at and past ``cap_len`` bases from the position zeroed."""
+    masks = _mask_table(masks_u32, packed.device)
+    last = packed.shape[0] - 1
+    words = []
+    for w in range(n_words):
+        off = offset + per_word * w
+        word = packed[torch.clamp_max(positions + off, last)]
+        keep = torch.clamp(cap_len - off, 0, per_word)
+        words.append(word & masks[keep])
+    return tuple(words)
+
+
+def build_key_words(packed, positions, cap_len, n_words: int, offset: int = 0):
+    """``n_words`` 4-bit key words for each position (int32 bit patterns).
+    Nibbles at or beyond ``cap_len`` are zero, so comparison ends exactly
+    where the k-mer does."""
+    return _gathered_words(
+        packed, positions, cap_len, n_words, offset, BASES_PER_WORD, NIBBLE_MASKS
+    )
+
+
+def build_key2_words(packed2, positions, cap_len, n_words: int, offset: int = 0):
+    """``n_words`` 2-bit key words for each position (int32 bit patterns);
+    the cap itself must ride as a separate key lane."""
+    return _gathered_words(
+        packed2, positions, cap_len, n_words, offset, BASES_PER_WORD2, DIBIT_MASKS
+    )

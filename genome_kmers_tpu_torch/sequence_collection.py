@@ -4,9 +4,9 @@ Counterpart of ``genome_kmers_tpu/sequence_collection.py``. The host side
 is the same NumPy code with the same error strings: records joined by '$'
 into one ASCII "sequence byte array" (SBA), uint32 segment starts, record
 names in read order. The device side is a ``_DeviceCache`` of torch tensors
-on the collection's explicit ``device``: the segment starts and ends and,
-on an ACGT genome, the 2-bit pack, built on a CUDA device by the hand
-written kernel ``kernels/pack2.py``.
+on the collection's explicit ``device``: the segment starts and ends, the
+2-bit pack of an ACGT genome, built on a CUDA device by the hand written
+kernel ``kernels/pack2.py``, and the 4-bit pack that any genome has.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 from .io.fasta import _get_fasta_record_name, parse_fasta_file
 from .kernels.pack2 import pack_rank2_words_cuda
 from .ops.encoding import reverse_complement_bytes
-from .ops.keys import compute_seg_ends
+from .ops.keys import compute_seg_ends, pack_rank_words
 
 
 def resolve_device(device) -> torch.device:
@@ -90,8 +90,8 @@ def get_sba_start_end_indices_for_segment(
 
 class _DeviceCache:
     """Lazily built device tensors of one strand's SBA: the raw bytes, the
-    segment starts and ends (int64) and the 2-bit pack (int32 bit patterns
-    of uint32 words)."""
+    segment starts and ends (int64) and the 2-bit and 4-bit packs (int32
+    bit patterns of uint32 words)."""
 
     def __init__(self, sba: np.ndarray, seg_starts: np.ndarray, device: torch.device):
         self._sba_np = sba
@@ -99,6 +99,7 @@ class _DeviceCache:
         self.device = device
         self._is_acgt_only = None
         self._sba_dev = None
+        self._packed = None
         self._packed2 = None
         self._seg_starts_dev = None
         self._seg_ends_dev = None
@@ -121,6 +122,14 @@ class _DeviceCache:
             present = set(np.flatnonzero(counts))
             self._is_acgt_only = present <= {ord(c) for c in "ACGT$"}
         return self._is_acgt_only
+
+    @property
+    def packed(self) -> torch.Tensor:
+        """4-bit packed words, from the uploaded bytes (plain tensor ops, as
+        the JAX package computes them outside any kernel)."""
+        if self._packed is None:
+            self._packed = pack_rank_words(self.sba)
+        return self._packed
 
     @property
     def packed2(self):

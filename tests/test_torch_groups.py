@@ -5,7 +5,9 @@ segment starts, record names, sorted positions and retained lanes) is
 carried into the port with ``interop.from_numpy_state``. The port's
 ``boundaries_from_sorted_lanes`` (at every kmer_len up to the built
 length), group sizes, histograms and totals must then equal the JAX
-package's exactly, on a random genome and a tiled repeat with heavy ties.
+package's exactly, on a random genome and a tiled repeat with heavy ties,
+and on an IUPAC genome's 4-bit lanes. ``group_geometry`` and
+``selection_masks`` are held against the JAX functions on seeded masks.
 """
 
 import numpy as np
@@ -13,12 +15,18 @@ import pytest
 import torch
 
 import genome_kmers_tpu as gj
+import jax.numpy as jnp
+
+from genome_kmers_tpu.ops.groups import group_geometry as jax_group_geometry
 from genome_kmers_tpu.ops.groups import group_sizes_at_boundaries as jax_group_sizes
+from genome_kmers_tpu.ops.groups import selection_masks as jax_selection_masks
 from genome_kmers_tpu.ops.sort import boundaries_from_sorted_lanes as jax_boundaries
 from genome_kmers_tpu_torch.interop import from_numpy_state
 from genome_kmers_tpu_torch.ops.groups import (
+    group_geometry,
     group_sizes_at_boundaries,
     lanes_group_total,
+    selection_masks,
 )
 from genome_kmers_tpu_torch.ops.sort import boundaries_from_sorted_lanes
 
@@ -30,6 +38,10 @@ def _seq_list(kind: str, min_len: int):
     """Seeded records, one of them only ``min_len + 2`` bases long."""
     rng = np.random.default_rng(5 if kind == "random" else 6)
     short = ("s", "".join(rng.choice(list("ACGT"), size=min_len + 2)))
+    if kind == "iupac":
+        probs = [0.22] * 4 + [0.04] * 3
+        return [("i0", "".join(rng.choice(list("ACGTNRY"), p=probs, size=300))),
+                ("i1", "ACGT" + "N" * 80 + "ACGTT" + "N" * 45), ("i2", "Y" * 60), short]
     if kind == "random":
         lens = (400, 60, 150)
         records = [(f"r{i}", "".join(rng.choice(list("ACGT"), size=n))) for i, n in enumerate(lens)]
@@ -51,7 +63,7 @@ def _pair(kind, mn, mx):
         positions=km.kmer_sba_start_indices,
         words=[np.asarray(w) for w in lanes["words"]],
         cap=None if lanes["cap"] is None else np.asarray(lanes["cap"]),
-        device="cpu",
+        two_bit=lanes["two_bit"], device="cpu",
     )
     return km, tkm
 
@@ -71,6 +83,48 @@ def test_boundaries_and_sizes_at_every_kmer_len(kind, mn, mx):
         assert lanes_group_total(t_lanes["words"], t_lanes["cap"], 1, None, kmer_len) == len(km)
         j_total = int(km.get_kmer_count(kmer_len, min_group_size=2))
         assert lanes_group_total(t_lanes["words"], t_lanes["cap"], 2, None, kmer_len) == j_total
+
+
+@pytest.mark.parametrize("mn,mx", [(3, 3), (31, 31), (4, 20), (12, 32)])
+def test_4bit_boundaries_and_sizes_at_every_kmer_len(mn, mx):
+    km, tkm = _pair("iupac", mn, mx)
+    j_lanes, t_lanes = km._lanes_cache, tkm._lanes_cache
+    assert t_lanes["two_bit"] is j_lanes["two_bit"] is False and t_lanes["cap"] is None
+    for kmer_len in range(1, mx + 1):
+        want = jax_boundaries(j_lanes["words"], None, kmer_len, False)
+        got = boundaries_from_sorted_lanes(t_lanes["words"], None, kmer_len, two_bit=False)
+        assert np.array_equal(got.numpy(), np.asarray(want)), kmer_len
+        for mgs in (1, 2):
+            total = lanes_group_total(t_lanes["words"], None, mgs, None, kmer_len, two_bit=False)
+            assert total == int(km.get_kmer_count(kmer_len, min_group_size=mgs))
+    for mcb in MAX_COUNTS_BINS:
+        want, want_total = km.get_kmer_group_counts(mx, max_counts_bin=mcb)
+        got, got_total = tkm.get_kmer_group_counts(mx, max_counts_bin=mcb)
+        assert np.array_equal(got, want) and got_total == want_total
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_group_geometry_and_selection_masks_match_jax(seed):
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(1, 400))
+    mask = rng.random(n) < (0.15, 0.5, 0.9)[seed % 3]
+    mask[0] = True
+    got = group_geometry(torch.from_numpy(mask))
+    want = jax_group_geometry(jnp.asarray(mask))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int64
+        assert np.array_equal(g.numpy(), np.asarray(w).astype(np.int64))
+    _, _, size, rank = got
+    _, _, j_size, j_rank = want
+    none = jnp.uint32(0xFFFFFFF0)  # how the JAX package passes "unbounded"
+    for mgs, xgs, yfn in [(1, None, None), (2, None, None), (1, 3, None), (2, 5, 1), (1, None, 2)]:
+        yielded, gsy = selection_masks(size, rank, mgs, xgs, yfn)
+        j_yielded, j_gsy = jax_selection_masks(
+            jnp.asarray(mask), j_size, j_rank, jnp.uint32(mgs),
+            none if xgs is None else jnp.uint32(xgs), none if yfn is None else jnp.uint32(yfn),
+        )
+        assert np.array_equal(yielded.numpy(), np.asarray(j_yielded))
+        assert np.array_equal(gsy.numpy(), np.asarray(j_gsy).astype(np.int64))
 
 
 @pytest.mark.parametrize("kind", ["random", "tiled"])

@@ -1,11 +1,14 @@
-"""The port's slice end to end against the JAX package's Kmers, on the CPU.
+"""The port's slices end to end against the JAX package's Kmers, on the CPU.
 
 FASTA or sequence list -> SequenceCollection -> Kmers(min, max) -> sort()
--> get_kmer_group_counts / get_kmer_count, on the ``tests/oracle.py``
-sweeps, against both the JAX package and the brute-force string oracle;
-the constructors' error messages verbatim; NotImplementedError, naming a
-ROADMAP.md item, for every call outside the slice; and the device rules.
-Tolerance: exact equality.
+-> get_kmer_group_counts / get_kmer_count, for ACGT genomes (2-bit keys)
+and genomes with N runs and IUPAC codes (4-bit keys), on the
+``tests/oracle.py`` sweeps, against both the JAX package and the
+brute-force string oracle; the gather path (re-sorts, assigned indices,
+unsorted counts, statistics beyond the sorted lanes, ``get_kmers``,
+``get_kmers_arrays``, ``get_kmer_strs``); the constructors' error messages
+verbatim; NotImplementedError, naming a ROADMAP.md item, for every call
+outside the slices; and the device rules. Tolerance: exact equality.
 """
 
 import numpy as np
@@ -15,18 +18,25 @@ import torch
 import genome_kmers_tpu as gj
 import genome_kmers_tpu_torch as gt
 from genome_kmers_tpu.io.fasta import iter_fasta_records as jax_iter_fasta_records
+from genome_kmers_tpu_torch.interop import from_numpy_state
 from genome_kmers_tpu_torch.io.fasta import iter_fasta_records
 from genome_kmers_tpu_torch.ops.filters import KmerFilter
-from oracle import expected_hist, expected_kmers, parameter_combinations
+from oracle import expected_groups, expected_hist, expected_kmers, parameter_combinations
 
 SEQ_LIST_1 = [("chr1", "ATCGAATTAG")]
 SEQ_LIST_2 = [("chr1", "ATCGAATTAG"), ("chr2", "GGATCTTGCATT"), ("chr3", "GTGATTGACCCCT")]
-SEQ_LISTS = {"one": SEQ_LIST_1, "three": SEQ_LIST_2}
+SEQ_LIST_IUPAC = [("chr1", "ATCGNNTTAG"), ("chr2", "GGRYCTTGCNNT"), ("chr3", "GTGATNNNNNCCT")]
+SEQ_LISTS = {"one": SEQ_LIST_1, "three": SEQ_LIST_2, "iupac": SEQ_LIST_IUPAC}
 
 FASTA_TEXT = (
     ">chr1 first record\nACGTACGTAC\nGGTTAACC\n"
     ">chr2\r\nacgtTTTT\r\nGGGGCCCCAAAA\r\n"
     ">chr3 desc\nTTTTTTTTTTTTTTTTTTTTTTTTTTTTTTTTTT\n"
+)
+FASTA_TEXT_IUPAC = (
+    ">chr1 with a gap\nACGTACGTACNNNNNNNNNNNNNNNNNNNNNNNNNNNNNNNNNNNNNNNN\nNNNNGGTTAACC\n"
+    ">chr2\r\nacgtTTTTRYKM\r\nGGGGCCCCAAAAnnnnBDHVSW\r\n"
+    ">chr3 desc\nYYYYYYYYYYYYYYYYYYYYYYYYYYYYYYYYYYYYYYYYYY\n"
 )
 
 
@@ -169,6 +179,258 @@ def test_fasta_to_statistics_matches_jax(tmp_path):
         assert tkm.get_kmer_count(kmer_len) == jkm.get_kmer_count(kmer_len)
 
 
+def test_iupac_fasta_to_statistics_matches_jax(tmp_path):
+    """N runs (all-N k-mers tie in one large group), IUPAC codes, and a
+    run of 'Y', whose 4-bit words are all-ones."""
+    path = tmp_path / "genome.fa"
+    path.write_bytes(FASTA_TEXT_IUPAC.encode())
+    for mn, mx in ((31, 31), (5, 31), (12, 32), (3, 7)):
+        jkm = gj.Kmers(gj.SequenceCollection(fasta_file_path=path), mn, mx)
+        tkm = gt.Kmers(_tsc(fasta_file_path=path), mn, mx)
+        jkm.sort()
+        tkm.sort()
+        assert np.array_equal(tkm.kmer_sba_start_indices, jkm.kmer_sba_start_indices)
+        j_lanes, t_lanes = jkm._lanes_cache, tkm._lanes_cache
+        assert t_lanes["two_bit"] is j_lanes["two_bit"] is False
+        assert t_lanes["cap"] is None and j_lanes["cap"] is None
+        for g, w in zip(t_lanes["words"], j_lanes["words"]):
+            assert g.dtype == torch.int32
+            assert np.array_equal(g.numpy().view(np.uint32), np.asarray(w))
+        for kmer_len in sorted({1, mn, (mn + mx) // 2, mx}):
+            for mcb in (3, 10**6):
+                got = tkm.get_kmer_group_counts(kmer_len, max_counts_bin=mcb)
+                want = jkm.get_kmer_group_counts(kmer_len, max_counts_bin=mcb)
+                assert np.array_equal(got[0], want[0]) and got[1] == want[1]
+            for bounds in ({}, {"min_group_size": 2}, {"min_group_size": 2, "max_group_size": 5}):
+                assert tkm.get_kmer_count(kmer_len, **bounds) == jkm.get_kmer_count(kmer_len, **bounds)
+
+
+# --------------------------------------------------------------------------- #
+# the gather path: indexes that are not the fresh one
+# --------------------------------------------------------------------------- #
+
+
+def _seeded_seq_list(kind: str):
+    rng = np.random.default_rng(41)
+    if kind == "acgt":
+        unit = "".join(rng.choice(list("ACGT"), size=23))
+        return [("a", "".join(rng.choice(list("ACGT"), size=160))), ("b", (unit * 6)[:120]),
+                ("c", "T" * 70), ("d", "".join(rng.choice(list("ACGT"), size=66)))]
+    probs = [0.22] * 4 + [0.04] * 3
+    return [("a", "".join(rng.choice(list("ACGTNRY"), p=probs, size=160))),
+            ("b", "ACGT" + "N" * 60 + "ACGTT" + "N" * 40), ("c", "Y" * 50),
+            ("d", "".join(rng.choice(list("ACGTN"), size=40)))]
+
+
+def _assigned(order: str, fresh: np.ndarray) -> np.ndarray:
+    rng = np.random.default_rng(len(fresh))
+    if order == "descending":
+        return fresh[::-1].copy()
+    if order == "shuffled subset":
+        return rng.permutation(fresh)[: len(fresh) // 3]
+    return np.concatenate([fresh[::2], fresh[::-3]])  # with repeated positions
+
+
+GATHER_CONFIGS = [("acgt", 5, 5), ("acgt", 31, 31), ("acgt", 7, 20), ("acgt", 20, 48),
+                  ("acgt", 64, 64), ("iupac", 5, 5), ("iupac", 31, 31), ("iupac", 7, 20),
+                  ("iupac", 12, 32)]
+
+
+def _pair(kind, mn, mx):
+    seq_list = _seeded_seq_list(kind)
+    return (gj.Kmers(gj.SequenceCollection(sequence_list=seq_list), mn, mx),
+            gt.Kmers(_tsc(sequence_list=seq_list), mn, mx))
+
+
+def _same_lanes(t_lanes, j_lanes):
+    if t_lanes is None or j_lanes is None:
+        return t_lanes is None and j_lanes is None
+    same = t_lanes["two_bit"] is j_lanes["two_bit"] and t_lanes["built_k"] == j_lanes["built_k"]
+    same = same and (t_lanes["cap"] is None) == (j_lanes["cap"] is None)
+    pairs = list(zip(t_lanes["words"], j_lanes["words"]))
+    if t_lanes["cap"] is not None:
+        pairs.append((t_lanes["cap"], j_lanes["cap"]))
+    for g, w in pairs:
+        g = g.numpy().view(np.uint32) if g.dtype == torch.int32 else g.numpy().astype(np.uint32)
+        same = same and np.array_equal(g, np.asarray(w))
+    return same
+
+
+def _same_statistics(tkm, jkm, kmer_lens):
+    for kmer_len in kmer_lens:
+        for mcb in (4, 1000):
+            got = tkm.get_kmer_group_counts(kmer_len, max_counts_bin=mcb)
+            want = jkm.get_kmer_group_counts(kmer_len, max_counts_bin=mcb)
+            assert np.array_equal(got[0], want[0]) and got[1] == want[1], (kmer_len, mcb)
+        for bounds in ({}, {"min_group_size": 2}, {"min_group_size": 2, "max_group_size": 3}):
+            assert tkm.get_kmer_count(kmer_len, **bounds) == jkm.get_kmer_count(kmer_len, **bounds)
+
+
+@pytest.mark.parametrize("kind,mn,mx", GATHER_CONFIGS)
+def test_resort_matches_fresh_sort_and_jax(kind, mn, mx):
+    jkm, tkm = _pair(kind, mn, mx)
+    jkm.sort()
+    tkm.sort()
+    fresh = tkm.kmer_sba_start_indices.copy()
+    jkm.sort()
+    tkm.sort()  # no longer the fresh index: gathered keys, position as last key
+    assert np.array_equal(tkm.kmer_sba_start_indices, fresh)
+    assert np.array_equal(tkm.kmer_sba_start_indices, jkm.kmer_sba_start_indices)
+    assert _same_lanes(tkm._lanes_cache, jkm._lanes_cache)
+    _same_statistics(tkm, jkm, sorted({1, mn, mx}))
+
+
+@pytest.mark.parametrize("order", ["descending", "shuffled subset", "repeats"])
+@pytest.mark.parametrize("kind,mn,mx", GATHER_CONFIGS)
+def test_assigned_index_matches_jax(kind, mn, mx, order):
+    jkm, tkm = _pair(kind, mn, mx)
+    assigned = _assigned(order, tkm.kmer_sba_start_indices)
+    jkm.kmer_sba_start_indices = assigned.copy()
+    tkm.kmer_sba_start_indices = assigned.copy()
+    assert len(tkm) == len(jkm) == len(assigned)
+    # unsorted: every k-mer is its own group, whatever kmer_len
+    for kmer_len in (1, mx, None):
+        assert tkm.get_kmer_count(kmer_len) == jkm.get_kmer_count(kmer_len) == len(assigned)
+    for got, want in zip(tkm.get_kmers_arrays(mn), jkm.get_kmers_arrays(mn)):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    jkm.sort()
+    tkm.sort()
+    assert tkm.kmer_sba_start_indices.dtype == np.uint32
+    assert np.array_equal(tkm.kmer_sba_start_indices, jkm.kmer_sba_start_indices)
+    assert _same_lanes(tkm._lanes_cache, jkm._lanes_cache)
+    _same_statistics(tkm, jkm, sorted({1, mn, mx}))
+    # a sorted index assigned by hand keeps no lanes: rebuilt once, by gathers
+    sorted_pos = tkm.kmer_sba_start_indices.copy()
+    jkm.kmer_sba_start_indices = sorted_pos.copy()
+    tkm.kmer_sba_start_indices = sorted_pos.copy()
+    assert tkm._lanes_cache is None
+    _same_statistics(tkm, jkm, sorted({1, mn, mx}))
+    assert _same_lanes(tkm._lanes_cache, jkm._lanes_cache)
+
+
+@pytest.mark.parametrize(
+    "kind,mn,mx,beyond",
+    [("acgt", 5, 5, (6, 17, 64)), ("acgt", 7, 20, (21, 33, 48)), ("acgt", 31, 31, (32, 64)),
+     ("iupac", 5, 5, (6, 9, 32)), ("iupac", 7, 20, (21, 32)), ("iupac", 31, 31, (32,))],
+)
+def test_statistics_beyond_the_sorted_lanes_match_jax(kind, mn, mx, beyond):
+    """kmer_len above max_kmer_len: boundaries from gathered keys."""
+    jkm, tkm = _pair(kind, mn, mx)
+    jkm.sort()
+    tkm.sort()
+    _same_statistics(tkm, jkm, beyond)
+    for kmer_len in beyond:
+        for got, want in zip(tkm.get_kmers_arrays(kmer_len, min_group_size=2),
+                             jkm.get_kmers_arrays(kmer_len, min_group_size=2)):
+            assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", sorted(SEQ_LISTS))
+@pytest.mark.parametrize("min_kmer_len", [1, 2, 4])
+def test_yielding_calls_match_jax_and_oracle(name, min_kmer_len):
+    seq_list = SEQ_LISTS[name]
+    jsc = gj.SequenceCollection(sequence_list=seq_list, strands_to_load="forward")
+    tsc = _tsc(sequence_list=seq_list)
+    for mx in _slice_combinations(seq_list, min_kmer_len)[::2]:
+        jkm, tkm = gj.Kmers(jsc, min_kmer_len, mx), gt.Kmers(tsc, min_kmer_len, mx)
+        assert list(tkm.get_kmers(mx)) == list(jkm.get_kmers(mx))  # unsorted
+        jkm.sort()
+        tkm.sort()
+        sorted_kmers = expected_kmers(seq_list, min_kmer_len, mx)[2]
+        nums = list(range(len(tkm)))
+        assert tkm.get_kmer_strs(nums, None) == jkm.get_kmer_strs(nums, None) == sorted_kmers
+        assert [tkm.get_kmer_str(i) for i in nums] == sorted_kmers
+        for kmer_len in sorted({1, min_kmer_len, mx}):
+            for bounds in ({}, {"min_group_size": 2}, {"max_group_size": 2, "yield_first_n": 1},
+                           {"min_group_size": 2, "yield_first_n": 2}):
+                got = list(tkm.get_kmers(kmer_len, **bounds))
+                assert got == list(jkm.get_kmers(kmer_len, **bounds))
+                assert got == expected_groups(sorted_kmers, kmer_len, **bounds)
+                arrays = tkm.get_kmers_arrays(kmer_len, **bounds)
+                for a, w in zip(arrays, jkm.get_kmers_arrays(kmer_len, **bounds)):
+                    assert a.dtype == w.dtype and np.array_equal(a, w)
+                assert [(int(n), int(y), int(t)) for n, _, y, t in zip(*arrays)] == got
+            if kmer_len >= min_kmer_len:
+                assert _full_outcome(tkm, kmer_len) == _full_outcome(jkm, kmer_len)
+                fits = [i for i in nums if len(sorted_kmers[i]) >= kmer_len]
+                assert tkm.get_kmer_strs(fits, kmer_len) == jkm.get_kmer_strs(fits, kmer_len)
+                assert tkm.get_kmer_strs(fits, kmer_len) == [sorted_kmers[i][:kmer_len] for i in fits]
+
+
+def _full_outcome(km, kmer_len):
+    """The full-info tuples, or the error of a k-mer that runs past its
+    segment's end."""
+    try:
+        return list(km.get_kmers(kmer_len, one_based_seq_index=True, kmer_info_to_yield="full"))
+    except ValueError as e:
+        return str(e)
+
+
+def test_string_and_yield_errors_match_jax():
+    jkm, tkm = _pair("iupac", 3, 9)
+    calls = [
+        lambda km: km.get_kmer_str(-1),
+        lambda km: km.get_kmer_str(len(km)),
+        lambda km: km.get_kmer_str(0, 2),
+        lambda km: km.get_kmer_str(0, 10),
+        lambda km: km.get_kmer_str(len(km) - 1, 9),
+        lambda km: km.get_kmer_strs([0, len(km)], 3),
+        lambda km: km.get_kmer_strs([0], 0),
+        lambda km: km.get_kmer_strs([len(km) - 1], 9),
+        lambda km: list(km.get_kmers(0)),
+        lambda km: list(km.get_kmers(3, kmer_info_to_yield="some")),
+        lambda km: list(km.get_kmers(3, yield_first_n=1)),
+        lambda km: km.get_kmers_arrays(3, min_group_size=2),
+    ]
+    for call in calls:
+        assert _outcome(lambda: call(tkm)) == _outcome(lambda: call(jkm)) is not None
+    assert tkm.get_kmer_strs([], 3) == jkm.get_kmer_strs([], 3) == []
+
+
+def test_sort_checks_an_assigned_index_against_min_kmer_len():
+    """A position with fewer than min_kmer_len bases left: the JAX package's
+    AssertionError, verbatim."""
+    jkm, tkm = _pair("acgt", 5, 9)
+    bad = np.array([0, 158, 7], dtype=np.uint32)  # record "a" ends at 159
+    jkm.kmer_sba_start_indices = bad.copy()
+    tkm.kmer_sba_start_indices = bad.copy()
+    want = _outcome(jkm.sort)
+    assert want is not None and want[0] is AssertionError
+    assert _outcome(tkm.sort) == want
+
+
+@pytest.mark.parametrize("kind,mn,mx", [("acgt", 7, 20), ("iupac", 7, 20), ("iupac", 31, 31)])
+def test_interop_carries_lanes_and_assigned_indexes(kind, mn, mx):
+    seq_list = _seeded_seq_list(kind)
+    sc = gj.SequenceCollection(sequence_list=seq_list)
+    jkm = gj.Kmers(sc, mn, mx)
+    jkm.sort()
+    lanes = jkm._lanes_cache
+    state = (sc.forward_sba, sc._forward_sba_seg_starts, sc.forward_record_names, mn, mx)
+    _, tkm = from_numpy_state(
+        *state, positions=jkm.kmer_sba_start_indices,
+        words=[np.asarray(w) for w in lanes["words"]],
+        cap=None if lanes["cap"] is None else np.asarray(lanes["cap"]),
+        two_bit=lanes["two_bit"], device="cpu",
+    )
+    assert tkm._is_sorted and tkm._lanes_cache["two_bit"] is (kind == "acgt")
+    _same_statistics(tkm, jkm, sorted({1, mn, mx}))
+    # an assigned, unsorted index: no lanes, sorted by the gather path
+    descending = jkm.kmer_sba_start_indices[::-1].copy()
+    _, tkm2 = from_numpy_state(*state, positions=descending, is_sorted=False, device="cpu")
+    assert not tkm2._is_sorted and tkm2._lanes_cache is None
+    assert np.array_equal(tkm2.kmer_sba_start_indices, descending)
+    tkm2.sort()
+    assert np.array_equal(tkm2.kmer_sba_start_indices, jkm.kmer_sba_start_indices)
+    with pytest.raises(ValueError, match="no sorted key lanes"):
+        from_numpy_state(*state, positions=descending, words=[descending], is_sorted=False,
+                         device="cpu")
+    if kind == "iupac":
+        with pytest.raises(ValueError, match="no cap lane"):
+            from_numpy_state(*state, positions=descending, words=[descending], cap=descending,
+                             two_bit=False, device="cpu")
+
+
 # --------------------------------------------------------------------------- #
 # errors
 # --------------------------------------------------------------------------- #
@@ -227,11 +489,11 @@ class _OddFilter(KmerFilter):
 @pytest.mark.parametrize(
     "call",
     [
-        lambda sc, km: gt.Kmers(_tsc(sequence_list=[("a", "ACGTN" * 9)]), 3, 3).sort(),
+        lambda sc, km: gt.Kmers(_tsc(sequence_list=[("a", "ACGTN" * 9)]), 3, 33).sort(),
         lambda sc, km: gt.Kmers(sc, 3, None).sort(),
         lambda sc, km: gt.Kmers(sc, 3, 65).sort(),
         lambda sc, km: km.sort(mesh=object()),
-        lambda sc, km: (km.sort(), km.sort()),
+        lambda sc, km: (km.sort(), list(km.get_kmers(3, kmer_filter_func=_OddFilter()))),
         lambda sc, km: gt.Kmers.from_strand(sc, 3, 3, source_strand="both"),
         lambda sc, km: gt.LargeKmers(sc, 3, 3),
         lambda sc, km: sc.save("x.h5"),
@@ -241,11 +503,11 @@ class _OddFilter(KmerFilter):
         lambda sc, km: km.count_queries(["ACG"], 3),
         lambda sc, km: km.count_queries_canonical(["ACG"], 3),
         lambda sc, km: km.get_canonical_kmer_group_counts(3),
-        lambda sc, km: km.get_kmer_count(3),
+        lambda sc, km: km.get_kmer_count(3, kmer_filter_func=_OddFilter()),
         lambda sc, km: (km.sort(), km.get_kmer_count(3, kmer_filter_func=_OddFilter())),
         lambda sc, km: (km.sort(), km.get_kmer_group_counts(3, kmer_filter_func=_OddFilter())),
         lambda sc, km: (km.sort(), km.get_kmer_group_counts(None)),
-        lambda sc, km: (km.sort(), km.get_kmer_count(9)),
+        lambda sc, km: (km.sort(), km.get_kmer_count(65)),
         lambda sc, km: (km.sort(), km.get_kmer_group_counts(3, mesh=object())),
     ],
 )
@@ -280,3 +542,6 @@ def test_index_and_lanes_live_on_the_collection_device():
     assert dc.packed2.dtype == torch.int32 and dc.packed2.device == sc.device
     assert km._pos_dev.device == sc.device
     assert all(w.device == sc.device and w.dtype == torch.int64 for w in km._lanes_cache["words"])
+    km.sort()  # the gather sort keeps its words as int32 bit patterns
+    assert km._pos_dev.device == sc.device and km._pos_dev.dtype == torch.int64
+    assert all(w.device == sc.device and w.dtype == torch.int32 for w in km._lanes_cache["words"])

@@ -1,5 +1,6 @@
-"""The port never imports JAX, and ``chip_smoke.py`` refuses to run, and
-prints no result, without a CUDA card."""
+"""The port never imports JAX or anything of the JAX package, and
+``chip_smoke.py`` refuses to run, and prints no result, without a CUDA
+card."""
 
 import json
 import subprocess
@@ -13,12 +14,15 @@ REPO = Path(__file__).resolve().parents[1]
 
 @pytest.mark.parametrize(
     "module",
-    ["genome_kmers_tpu_torch", "genome_kmers_tpu_torch.interop", "chip_smoke"],
+    ["genome_kmers_tpu_torch", "genome_kmers_tpu_torch.interop", "chip_smoke",
+     "genome_kmers_tpu_torch.kernels.lane_sort"],
 )
 def test_import_loads_no_jax(module):
     code = (
         f"import sys, {module}\n"
-        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules)\n"
+        "banned = ('jax', 'genome_kmers_tpu')\n"
+        "assert not any(m in banned or m.startswith(tuple(b + '.' for b in banned))"
+        " for m in sys.modules)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr

@@ -1,4 +1,4 @@
-"""The port's 2-bit pack against the JAX package's, on the CPU.
+"""The port's 2-bit and 4-bit packs against the JAX package's, on the CPU.
 
 ``genome_kmers_tpu_torch.ops.keys.pack_rank2_words`` is the plain version
 that the CUDA kernel (``csrc/pack2.cu``) is held against on the card; here
@@ -6,7 +6,9 @@ it is held bit for bit against ``genome_kmers_tpu.ops.keys.pack_rank2_words``
 ('$' and 'N' fields included) and against the Pallas kernel in interpret
 mode (bitwise on ACGT-only bytes; with '$' the Pallas kernel's arithmetic
 rank leaves garbage fields that every consumer masks, so there the sorted
-index must agree). The tolerance is exact equality throughout.
+index must agree). The 4-bit pack ``pack_rank_words`` is plain tensor
+code in both packages and is held bit for bit on every IUPAC code. The
+tolerance is exact equality throughout.
 """
 
 import jax.numpy as jnp
@@ -15,12 +17,14 @@ import pytest
 import torch
 
 from genome_kmers_tpu.ops.keys import pack_rank2_words as jax_pack_rank2_words
+from genome_kmers_tpu.ops.keys import pack_rank_words as jax_pack_rank_words
 from genome_kmers_tpu.ops.pallas_kernels import pack_rank2_words_pallas
 from genome_kmers_tpu_torch.kernels import build
 from genome_kmers_tpu_torch.kernels.pack2 import pack_rank2_words_cuda
 from genome_kmers_tpu_torch.ops.keys import (
     compute_seg_ends,
     pack_rank2_words,
+    pack_rank_words,
     u32_bits_as_int32,
     widen_u32,
 )
@@ -50,6 +54,23 @@ def test_plain_pack_matches_jax_on_every_byte_value():
     got = _as_u32(pack_rank2_words(torch.from_numpy(sba)))
     want = np.asarray(jax_pack_rank2_words(jnp.asarray(sba)))
     assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 64, 65536, 70001])
+def test_pack4_matches_jax_bitwise(n):
+    sba = _random_bytes(n, b"$ABCDGHKMNRSTVWY", seed=200 + n)
+    got = _as_u32(pack_rank_words(torch.from_numpy(sba)))
+    want = np.asarray(jax_pack_rank_words(jnp.asarray(sba)))
+    assert np.array_equal(got, want)
+
+
+def test_pack4_matches_jax_on_every_byte_value_and_y_runs():
+    """Runs of 'Y' (rank 15) pack to all-ones words: int32 -1."""
+    sba = np.concatenate([np.arange(256, dtype=np.uint8).repeat(3),
+                          np.frombuffer(b"Y" * 20, dtype=np.uint8)])
+    packed = pack_rank_words(torch.from_numpy(sba))
+    assert np.array_equal(_as_u32(packed), np.asarray(jax_pack_rank_words(jnp.asarray(sba))))
+    assert int(packed[-20]) == -1 and int(widen_u32(packed)[-20]) == 0xFFFFFFFF
 
 
 @pytest.mark.parametrize("n", [64, 65536, 70001])
