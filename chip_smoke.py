@@ -12,12 +12,16 @@ Phases, each of which raises (exit code 1) on failure:
 3. Hold each kernel against its plain PyTorch version on the card, bitwise:
    the 2-bit pack on seeded random bytes from "ACGT$N" (and all 256 byte
    values) at n in {1, 15, 16, 17, 4099, 2^20+7, 2^27}; the multi-lane sort
-   on 1, 2, 3, 6 and 8 lanes at n in {1, 2, 127, 128, T, T+1, 2^20+7, 2^24}
-   (T the kernel's tile), heavily tied keys that include 0xFFFFFFFF and
-   values >= 2^31, the last lane a permutation. Time each kernel and its
-   plain version at the main path's shape (2^27 bytes; 2^27 rows x 6 lanes)
-   beside the least time the card could take and, for the sort, beside
-   the one PyTorch call that computes the same rows, torch.unique(dim=0).
+   on 1, 2, 3, 6 and 8 lanes at n in {1, 2, 127, 128, T-1, T, T+1, 2T+1, 3T,
+   2^20+7, 2^24, 2^24+4097} (T the kernel's tile), heavily tied keys that
+   include 0xFFFFFFFF and values >= 2^31, the last lane a permutation, and
+   on inputs already sorted, reverse-sorted, with every key lane constant,
+   and with a run that lies wholly before its left partner. Time each kernel
+   and its plain version at the main path's shape (2^27 bytes; 2^27 rows x
+   6 lanes) beside the least time the card could take and, for the sort,
+   beside the one PyTorch call that computes the same rows,
+   torch.unique(dim=0), and at 2^27+1 rows, which must not cost 1.2 times
+   what 2^27 rows cost.
 4. ACGT main path at 2^27 bp: a seeded synthetic FASTA of 24 uneven
    records with copied segments -> SequenceCollection(device="cuda") ->
    Kmers(sc, 31, 31) -> sort() -> get_kmer_group_counts(31) ->
@@ -66,7 +70,12 @@ import torch
 import genome_kmers_tpu_torch as gkt
 from genome_kmers_tpu_torch.kernels import build
 from genome_kmers_tpu_torch.kernels.lane_sort import SOURCE as LANE_SORT_SOURCE
-from genome_kmers_tpu_torch.kernels.lane_sort import TILE_ROWS, sort_lanes_cuda
+from genome_kmers_tpu_torch.kernels.lane_sort import (
+    TILE_ROWS,
+    blocks_resident,
+    pass_schedule,
+    sort_lanes_cuda,
+)
 from genome_kmers_tpu_torch.kernels.pack2 import SOURCE as PACK2_SOURCE
 from genome_kmers_tpu_torch.kernels.pack2 import pack_rank2_words_cuda
 from genome_kmers_tpu_torch.ops.encoding import RANK2_TABLE, RANK_TABLE
@@ -81,6 +90,7 @@ GATHER_BP = 1 << 22
 ORACLE_BP = 1 << 20
 MAIN_RECORDS = 24
 MAIN_LANES = 6  # the 4-bit k=31 sort: invalid, four words, position
+LANE_SORT_EARLIER_MS = 173.66  # the bitonic tile_pass design, same shape, H100 80GB HBM3 at 700 W
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, outside the tensor cores
 _INT32_MIN = -(1 << 31)
@@ -324,6 +334,8 @@ def phase_build() -> None:
             for line in log_file.read_text().splitlines():
                 if "Compiling entry" in line or "Used" in line or "spill" in line:
                     log(f"  nvcc: {line.strip()}")
+    log("lane sort, (block-sort, merge) blocks an SM holds by lane count: "
+        + ", ".join(f"{nl}: {blocks_resident(nl)}" for nl in (1, 2, 3, 6, 8)))
 
 
 def phase_pack_kernel(rng) -> dict:
@@ -367,24 +379,58 @@ def tied_lanes(rng, n_lanes: int, n: int, dev):
     return tuple(torch.from_numpy(lane.view(np.int32)).to(dev) for lane in lanes)
 
 
+def shaped_lanes(rng, shape: str, n_lanes: int, n: int, dev):
+    """Inputs a merge can get wrong, from the tied lanes: already sorted,
+    reverse-sorted, every key lane constant (only the last lane differs),
+    and the sorted rows with their upper half first (at the pass that joins
+    the halves, the right run lies wholly before the left one)."""
+    lanes = tied_lanes(rng, n_lanes, n, dev)
+    if shape == "constant keys":
+        return tuple(torch.full_like(lane, _INT32_MIN + 1) for lane in lanes[:-1]) + lanes[-1:]
+    ordered = sort_lanes(lanes)
+    if shape == "sorted":
+        return ordered
+    if shape == "reversed":
+        return tuple(lane.flip(0).contiguous() for lane in ordered)
+    return tuple(torch.roll(lane, n // 2) for lane in ordered)
+
+
+def check_lane_sort(lanes, label: str) -> int:
+    """The kernel's rows equal the plain version's, as int32, and the input
+    is unchanged; returns the largest difference seen (0)."""
+    before = [lane.clone() for lane in lanes]
+    got, want = sort_lanes_cuda(lanes), sort_lanes(lanes)
+    torch.cuda.synchronize()
+    err = 0
+    for g, w, lane, b in zip(got, want, lanes, before):
+        err = max(err, int((widen_u32(g) - widen_u32(w)).abs().max()))
+        if g.dtype != torch.int32 or not torch.equal(g, w) or not torch.equal(lane, b):
+            raise AssertionError(
+                f"lane sort kernel differs from its plain version (or changed its input) at {label}"
+            )
+    n = lanes[0].shape[0]
+    if lanes[0].is_cuda and n > 1 and sort_lanes_cuda.passes != 1 + len(pass_schedule(n)[1]):
+        raise AssertionError(f"lane sort made {sort_lanes_cuda.passes} passes at {label}")
+    return err
+
+
 def phase_lane_sort_kernel(rng) -> dict:
     dev = torch.device(DEVICE)
     max_err = 0
+    sizes = (1, 2, 127, 128, TILE_ROWS - 1, TILE_ROWS, TILE_ROWS + 1, 2 * TILE_ROWS + 1,
+             3 * TILE_ROWS, (1 << 20) + 7, 1 << 24, (1 << 24) + 4097)
+    shapes = ("sorted", "reversed", "constant keys", "upper half first")
     for n_lanes in (1, 2, 3, 6, 8):
-        for n in (1, 2, 127, 128, TILE_ROWS, TILE_ROWS + 1, (1 << 20) + 7, 1 << 24):
+        for n in sizes:
             lanes = tied_lanes(rng, n_lanes, n, dev)
-            before = [lane.clone() for lane in lanes]
-            got, want = sort_lanes_cuda(lanes), sort_lanes(lanes)
-            torch.cuda.synchronize()
-            for g, w, lane, b in zip(got, want, lanes, before):
-                max_err = max(max_err, int((widen_u32(g) - widen_u32(w)).abs().max()))
-                if g.dtype != torch.int32 or not torch.equal(g, w) or not torch.equal(lane, b):
-                    raise AssertionError(
-                        f"lane sort kernel differs from its plain version (or changed its "
-                        f"input) at {n_lanes} lanes, n={n}"
-                    )
-        log(f"lane sort, {n_lanes} lanes: bitwise equal to the plain version at every n up to 2^24")
-        del lanes, before, got, want
+            max_err = max(max_err, check_lane_sort(lanes, f"{n_lanes} lanes, n={n}"))
+        for shape in shapes:
+            for n in (4 * TILE_ROWS, 5 * TILE_ROWS + 3):
+                lanes = shaped_lanes(rng, shape, n_lanes, n, dev)
+                max_err = max(max_err, check_lane_sort(lanes, f"{n_lanes} lanes, n={n}, {shape}"))
+        log(f"lane sort, {n_lanes} lanes: bitwise equal to the plain version at n in {sizes} "
+            f"and on {', '.join(shapes)} inputs")
+        del lanes
     torch.cuda.empty_cache()
     # the main path's shape: 2^27 rows of (invalid, four words, position)
     n = MAIN_BP
@@ -397,8 +443,9 @@ def phase_lane_sort_kernel(rng) -> dict:
     got, want = sort_lanes_cuda(lanes), sort_lanes(lanes)
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
         raise AssertionError("lane sort kernel differs from its plain version at 2^27 x 6 lanes")
+    passes = sort_lanes_cuda.passes
     del want
-    ms = cuda_ms(lambda: sort_lanes_cuda(lanes), reps=3, warmup=1)
+    ms = cuda_ms(lambda: sort_lanes_cuda(lanes), reps=5, warmup=1)
     plain_ms = cuda_ms(lambda: sort_lanes(lanes), reps=3, warmup=1)
     # the one PyTorch call that computes the same function: the last lane is
     # unique, so the sorted unique rows of the (n, lanes) matrix are the
@@ -415,13 +462,26 @@ def phase_lane_sort_kernel(rng) -> dict:
     # outside the tensor cores (the data sheet gives no int32 rate)
     ops_ms = n * math.log2(n) * MAIN_LANES / FP32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    log(f"lane sort at 2^27 rows x {MAIN_LANES} lanes: kernel {ms:.3f} ms, plain (chained "
+    log(f"lane sort at 2^27 rows x {MAIN_LANES} lanes: kernel {ms:.3f} ms in {passes} passes over "
+        f"the lanes (the earlier design {LANE_SORT_EARLIER_MS} ms in 40), plain (chained "
         f"torch.sort) {plain_ms:.3f} ms, torch.unique(dim=0) {library_ms:.3f} ms, "
         f"read-once/write-once bound {bound_ms:.4f} ms at 3.35 TB/s = {bound_ms / ms:.2%} of it")
+    if passes > 17:
+        raise AssertionError(f"lane sort made {passes} passes at 2^27 rows, more than 17")
+    # one row more than a power of two: one tile more, not twice the work
+    lanes = tuple(torch.cat([lane, lane[:1]]) for lane in lanes[:-1]) + (
+        torch.cat([lanes[-1], torch.tensor([n], dtype=torch.int32, device=dev)]),)
+    max_err = max(max_err, check_lane_sort(lanes, "2^27+1 rows x 6 lanes"))
+    ms_one_more = cuda_ms(lambda: sort_lanes_cuda(lanes), reps=5, warmup=1)
+    log(f"lane sort at 2^27+1 rows x {MAIN_LANES} lanes: kernel {ms_one_more:.3f} ms in "
+        f"{sort_lanes_cuda.passes} passes = {ms_one_more / ms:.3f} x the time at 2^27 rows")
+    if ms_one_more > 1.2 * ms:
+        raise AssertionError("one row over a power of two costs more than 1.2 x the power of two")
     del lanes
     torch.cuda.empty_cache()
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": library_ms}
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": library_ms,
+            "passes": passes, "ms_one_row_more": ms_one_more}
 
 
 def reset_launches() -> None:
@@ -478,8 +538,7 @@ def phase_main_path(rng, tmp: Path, iupac: bool, profile_dir) -> int:
     check_sorted_index(km, valid_starts(records_of(sc), 31), label)
     check_words_against_genome(km, sc, rng, label)
     if iupac and profile_dir is not None:
-        del sc, km
-        torch.cuda.empty_cache()
+        del sc, km  # their memory stays with the allocator: the profiled run is warm
         profile_main_calls(fasta, Path(profile_dir))
     return launches
 

@@ -1,12 +1,19 @@
-"""Wrapper of the multi-lane bitonic sort kernel (``csrc/lane_sort.cu``).
+"""Wrapper of the multi-lane sort kernels (``csrc/lane_sort.cu``).
 
-The kernel replaces the TPU kernel
-``genome_kmers_tpu/ops/pallas_sort.py::bitonic_sort_tile`` and widens it from
-one tile to any length; its plain PyTorch version is
-``ops/sort.py::sort_lanes`` (chained stable ``torch.sort`` passes), which it
-must equal bit for bit whenever the last lane is unique. The wrapper takes
-the plain version only for tensors on the CPU; for CUDA tensors it launches
-the kernel or raises.
+The kernels replace the TPU kernel
+``genome_kmers_tpu/ops/pallas_sort.py::bitonic_sort_tile`` and widen it from
+one tile to any length: a block sort of tiles of ``TILE_ROWS`` rows (what the
+TPU kernel computes), then merge-path passes that double the width of the
+sorted runs until one run is left. Their plain PyTorch version is
+``ops/sort.py::sort_lanes`` (chained stable ``torch.sort`` passes), which
+they must equal bit for bit whenever the last lane is unique. The wrapper
+takes the plain version only for tensors on the CPU; for CUDA tensors it
+launches the kernels or raises.
+
+The schedule of the passes lives here (``pass_schedule``), where the wrapper
+sizes the scratch buffers, and in the source's host function; the wrapper
+holds the two against each other on every call. The tiles and the blocks an
+SM holds are the source's alone.
 """
 
 from __future__ import annotations
@@ -20,28 +27,64 @@ from . import build
 
 SOURCE = "lane_sort.cu"
 MAX_LANES = 8
-# Rows a block of the kernel holds (512 threads x 8 rows in registers, and
-# in shared memory between regroupings: 8 lanes x 4096 rows x 4 bytes is
-# 128 KiB of the 227 KiB a block may opt into). The row count the kernel
-# sorts is a power of two of at least one tile.
+# Rows a block of the block sort holds in shared memory. The row count is
+# rounded up to a multiple of it, never to a power of two; the rows added are
+# all-ones, sort last and are cut off again.
 TILE_ROWS = 4096
+
+
+def pass_schedule(n: int, tile_rows: int = TILE_ROWS) -> tuple[int, tuple[int, ...], int]:
+    """The passes that sort ``n`` rows: ``(rows of the scratch buffers,
+    run width merged by each merge pass, buffer that ends up holding the
+    result)``. The block sort writes buffer 0 in runs of ``tile_rows``; each
+    merge pass reads one buffer and writes the other, so the result lies in
+    buffer 0 after an even number of merge passes, else in buffer 1."""
+    if n < 1:
+        raise ValueError(f"pass_schedule: expected at least one row, got {n}")
+    n_rows = -(-n // tile_rows) * tile_rows
+    widths = []
+    width = tile_rows
+    while width < n_rows:
+        widths.append(width)
+        width *= 2
+    return n_rows, tuple(widths), len(widths) % 2
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     lib.gkt_lane_sort.argtypes = [
-        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
     ]
     lib.gkt_lane_sort.restype = ctypes.c_int
     lib.gkt_lane_sort_tile_rows.argtypes = []
     lib.gkt_lane_sort_tile_rows.restype = ctypes.c_int
+    lib.gkt_lane_sort_merge_tile_rows.argtypes = [ctypes.c_int]
+    lib.gkt_lane_sort_merge_tile_rows.restype = ctypes.c_int
+    lib.gkt_lane_sort_blocks_resident.argtypes = [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+    ]
+    lib.gkt_lane_sort_blocks_resident.restype = ctypes.c_int
     if lib.gkt_lane_sort_tile_rows() != TILE_ROWS:
         raise RuntimeError(
-            f"lane_sort kernel was built for tiles of {lib.gkt_lane_sort_tile_rows()} rows, "
-            f"the wrapper pads to {TILE_ROWS}"
+            f"lane_sort kernel was built with tiles of {lib.gkt_lane_sort_tile_rows()} rows, "
+            f"the wrapper sizes for {TILE_ROWS}"
         )
     return lib
+
+
+def blocks_resident(n_lanes: int) -> tuple[int, int]:
+    """(block-sort blocks, merge blocks) an SM of the current CUDA device
+    holds at ``n_lanes`` lanes, as the CUDA runtime computes them from the
+    built kernels' registers and shared memory."""
+    sort_blocks, merge_blocks = ctypes.c_int(-1), ctypes.c_int(-1)
+    rc = _lib().gkt_lane_sort_blocks_resident(
+        n_lanes, ctypes.byref(sort_blocks), ctypes.byref(merge_blocks))
+    if rc != 0:
+        raise RuntimeError(f"lane_sort: no occupancy for {n_lanes} lanes")
+    return sort_blocks.value, merge_blocks.value
 
 
 def sort_lanes_cuda(lanes) -> tuple:
@@ -51,10 +94,15 @@ def sort_lanes_cuda(lanes) -> tuple:
     lane unique and never 0xFFFFFFFF, so the order is total.
 
     ``lanes`` are contiguous 1-D int32 tensors of equal length on one
-    device; they are not modified. For CUDA tensors the kernel sorts a copy
-    padded to the next power of two (at least one tile) with all-ones rows,
-    which sort last and are cut off again (and ``sort_lanes_cuda.launches`` counts the call);
-    for CPU tensors the plain version runs."""
+    device; they are not modified and not copied. For CUDA tensors the
+    kernels sort them into scratch buffers of ``pass_schedule(n)[0]`` rows
+    (two of them, one when a single tile holds all rows, and 8 bytes per
+    output tile of a merge pass; the buffer without the result is freed),
+    the rows past n read as all-ones, and views of the buffer that holds
+    the result come back;
+    ``sort_lanes_cuda.launches`` counts the call and ``sort_lanes_cuda.passes``
+    is the number of its launches that read and wrote every lane. For CPU
+    tensors the plain version runs."""
     lanes = tuple(lanes)
     if not 1 <= len(lanes) <= MAX_LANES:
         raise ValueError(f"sort_lanes_cuda: expected 1..{MAX_LANES} lanes, got {len(lanes)}")
@@ -79,24 +127,34 @@ def sort_lanes_cuda(lanes) -> tuple:
     if n <= 1:
         return lanes
 
-    n_pad = max(TILE_ROWS, 1 << (n - 1).bit_length())
-    bufs = []
-    for lane in lanes:
-        if n_pad == n:
-            bufs.append(lane.clone())
-        else:
-            buf = torch.full((n_pad,), -1, dtype=torch.int32, device=device)
-            buf[:n] = lane
-            bufs.append(buf)
-    ptrs = (ctypes.c_void_p * len(bufs))(*[b.data_ptr() for b in bufs])
+    n_lanes = len(lanes)
+    n_rows, widths, result = pass_schedule(n)
     lib = _lib()
     with torch.cuda.device(device):
+        buffers = [
+            [torch.empty(n_rows, dtype=torch.int32, device=device) for _ in lanes]
+            for _ in range(2 if widths else 1)
+        ]
+        splits = torch.empty(n_rows // lib.gkt_lane_sort_merge_tile_rows(n_lanes), dtype=torch.int64,
+                             device=device)
+        pointers = [
+            (ctypes.c_void_p * n_lanes)(*[t.data_ptr() for t in group])
+            for group in (lanes, buffers[0], buffers[-1])
+        ]
+        passes = ctypes.c_int(0)
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.gkt_lane_sort(ptrs, len(bufs), n_pad, stream)
+        rc = lib.gkt_lane_sort(*pointers, n_lanes, n, splits.data_ptr(), stream,
+                               ctypes.byref(passes))
     if rc != 0:
         raise RuntimeError(f"lane_sort kernel launch failed with CUDA error {rc}")
+    if passes.value != 1 + len(widths):
+        raise RuntimeError(
+            f"lane_sort made {passes.value} passes, the wrapper's schedule has {1 + len(widths)}"
+        )
     sort_lanes_cuda.launches += 1
-    return tuple(b[:n] for b in bufs)
+    sort_lanes_cuda.passes = passes.value
+    return tuple(buf[:n] for buf in buffers[result])
 
 
 sort_lanes_cuda.launches = 0
+sort_lanes_cuda.passes = 0

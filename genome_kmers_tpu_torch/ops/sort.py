@@ -29,9 +29,10 @@ iota payload gives.
 order: re-sorts, assigned indices. Key words are gathered per position and
 the position is an explicit last key, again through ``sort_lanes_cuda``.
 
-``sort_lanes`` is the plain version of that kernel: chained stable
-``torch.sort`` passes. ``sort_lanes_cuda`` takes it for CPU tensors; nothing
-on a CUDA device's paths calls it.
+``sort_lanes`` is the plain version of that kernel (a block sort of 4096-row
+tiles, then merge-path passes): chained stable ``torch.sort`` passes.
+``sort_lanes_cuda`` takes it for CPU tensors; nothing on a CUDA device's
+paths calls it.
 """
 
 from __future__ import annotations
