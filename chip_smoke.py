@@ -14,8 +14,11 @@ Phases, each of which raises (exit code 1) on failure:
    values) at n in {1, 15, 16, 17, 4099, 2^20+7, 2^27}; the multi-lane sort
    on 1, 2, 3, 6 and 8 lanes at n in {1, 2, 127, 128, T-1, T, T+1, 2T+1, 3T,
    2^20+7, 2^24, 2^24+4097} (T the kernel's tile), heavily tied keys that
-   include 0xFFFFFFFF and values >= 2^31, the last lane a permutation, and
-   on inputs already sorted, reverse-sorted, with every key lane constant,
+   include 0xFFFFFFFF and values >= 2^31, the last lane a permutation (at
+   4, 5, 6 and 7 lanes also with a tied payload lane behind the permutation,
+   the shape of a refinement round: run id, words, position, cap; at 6 and
+   7 such lanes also at 2^27 rows, the shapes the full-width rounds of
+   phases 9 and 10 give the kernel), and on inputs already sorted, reverse-sorted, with every key lane constant,
    and with a run that lies wholly before its left partner. Time each kernel
    and its plain version at the main path's shape (2^27 bytes; 2^27 rows x
    6 lanes) beside the least time the card could take and, for the sort,
@@ -43,10 +46,42 @@ Phases, each of which raises (exit code 1) on failure:
    histogram. Both kernels must have launched.
 8. A NumPy oracle (byte-string sort and unique) at 2^20 bp: ACGT genome at
    (31, 31) and (20, 48), IUPAC genome at (31, 31) and (12, 32), and both
-   again from an assigned descending index (the gather path).
+   again from an assigned descending index (the gather path); at a few
+   thousand bases also suffix mode (1, None) and (3, None), (5, 70) on
+   2-bit keys, (3, 40) on 4-bit keys and the reverse-complement and both-strand
+   indexes of ``Kmers.from_strand``.
+9. Suffix main path at full width: the ACGT genome of phase 4 (its host
+   arrays, no second parse, as a new collection with its own upload and
+   pack), Kmers(sc) = (1, None) -> sort() (a folded 28-base first round,
+   then prefix-doubling rounds) -> get_kmer_group_counts(None) and
+   get_kmer_count(None) from the run ids the sort keeps ->
+   get_kmer_group_counts(31), which must equal phase 4's histogram plus
+   the records' short tails. Logs the rounds, the seconds of each,
+   suffixes/s (also of a second fresh sort, which finds the allocator
+   warm), the kernels' launches and the peak device memory; checks
+   the positions, sampled neighbours against the genome's bytes and the
+   run ids against string equality. All of this genome's rounds have 64-bit
+   keys and take one stable torch.sort each, so the path launches the pack
+   kernel and not the multi-lane sort. One torch.cumsum over 2^27 rows,
+   which every round pays, is timed. Then the same on the IUPAC genome of
+   phase 5, whose first round is seven lanes through the kernel.
+10. Beyond one window at full width: Kmers(sc, 100, 100) on the ACGT genome
+    (2-bit window rounds of 6 lanes) and Kmers(sc, 48, 48) on the IUPAC
+    genome (a 7-lane first round, then 4-bit window rounds), under the same
+    checks; every window round must launch the multi-lane sort kernel.
+11. Unbounded window rounds without doubling, Kmers(sc, 20, None), at 2^24
+    bp: the count of rounds is the longest repeat / 32 (the copied segments
+    are at most 2000 bases: about 63 rounds) and every round sorts every
+    row, so this path stays at the smaller size on purpose.
+12. Strands: from_strand(..., "reverse_complement") at 2^24 bp and
+    from_strand(..., "both") at 2^26 bp (a concatenated SBA of 2^27 + 1
+    bytes), (31, 31), with and without track_strands_separately. A
+    reverse-complement index has the forward index's histogram, and the
+    both-strand histogram with the strands tracked apart is the sum of the
+    two.
 
-``--profile DIR`` adds a warm second run of phase 5's calls under
-torch.profiler and writes the device time by kernel to DIR.
+``--profile DIR`` adds a warm second run of phase 5's calls and of phase 9's
+under torch.profiler and writes the device time by kernel to DIR.
 
 The next-to-last line of output is a JSON object describing each kernel of
 the paths; the last is {"ok": true, "device": {...}}. No JAX is imported.
@@ -68,6 +103,7 @@ import numpy as np
 import torch
 
 import genome_kmers_tpu_torch as gkt
+from genome_kmers_tpu_torch.interop import from_numpy_state
 from genome_kmers_tpu_torch.kernels import build
 from genome_kmers_tpu_torch.kernels.lane_sort import SOURCE as LANE_SORT_SOURCE
 from genome_kmers_tpu_torch.kernels.lane_sort import (
@@ -88,6 +124,10 @@ MAIN_BP = 1 << 27
 GENERAL_BP = 1 << 24
 GATHER_BP = 1 << 22
 ORACLE_BP = 1 << 20
+SMALL_ORACLE_BP = 6000  # suffix mode and strands against whole-record strings
+WINDOW_ROUNDS_BP = 1 << 24
+REVCOMP_BP = 1 << 24
+BOTH_BP = 1 << 26
 MAIN_RECORDS = 24
 MAIN_LANES = 6  # the 4-bit k=31 sort: invalid, four words, position
 LANE_SORT_EARLIER_MS = 173.66  # the bitonic tile_pass design, same shape, H100 80GB HBM3 at 700 W
@@ -171,9 +211,17 @@ def write_fasta(path: Path, records) -> None:
                 f.write(seq[full:].tobytes() + b"\n")
 
 
-def collection_of(records):
+def collection_of(records, strands: str = "forward"):
     seq_list = [(name, seq.tobytes().decode()) for name, seq in records]
-    return gkt.SequenceCollection(sequence_list=seq_list, device=DEVICE)
+    return gkt.SequenceCollection(sequence_list=seq_list, strands_to_load=strands, device=DEVICE)
+
+
+def index_of(sc, min_kmer_len, max_kmer_len, track: bool = False):
+    """The index of the collection's loaded strand(s)."""
+    if sc.strands_loaded() == "forward":
+        return gkt.Kmers(sc, min_kmer_len, max_kmer_len)
+    return gkt.Kmers.from_strand(sc, min_kmer_len, max_kmer_len,
+                                 source_strand=sc.strands_loaded(), track_strands_separately=track)
 
 
 def records_of(sc):
@@ -195,16 +243,44 @@ def valid_starts(records, min_kmer_len: int) -> np.ndarray:
     return np.concatenate(starts)
 
 
-def kmer_windows(sc, pos: np.ndarray, k: int) -> np.ndarray:
-    """(len(pos), k) uint8: the bases of the k-mer at each SBA position, 0
-    from the end of its record on."""
-    sba = sc.forward_sba
-    seg_starts = sc._forward_sba_seg_starts.astype(np.int64)
+def index_sba(sc, km=None):
+    """(SBA bytes, int64 segment starts) the index ``km`` is built on: the
+    forward SBA (also for ``km`` None), the reverse complement's, or the
+    concatenation of the two."""
+    strand = "forward" if km is None else km.kmer_source_strand
+    if strand == "both":
+        sba, seg_starts = sc.both_concat_arrays()
+        return sba, seg_starts.astype(np.int64)
+    sba = sc.forward_sba if strand == "forward" else sc.revcomp_sba
+    return sba, np.array(sorted(s for _, s, _ in sc.iter_records(strand)), dtype=np.int64)
+
+
+def bases_left(sc, pos: np.ndarray, km=None) -> np.ndarray:
+    """Bases from each SBA position to the end of its record."""
+    sba, seg_starts = index_sba(sc, km)
     ends = np.concatenate([seg_starts[1:] - 1, [len(sba)]])  # one past each record
-    cap = np.minimum(ends[np.searchsorted(seg_starts, pos, side="right") - 1] - pos, k)
+    return ends[np.searchsorted(seg_starts, pos, side="right") - 1] - pos
+
+
+def kmer_windows(sc, pos: np.ndarray, k: int, km=None) -> np.ndarray:
+    """(len(pos), k) uint8: the bases of the k-mer at each SBA position, 0
+    from the end of its record on. The SBA is the forward one, or the one
+    the index ``km`` is built on (reverse complement, both strands)."""
+    sba = index_sba(sc, km)[0]
+    cap = np.minimum(bases_left(sc, pos, km), k)
     padded = np.concatenate([sba, np.zeros(k, dtype=np.uint8)])
     win = np.lib.stride_tricks.sliding_window_view(padded, k)[pos]
     return np.where(np.arange(k) < cap[:, None], win, 0).astype(np.uint8)
+
+
+def valid_starts_of(sc, km) -> np.ndarray:
+    """Every k-mer start of the SBA the index is built on (forward, reverse
+    complement or concatenated), from its segment table alone."""
+    sba, seg_starts = index_sba(sc, km)
+    ends = np.concatenate([seg_starts[1:] - 1, [len(sba)]])  # one past each segment
+    return np.concatenate([
+        np.arange(s, e - km.min_kmer_len + 1, dtype=np.int64) for s, e in zip(seg_starts, ends)
+    ])
 
 
 def as_strings(win: np.ndarray, k: int) -> np.ndarray:
@@ -255,6 +331,86 @@ def check_sorted_index(km, expected_positions: np.ndarray, label: str) -> None:
     counts = check_histogram(km, km.max_kmer_len, label)
     log(f"{label}: invariants hold ({len(km)} k-mers, {int(counts[2:].sum())} groups of size > 1, "
         f"largest bin {int(np.flatnonzero(counts)[-1])})")
+    return counts
+
+
+def check_refined_index(km, sc, rng, label: str, n_sample: int = 4096, width: int = 4096) -> None:
+    """An index sorted by refinement rounds keeps no key lanes to look at,
+    so: its positions are the valid starts; sampled neighbours are in the
+    order of the genome's bytes (compared over max_kmer_len bases, or over
+    ``width`` bases in suffix mode, where a pair is conclusive when it
+    differs within them or both records end within them), ties by position;
+    the run ids the sort kept are equal exactly where the strings are; and
+    the histogram at the sort's identity agrees with the total and the
+    index length."""
+    pos = km._pos_dev
+    if pos.device.type != DEVICE:
+        raise AssertionError(f"{label}: the sorted index does not live on the card")
+    expected = torch.from_numpy(valid_starts_of(sc, km)).to(pos.device)
+    if not torch.equal(torch.sort(pos).values, expected):
+        raise AssertionError(f"{label}: sorted positions are not the expected k-mer starts")
+    del expected
+    k = km.max_kmer_len
+    width = width if k is None else min(width, k)
+    rows = torch.from_numpy(rng.integers(0, len(km) - 1, size=n_sample)).to(pos.device)
+    p, q = pos[rows].cpu().numpy(), pos[rows + 1].cpu().numpy()
+    both = np.concatenate([as_strings(kmer_windows(sc, x, width, km), width) for x in (p, q)])
+    rank = np.unique(both, return_inverse=True)[1]  # byte-string order, shorter prefix first
+    a, b = rank[:n_sample], rank[n_sample:]
+    conclusive = np.ones(n_sample, dtype=bool)
+    if k is None or k > width:
+        fits = [bases_left(sc, x, km) <= width for x in (p, q)]
+        conclusive = (a != b) | (fits[0] & fits[1])
+    ordered = (a < b) | ((a == b) & (p < q))
+    if not ordered[conclusive].all():
+        raise AssertionError(f"{label}: sampled neighbours are out of order")
+    gid = km.suffix_run_ids
+    if gid is not None:
+        same = (gid[rows] == gid[rows + 1]).cpu().numpy()
+        if not np.array_equal(same[conclusive], (a == b)[conclusive]):
+            raise AssertionError(f"{label}: run ids disagree with string equality")
+    counts = check_histogram(km, k, label)
+    log(f"{label}: positions, {int(conclusive.sum())} of {n_sample} sampled neighbours "
+        f"({int((a == b)[conclusive].sum())} equal pairs) and run ids agree with the genome; "
+        f"{len(km)} k-mers, {int(counts[2:].sum())} groups of size > 1")
+
+
+class RoundLog:
+    """Times the refinement rounds of a sort: pass it as ``on_round`` to
+    ``Kmers.sort``, which calls it with the round's name when the round has
+    finished on the card, so the host clock between two calls is one round
+    (the first from the start of ``sort()``; after a folded 2-bit first
+    round the second also rebuilds the caps). Counts each round's launches
+    of the multi-lane sort kernel."""
+
+    def __init__(self):
+        self.rounds = []  # (function name, seconds, lane sort launches)
+        torch.cuda.synchronize()
+        self._t, self._launches = time.perf_counter(), sort_lanes_cuda.launches
+
+    def __call__(self, name: str) -> None:
+        now, launches = time.perf_counter(), sort_lanes_cuda.launches
+        self.rounds.append((name, now - self._t, launches - self._launches))
+        self._t, self._launches = now, launches
+
+    def summary(self) -> str:
+        first, later = self.rounds[0], self.rounds[1:]
+        text = f"{len(self.rounds)} rounds: {first[0]} {first[1]:.4f} s ({first[2]} lane sort launches)"
+        if later:
+            times = [t for _, t, _ in later]
+            names = sorted({name for name, _, _ in later})
+            shown = ", ".join(f"{t:.4f}" for t in times) if len(times) <= 12 else (
+                f"min {min(times):.4f}, mean {sum(times) / len(times):.4f}, max {max(times):.4f}")
+            text += (f"; then {len(later)} x {'/'.join(names)} (s): {shown} "
+                     f"({sum(n for _, _, n in later)} lane sort launches)")
+        return text
+
+
+def timed_sort(km):
+    """``km.sort()`` to its end on the card: (its rounds, seconds)."""
+    rounds = RoundLog()
+    _, seconds = sync_time(lambda: km.sort(on_round=rounds))
+    return rounds, seconds
 
 
 def check_words_against_genome(km, sc, rng, label: str, n_sample: int = 65536) -> None:
@@ -264,7 +420,7 @@ def check_words_against_genome(km, sc, rng, label: str, n_sample: int = 65536) -
     per_word, bits, table = (16, 2, RANK2_TABLE) if lanes["two_bit"] else (8, 4, RANK_TABLE)
     rows = torch.from_numpy(rng.integers(0, len(km), size=n_sample)).to(km._pos_dev.device)
     pos = km._pos_dev[rows].cpu().numpy()
-    ranks = table.astype(np.int64)[kmer_windows(sc, pos, km.max_kmer_len)]
+    ranks = table.astype(np.int64)[kmer_windows(sc, pos, km.max_kmer_len, km)]
     for w, word in enumerate(lanes["words"]):
         fields = ranks[:, per_word * w : per_word * (w + 1)]
         code = np.zeros(n_sample, dtype=np.int64)
@@ -275,34 +431,49 @@ def check_words_against_genome(km, sc, rng, label: str, n_sample: int = 65536) -
     log(f"{label}: sorted {bits}-bit key words match the genome on {n_sample} sampled rows")
 
 
-def oracle_check(records, min_kmer_len: int, max_kmer_len: int, descending: bool = False) -> None:
+def oracle_check(records, min_kmer_len: int, max_kmer_len, descending: bool = False,
+                 strands: str = "forward", track: bool = False) -> None:
     """Positions and statistics against a NumPy oracle: every k-mer as the
-    byte string of its first min(bases left, max_kmer_len) bases, stable
-    byte-string sort (shorter prefix first), np.unique for the groups. With
-    ``descending`` the index is assigned in descending order first, so the
-    sort takes the gather path."""
-    sc = collection_of(records)
-    km = gkt.Kmers(sc, min_kmer_len, max_kmer_len)
+    byte string of its first min(bases left, max_kmer_len) bases (all of
+    them for max_kmer_len None), stable byte-string sort (shorter prefix
+    first), np.unique for the groups. With ``descending`` the index is
+    assigned in descending order first, so the sort takes the gather path.
+    ``strands`` other than "forward" checks the index of
+    ``Kmers.from_strand`` against the strings of its own SBA; with ``track``
+    the strand is part of a group's identity, which holds at the sort's own
+    compare length."""
+    sc = collection_of(records, strands)
+    km = index_of(sc, min_kmer_len, max_kmer_len, track)
     if descending:
         km.kmer_sba_start_indices = km.kmer_sba_start_indices[::-1].copy()
     km.sort()
-    starts = valid_starts(records, min_kmer_len)
-    win = kmer_windows(sc, starts, max_kmer_len)
-    order = np.argsort(as_strings(win, max_kmer_len), kind="stable")
-    label = f"oracle ({min_kmer_len}, {max_kmer_len}{', descending input' if descending else ''})"
+    starts = valid_starts_of(sc, km)
+    sba = index_sba(sc, km)[0]
+    width = max(len(seq) for _, seq in records) if max_kmer_len is None else max_kmer_len
+    win = kmer_windows(sc, starts, width, km)
+    order = np.argsort(as_strings(win, width), kind="stable")
+    label = (f"oracle ({min_kmer_len}, {max_kmer_len}{', descending input' if descending else ''}"
+             f"{'' if strands == 'forward' else ', ' + strands}{', strands apart' if track else ''})")
     if not np.array_equal(km.kmer_sba_start_indices.astype(np.int64), starts[order]):
         raise AssertionError(f"{label}: sorted positions differ")
-    for k in sorted({min_kmer_len, (min_kmer_len + max_kmer_len) // 2, max_kmer_len}):
-        sizes = np.unique(as_strings(win, k), return_counts=True)[1]
+    # the reverse-complement half of a concatenated SBA follows the joining '$'
+    is_rc = starts > len(sc.forward_sba) if strands == "both" else np.zeros(len(starts), dtype=bool)
+    lens = [width] if track else sorted({min_kmer_len, (min_kmer_len + min(width, 64)) // 2, width})
+    for k in lens:
+        strings = as_strings(win, k)
+        halves = (strings[~is_rc], strings[is_rc]) if track else (strings,)
+        sizes = np.concatenate([np.unique(h, return_counts=True)[1] for h in halves])
+        kmer_len = None if max_kmer_len is None and k == width else k
         for mcb in (30, 1000):
             expected = np.bincount(np.minimum(sizes, mcb), minlength=mcb + 1)
-            counts, total = km.get_kmer_group_counts(k, max_counts_bin=mcb)
+            counts, total = km.get_kmer_group_counts(kmer_len, max_counts_bin=mcb)
             if not (np.array_equal(counts, expected) and total == len(starts)):
-                raise AssertionError(f"{label} k={k}: histogram differs")
-        if km.get_kmer_count(k, min_group_size=2) != int(sizes[sizes >= 2].sum()):
-            raise AssertionError(f"{label} k={k}: count differs")
-    log(f"{label} at {len(sc.forward_sba)} bytes, "
-        f"{'2' if km._lanes_cache['two_bit'] else '4'}-bit keys: positions and statistics agree")
+                raise AssertionError(f"{label} k={kmer_len}: histogram differs")
+        if km.get_kmer_count(kmer_len, min_group_size=2) != int(sizes[sizes >= 2].sum()):
+            raise AssertionError(f"{label} k={kmer_len}: count differs")
+    two_bit = bool(np.isin(sba, np.frombuffer(b"ACGT$", dtype=np.uint8)).all())
+    log(f"{label} at {len(sba)} bytes, {'2' if two_bit else '4'}-bit keys: "
+        f"positions and statistics agree")
 
 
 # --------------------------------------------------------------------------- #
@@ -379,6 +550,24 @@ def tied_lanes(rng, n_lanes: int, n: int, dev):
     return tuple(torch.from_numpy(lane.view(np.int32)).to(dev) for lane in lanes)
 
 
+def round_lanes(seed: int, n_lanes: int, n: int, dev):
+    """The lanes of a refinement round, made on the card: heavily tied
+    leading lanes (run id or invalid flag, then key words; a quarter of the
+    values mirrored to the top of the uint32 range), a permutation (the
+    position) and behind it a tied lane (the cap), as int32 bit patterns."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    lanes = []
+    for lane in range(n_lanes - 2):
+        vals = torch.randint(0, 40 if lane == 0 else 3, (n,), dtype=torch.int32, device=dev,
+                             generator=gen)
+        high = torch.rand(n, device=dev, generator=gen) < 0.25
+        lanes.append(torch.where(high, -1 - vals, vals))  # -1 - v is 0xFFFFFFFF - v
+    lanes.append(torch.randperm(n, device=dev, generator=gen).to(torch.int32))
+    lanes.append(torch.randint(0, 3, (n,), dtype=torch.int32, device=dev, generator=gen))
+    return tuple(lanes)
+
+
 def shaped_lanes(rng, shape: str, n_lanes: int, n: int, dev):
     """Inputs a merge can get wrong, from the tied lanes: already sorted,
     reverse-sorted, every key lane constant (only the last lane differs),
@@ -420,7 +609,7 @@ def phase_lane_sort_kernel(rng) -> dict:
     sizes = (1, 2, 127, 128, TILE_ROWS - 1, TILE_ROWS, TILE_ROWS + 1, 2 * TILE_ROWS + 1,
              3 * TILE_ROWS, (1 << 20) + 7, 1 << 24, (1 << 24) + 4097)
     shapes = ("sorted", "reversed", "constant keys", "upper half first")
-    for n_lanes in (1, 2, 3, 6, 8):
+    for n_lanes in (1, 2, 3, 4, 5, 6, 7, 8):
         for n in sizes:
             lanes = tied_lanes(rng, n_lanes, n, dev)
             max_err = max(max_err, check_lane_sort(lanes, f"{n_lanes} lanes, n={n}"))
@@ -431,7 +620,29 @@ def phase_lane_sort_kernel(rng) -> dict:
         log(f"lane sort, {n_lanes} lanes: bitwise equal to the plain version at n in {sizes} "
             f"and on {', '.join(shapes)} inputs")
         del lanes
+    # the shape of a refinement round: tied keys, the position, then a cap
+    # that rides behind it; the rows differ in the position, so the cap
+    # never decides and the kernel equals the stable plain version
+    for n_lanes in (4, 5, 6, 7):
+        for n in (TILE_ROWS + 1, (1 << 20) + 7, 1 << 24):
+            lanes = tied_lanes(rng, n_lanes - 1, n, dev)
+            lanes += (torch.from_numpy(rng.integers(0, 3, size=n).astype(np.int32)).to(dev),)
+            max_err = max(max_err, check_lane_sort(lanes, f"{n_lanes} lanes with a payload, n={n}"))
+        del lanes
+    log("lane sort, 4 to 7 lanes with a tied payload lane behind the position: bitwise equal "
+        "to the plain version")
     torch.cuda.empty_cache()
+    # the same at the shapes the full-width rounds give the kernel: 2^27
+    # rows of 7 lanes (the 4-bit rounds: invalid flag or run id, four words,
+    # position, cap) and of 6 lanes (the 2-bit window rounds: run id, two
+    # words, in-window cap, position, cap)
+    for n_lanes in (7, 6):
+        lanes = round_lanes(SEED + n_lanes, n_lanes, MAIN_BP, dev)
+        (_, seconds) = sync_time(lambda: check_lane_sort(lanes, f"2^27 rows x {n_lanes} lanes with a payload"))
+        log(f"lane sort, 2^27 rows x {n_lanes} lanes, tied keys, position, tied payload behind it: "
+            f"bitwise equal to the plain version (checked in {seconds:.2f} s)")
+        del lanes
+        torch.cuda.empty_cache()
     # the main path's shape: 2^27 rows of (invalid, four words, position)
     n = MAIN_BP
     lanes = (torch.randint(0, 2, (n,), dtype=torch.int32, device=dev),)
@@ -509,8 +720,9 @@ def run_main_calls(fasta: Path):
     return sc, km, times
 
 
-def phase_main_path(rng, tmp: Path, iupac: bool, profile_dir) -> int:
-    """One main path at 2^27 SBA bytes; returns its kernel's launches."""
+def phase_main_path(rng, tmp: Path, iupac: bool, profile_dir):
+    """One main path at 2^27 SBA bytes; returns (its kernel's launches, the
+    collection, the k=31 histogram)."""
     label = "IUPAC main path (31, 31)" if iupac else "ACGT main path (31, 31)"
     # the SBA joins the records with one '$' each: exactly 2^27 bytes
     records = synthetic_records(rng, MAIN_BP - (MAIN_RECORDS - 1), MAIN_RECORDS, iupac=iupac)
@@ -535,12 +747,12 @@ def phase_main_path(rng, tmp: Path, iupac: bool, profile_dir) -> int:
         raise AssertionError(f"{label} did not launch {kernel.__name__}")
     if km._lanes_cache["two_bit"] == iupac:
         raise AssertionError(f"{label} took the wrong key encoding")
-    check_sorted_index(km, valid_starts(records_of(sc), 31), label)
+    counts = check_sorted_index(km, valid_starts(records_of(sc), 31), label)
     check_words_against_genome(km, sc, rng, label)
+    del km
     if iupac and profile_dir is not None:
-        del sc, km  # their memory stays with the allocator: the profiled run is warm
-        profile_main_calls(fasta, Path(profile_dir))
-    return launches
+        profile_main_calls(fasta, Path(profile_dir))  # warm: the allocator keeps the memory
+    return launches, sc, counts
 
 
 def profile_main_calls(fasta: Path, out_dir: Path) -> None:
@@ -552,9 +764,13 @@ def profile_main_calls(fasta: Path, out_dir: Path) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, _, times = run_main_calls(fasta)
     log("profiled warm run times (s): " + ", ".join(f"{name} {t:.4f}" for name, t in times.items()))
+    write_profile(prof, out_dir / "main_path_4bit_kernels.txt")
+
+
+def write_profile(prof, path: Path) -> None:
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40,
                                       max_name_column_width=70)
-    (out_dir / "main_path_4bit_kernels.txt").write_text(table)
+    path.write_text(table)
     for line in table.splitlines()[:24]:
         log(f"  profile: {line}")
 
@@ -645,12 +861,226 @@ def phase_oracle(rng) -> None:
         oracle_check(acgt, 20, 48, descending)
         oracle_check(iupac, 31, 31, descending)
         oracle_check(iupac, 12, 32, descending)
+    # whole-record strings: suffix mode, beyond one window, the other strands
+    acgt1 = synthetic_records(rng, SMALL_ORACLE_BP, 6, short_lens=(1, 5, 71))
+    acgt5 = synthetic_records(rng, SMALL_ORACLE_BP, 6, short_lens=(5, 40, 71))
+    iupac = synthetic_records(rng, SMALL_ORACLE_BP, 6, short_lens=(3, 40, 47), iupac=True)
+    for descending in (False, True):
+        oracle_check(acgt1, 1, None, descending)
+        oracle_check(acgt5, 5, 70, descending)
+        oracle_check(iupac, 3, None, descending)
+        oracle_check(iupac, 3, 40, descending)
+        for records, mn, mx in ((acgt5, 5, 31), (acgt1, 1, None), (iupac, 3, 40)):
+            oracle_check(records, mn, mx, descending, strands="reverse_complement")
+            oracle_check(records, mn, mx, descending, strands="both")
+            oracle_check(records, mn, mx, descending, strands="both", track=True)
+
+
+def short_tail_counts(sc, k: int, max_counts_bin: int = 1000000) -> np.ndarray:
+    """Histogram of the groups among the k-mers with fewer than ``k`` bases
+    left in their record (k - 1 of them a record), at ``k`` bases identity:
+    such a k-mer equals only another of the same string. An index of
+    min_kmer_len 1 holds them beside the k-mers of an index of
+    min_kmer_len k."""
+    tails = [sc.forward_sba[max(s, e - k + 2) + i : e + 1].tobytes()
+             for _, s, e in sc.iter_records() for i in range(min(k - 1, e - s + 1))]
+    sizes = np.unique(np.array(tails, dtype=f"S{k}"), return_counts=True)[1]
+    return np.bincount(np.minimum(sizes, max_counts_bin), minlength=max_counts_bin + 1)
+
+
+def run_suffix_calls(host_sc):
+    """The suffix main path's calls, each timed to its end on the card, on
+    a collection rebuilt from ``host_sc``'s host arrays: no second parse,
+    but its own upload and pack. Returns (collection, index, rounds, times,
+    histogram at None, histogram at 31)."""
+    times = {}
+    sba, seg_starts = index_sba(host_sc)
+    (sc, km), times["collection"] = sync_time(lambda: from_numpy_state(
+        sba, seg_starts, host_sc.forward_record_names,
+        1, None, device=DEVICE))  # (1, None), the defaults of Kmers(sc): every suffix
+    dc = sc.device_cache("forward")
+    _, times["upload"] = sync_time(lambda: dc.sba)
+    _, times["pack"] = sync_time(lambda: dc.packed2 if dc.is_acgt_only else dc.packed)
+    rounds, times["sort"] = timed_sort(km)
+    (counts, total), times["group counts (None)"] = sync_time(lambda: km.get_kmer_group_counts(None))
+    count, times["count (None)"] = sync_time(lambda: km.get_kmer_count(None))
+    (counts31, total31), times["group counts (31)"] = sync_time(lambda: km.get_kmer_group_counts(31))
+    if not count == total == total31 == len(km):
+        raise AssertionError(f"suffix main path: count {count}, totals {total} and {total31}, "
+                             f"index length {len(km)}")
+    return sc, km, rounds, times, counts, counts31
+
+
+def phase_suffix_main(host_sc, main_counts31, rng, profile_dir) -> dict:
+    """Suffix mode at full width on a main path's genome; returns the
+    launches of both kernels in it. The ACGT genome's rounds all have
+    64-bit keys (a folded first round, then prefix doubling) and take
+    torch.sort, so of the two kernels that path launches the pack alone;
+    the IUPAC genome's first round is seven lanes through the multi-lane
+    sort kernel. The path gets a collection of its own, so its upload and
+    its pack are in its times; the memory held before it begins (the main
+    paths' collections) is taken off the peak."""
+    two_bit = host_sc.device_cache("forward").is_acgt_only
+    label = f"suffix main path (1, None), {'ACGT' if two_bit else 'IUPAC'} genome"
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    sc, km, rounds, times, counts, counts31 = run_suffix_calls(host_sc)
+    launches = {"pack_rank2_words_cuda": pack_rank2_words_cuda.launches,
+                "sort_lanes_cuda": sort_lanes_cuda.launches}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{label} times (s): " + ", ".join(f"{name} {t:.4f}" for name, t in times.items()))
+    log(f"{label}: {rounds.summary()}")
+    log(f"{label}: SBA {len(sc.forward_sba)} bytes, {len(km)} suffixes, "
+        f"sort {len(km) / times['sort'] / 1e6:.1f} M suffixes/s, "
+        f"{launches['pack_rank2_words_cuda']} pack and {launches['sort_lanes_cuda']} lane sort "
+        f"launches, peak device memory {peak} bytes ({peak / 2**30:.3f} GiB), of which "
+        f"{held_before} bytes were held before the path began: the path's own "
+        f"{(peak - held_before) / 2**30:.3f} GiB")
+    if km._lanes_cache is not None or km.suffix_run_ids is None:
+        raise AssertionError(f"{label}: the sort kept lanes, or no run ids")
+    names = [r[0] for r in rounds.rounds]
+    first = "_first_round_dense2" if two_bit else "_first_round_dense"
+    if names[0] != first or set(names[1:]) != {"_double_round2"} or len(names) < 4:
+        raise AssertionError(f"{label}: unexpected rounds {names}")
+    if launches != {"pack_rank2_words_cuda": int(two_bit), "sort_lanes_cuda": int(not two_bit)}:
+        raise AssertionError(f"{label}: unexpected kernel launches {launches}")
+    if not np.array_equal(counts31, main_counts31 + short_tail_counts(sc, 31)):
+        raise AssertionError(f"{label}: the k=31 histogram is not the main path's plus the "
+                             "records' short tails")
+    log(f"{label}: get_kmer_group_counts(31) over gathered keys equals the (31, 31) main "
+        "path's histogram plus the 30 shorter k-mers at each record's end")
+    check_refined_index(km, sc, rng, label)
+    if two_bit:  # what every round pays for its run ids
+        mask = km.suffix_run_ids > 1
+        ms = cuda_ms(lambda: torch.cumsum(mask, dim=0), reps=5, warmup=1)
+        log(f"torch.cumsum of {mask.shape[0]} bool rows to int64: {ms:.3f} ms")
+        del mask
+    # a second fresh index on the same collection: the first sort paid the
+    # allocator's growth, this one finds the memory held
+    km = gkt.Kmers(sc)
+    rounds, seconds = timed_sort(km)
+    log(f"{label}, a second fresh sort (allocator warm): {seconds:.4f} s, "
+        f"{len(km) / seconds / 1e6:.1f} M suffixes/s; {rounds.summary()}")
+    del km, sc
+    torch.cuda.empty_cache()
+    if two_bit and profile_dir is not None:
+        from torch.profiler import ProfilerActivity, profile
+
+        Path(profile_dir).mkdir(parents=True, exist_ok=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, _, rounds, times, _, _ = run_suffix_calls(host_sc)
+        log(f"{label}, profiled warm run times (s): "
+            + ", ".join(f"{name} {t:.4f}" for name, t in times.items()))
+        log(f"{label}, profiled warm run: {rounds.summary()}")
+        write_profile(prof, Path(profile_dir) / "suffix_main_path_kernels.txt")
+    return launches
+
+
+def phase_beyond_window(sc_acgt, sc_iupac, rng) -> dict:
+    """Bounded k-mers longer than one compare window at full width: window
+    rounds through the multi-lane sort kernel. Returns its launches."""
+    launches = {}
+    for sc, k, first, later, max_rounds in (
+        (sc_acgt, 100, "_first_round_dense2", "_sort_round2", 4),
+        (sc_iupac, 48, "_first_round_dense", "_sort_round", 2),
+    ):
+        label = f"beyond one window ({k}, {k}), {'2' if later[-1] == '2' else '4'}-bit keys"
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        km = gkt.Kmers(sc, k, k)
+        rounds, t_sort = timed_sort(km)
+        (_, total), t_hist = sync_time(lambda: km.get_kmer_group_counts(k))
+        launches[label] = sort_lanes_cuda.launches
+        peak = torch.cuda.max_memory_allocated()
+        log(f"{label}: sort {t_sort:.4f} s ({len(km) / t_sort / 1e6:.1f} M k-mers/s), group counts "
+            f"from the run ids {t_hist:.4f} s, {sort_lanes_cuda.launches} lane sort launches, "
+            f"peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+        log(f"{label}: {rounds.summary()}")
+        names = [r[0] for r in rounds.rounds]
+        if names[0] != first or set(names[1:]) != {later} or len(names) > max_rounds:
+            raise AssertionError(f"{label}: unexpected rounds {names}")
+        on_kernel = [r for r in rounds.rounds if r[0] != "_first_round_dense2"]
+        if any(n != 1 for _, _, n in on_kernel) or sort_lanes_cuda.launches != len(on_kernel):
+            raise AssertionError(f"{label}: a window round did not launch the lane sort kernel once")
+        if total != len(km):
+            raise AssertionError(f"{label}: histogram total {total}, index length {len(km)}")
+        check_refined_index(km, sc, rng, label)
+        del km
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_window_rounds(rng) -> int:
+    """Suffix mode without doubling (min_kmer_len > 1): as many window
+    rounds as the longest repeat has windows, each over every row."""
+    label = "unbounded window rounds (20, None)"
+    records = synthetic_records(rng, WINDOW_ROUNDS_BP, 24, short_lens=(20, 33, 47))
+    sc = collection_of(records)
+    del records
+    reset_launches()
+    km = gkt.Kmers(sc, 20, None)
+    rounds, t_sort = timed_sort(km)
+    log(f"{label} at {WINDOW_ROUNDS_BP} bp (not 2^27: the rounds number the longest repeat, "
+        f"at most 2000 bases here, over 32, and each sorts every row): sort {t_sort:.4f} s "
+        f"({len(km) / t_sort / 1e6:.1f} M suffixes/s), {sort_lanes_cuda.launches} lane sort launches")
+    log(f"{label}: {rounds.summary()}")
+    later = rounds.rounds[1:]
+    if len(later) < 10 or any(name != "_sort_round2" or n != 1 for name, _, n in later):
+        raise AssertionError(f"{label}: expected ten or more 2-bit window rounds, one lane sort "
+                             f"launch each, got {[(name, n) for name, _, n in later][:12]}")
+    check_refined_index(km, sc, rng, label)
+    return sort_lanes_cuda.launches
+
+
+def phase_strands(rng) -> dict:
+    """Reverse-complement and both-strand indexes at (31, 31). Reverse
+    complementing is a bijection of the 31-mers, so the reverse-complement
+    index has the forward index's histogram, and a both-strand index with
+    the strands tracked apart has the sum of the two."""
+    launches = {}
+    for total_bp, modes in ((REVCOMP_BP, ("reverse_complement",)),
+                            (BOTH_BP, ("reverse_complement", "both"))):
+        records = synthetic_records(rng, total_bp, 24, short_lens=(31, 40))
+        reset_launches()
+        hists, times = {}, {}
+        for strands, track in [("forward", False)] + [(m, False) for m in modes] + (
+                [("both", True)] if "both" in modes else []):
+            name = strands + (", strands apart" if track else "")
+            label = f"strands ({name}) (31, 31) at {total_bp} bp"
+            sc = collection_of(records, strands)
+            km = index_of(sc, 31, 31, track)
+            _, times[name] = sync_time(km.sort)
+            if track:  # the strand splits groups: no lanes-only statistics
+                hists[name] = check_histogram(km, 31, label)
+            else:
+                hists[name] = check_sorted_index(km, valid_starts_of(sc, km), label)
+                check_words_against_genome(km, sc, rng, label)
+            del sc, km
+            torch.cuda.empty_cache()
+        if not np.array_equal(hists["reverse_complement"], hists["forward"]):
+            raise AssertionError("the reverse-complement histogram differs from the forward one")
+        if "both" in modes:
+            if not np.array_equal(hists["both, strands apart"],
+                                  hists["forward"] + hists["reverse_complement"]):
+                raise AssertionError("the both-strand histogram with strands tracked apart is not "
+                                     "the sum of the forward and the reverse-complement ones")
+            joint, apart = hists["both"], hists["both, strands apart"]
+            sizes = np.arange(len(joint), dtype=np.int64)
+            if int((sizes * joint).sum()) != int((sizes * apart).sum()) or joint.sum() > apart.sum():
+                raise AssertionError("the joint both-strand histogram does not hold the same "
+                                     "k-mers in fewer groups")
+        launches[total_bp] = pack_rank2_words_cuda.launches
+        log(f"strands at {total_bp} bp, sort times (s): "
+            + ", ".join(f"{name} {t:.4f}" for name, t in times.items())
+            + f"; histograms agree across the strands ({pack_rank2_words_cuda.launches} pack launches)")
+    return launches
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
-                        help="also profile a warm run of the IUPAC main path into DIR")
+                        help="also profile warm runs of the IUPAC and the suffix main path into DIR")
     args = parser.parse_args()
     smi = phase_device()
     phase_build()
@@ -658,13 +1088,20 @@ def main() -> None:
     pack_timing = phase_pack_kernel(rng)
     sort_timing = phase_lane_sort_kernel(rng)
     with tempfile.TemporaryDirectory() as tmp:
-        pack_launches = phase_main_path(rng, Path(tmp), False, None)
+        pack_launches, sc_acgt, counts31 = phase_main_path(rng, Path(tmp), False, None)
         torch.cuda.empty_cache()
-        sort_launches = phase_main_path(rng, Path(tmp), True, args.profile)
+        sort_launches, sc_iupac, counts31_iupac = phase_main_path(rng, Path(tmp), True, args.profile)
     torch.cuda.empty_cache()
     phase_general(rng)
     phase_gather_path(rng)
     phase_oracle(rng)
+    suffix_launches = phase_suffix_main(sc_acgt, counts31, rng, args.profile)
+    suffix4_launches = phase_suffix_main(sc_iupac, counts31_iupac, rng, None)
+    beyond_launches = phase_beyond_window(sc_acgt, sc_iupac, rng)
+    del sc_acgt, sc_iupac
+    torch.cuda.empty_cache()
+    window_launches = phase_window_rounds(rng)
+    strand_launches = phase_strands(rng)
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
     log(f"card: {smi}")
@@ -675,6 +1112,10 @@ def main() -> None:
             "source": "genome_kmers_tpu_torch/csrc/pack2.cu",
             "replaces": "genome_kmers_tpu/ops/pallas_kernels.py:87",
             "launches": pack_launches,
+            "launches_by_path": {"ACGT main path": pack_launches,
+                                 "suffix main path, ACGT genome":
+                                     suffix_launches["pack_rank2_words_cuda"],
+                                 **{f"strands at {bp} bp": n for bp, n in strand_launches.items()}},
             **pack_timing,
         },
         {
@@ -683,6 +1124,11 @@ def main() -> None:
             "source": "genome_kmers_tpu_torch/csrc/lane_sort.cu",
             "replaces": "genome_kmers_tpu/ops/pallas_sort.py:110",
             "launches": sort_launches,
+            "launches_by_path": {"IUPAC main path": sort_launches,
+                                 "suffix main path, IUPAC genome":
+                                     suffix4_launches["sort_lanes_cuda"],
+                                 **beyond_launches,
+                                 "unbounded window rounds (20, None)": window_launches},
             **sort_timing,
         },
     ]}))

@@ -1,11 +1,14 @@
 """Carry the host state of a JAX-package collection and index into the port.
 
 ``from_numpy_state`` rebuilds a ``SequenceCollection`` and a ``Kmers`` from
-NumPy arrays: the forward SBA, its segment starts and record names and,
-optionally, an index: a sorted one (sorted positions and the retained
-sorted key lanes ``words``/``cap``, 2-bit or 4-bit, as the JAX package keeps
-them) or an assigned, unsorted one (positions alone). The port then
-computes over exactly the state the JAX package built.
+NumPy arrays: the SBA of the loaded strand, its segment starts and record
+names, the index's strand mode and, optionally, an index: a sorted one
+(sorted positions and, where the sort was within one compare window, the
+retained sorted key lanes ``words``/``cap``, 2-bit or 4-bit, as the JAX
+package keeps them; for a suffix-mode or beyond-window sort the converged
+run ids ``suffix_gid`` instead, or neither) or an assigned, unsorted one
+(positions alone). The port then computes over exactly the state the JAX
+package built.
 """
 
 from __future__ import annotations
@@ -14,7 +17,9 @@ import numpy as np
 import torch
 
 from .kmers import Kmers
+from .ops.encoding import reverse_complement_bytes
 from .ops.keys import u32_bits_as_int32
+from .ops.sort import WINDOW2_BASES, WINDOW_BASES
 from .sequence_collection import SequenceCollection
 
 
@@ -22,59 +27,105 @@ def _lane(values, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(values).astype(np.int64)).to(device)
 
 
+def _collection(sba, seg_starts, record_names, source_strand: str, device) -> SequenceCollection:
+    sc = SequenceCollection(device=device)
+    sba = np.ascontiguousarray(sba, dtype=np.uint8)
+    seg_starts = np.asarray(seg_starts, dtype=np.uint32)
+    if source_strand == "reverse_complement":
+        sc.revcomp_sba, sc._revcomp_sba_seg_starts = sba, seg_starts
+        sc.revcomp_record_names = list(record_names)
+    else:
+        sc.forward_sba, sc._forward_sba_seg_starts = sba, seg_starts
+        sc.forward_record_names = list(record_names)
+        if source_strand == "both":
+            sc.revcomp_sba = reverse_complement_bytes(sba)
+            sc._revcomp_sba_seg_starts = sc._get_opposite_strand_sba_start_indices(
+                seg_starts, len(sba)
+            )
+            sc.revcomp_record_names = list(record_names)[::-1]
+    sc._strands_loaded = source_strand
+    return sc
+
+
 def from_numpy_state(
     sba,
     seg_starts,
     record_names,
     min_kmer_len: int,
-    max_kmer_len: int,
+    max_kmer_len,
     positions=None,
     words=None,
     cap=None,
     two_bit: bool = True,
     is_sorted: bool = True,
     device="cuda",
+    source_strand: str = "forward",
+    track_strands_separately: bool = False,
+    suffix_gid=None,
 ):
     """(SequenceCollection, Kmers) on ``device`` holding the given state.
 
+    ``sba``, ``seg_starts`` and ``record_names`` are those of the loaded
+    strand: the reverse-complement SBA for
+    ``source_strand="reverse_complement"``, else the forward one (for
+    "both" the reverse complement is derived from it). A non-forward
+    ``source_strand`` gives the index ``Kmers.from_strand`` builds;
+    positions of a "both" index are those of the concatenated SBA.
+
     Without ``positions`` the Kmers is the fresh, unsorted index. With them
-    and ``is_sorted`` it is the sorted index: ``positions`` in sorted order
-    and ``words`` (a sequence of uint32 arrays) the sorted key lanes built
-    at ``max_kmer_len``: 2-bit lanes (``two_bit``) with ``cap`` the sorted
-    cap lane (None when min_kmer_len == max_kmer_len), or 4-bit lanes,
-    which have no cap lane. With ``is_sorted=False`` the positions are an
-    assigned index in the given order and there are no lanes."""
-    sc = SequenceCollection(device=device)
-    sc.forward_sba = np.ascontiguousarray(sba, dtype=np.uint8)
-    sc._forward_sba_seg_starts = np.asarray(seg_starts, dtype=np.uint32)
-    sc.forward_record_names = list(record_names)
-    sc._strands_loaded = "forward"
-    km = Kmers(sc, min_kmer_len=min_kmer_len, max_kmer_len=max_kmer_len)
+    and ``is_sorted`` it is the sorted index. Where ``max_kmer_len`` lies
+    within one compare window, ``words`` (a sequence of uint32 arrays) are
+    the sorted key lanes built at ``max_kmer_len``: 2-bit lanes
+    (``two_bit``) with ``cap`` the sorted cap lane (None when min_kmer_len
+    == max_kmer_len), or 4-bit lanes, which have no cap lane. Beyond it
+    (``max_kmer_len`` None included) there are no such lanes, and
+    ``suffix_gid`` may carry the converged run ids of the sort. With
+    ``is_sorted=False`` the positions are an assigned index in the given
+    order and there are no lanes."""
+    sc = _collection(sba, seg_starts, record_names, source_strand, device)
+    if source_strand == "forward":
+        km = Kmers(sc, min_kmer_len=min_kmer_len, max_kmer_len=max_kmer_len)
+    else:
+        km = Kmers.from_strand(
+            sc, min_kmer_len, max_kmer_len, source_strand=source_strand,
+            track_strands_separately=track_strands_separately,
+        )
     if positions is None:
         return sc, km
     if not is_sorted:
-        if words is not None or cap is not None:
+        if words is not None or cap is not None or suffix_gid is not None:
             raise ValueError("an assigned, unsorted index has no sorted key lanes")
         km.kmer_sba_start_indices = np.asarray(positions).astype(np.uint32)
         return sc, km
-    if words is None:
-        raise ValueError("a sorted index needs its sorted key lanes (words)")
-    if two_bit and (cap is None) != (min_kmer_len == max_kmer_len):
-        raise ValueError("cap must be given exactly when min_kmer_len < max_kmer_len")
-    if not two_bit and cap is not None:
-        raise ValueError("4-bit lanes carry termination in-word and have no cap lane")
+    in_window = max_kmer_len is not None and max_kmer_len <= (
+        WINDOW2_BASES if two_bit else WINDOW_BASES
+    )
+    if in_window:
+        if words is None:
+            raise ValueError("a sorted index needs its sorted key lanes (words)")
+        if suffix_gid is not None:
+            raise ValueError("run ids belong to a sort beyond one compare window")
+        if two_bit and (cap is None) != (min_kmer_len == max_kmer_len):
+            raise ValueError("cap must be given exactly when min_kmer_len < max_kmer_len")
+        if not two_bit and cap is not None:
+            raise ValueError("4-bit lanes carry termination in-word and have no cap lane")
+    elif words is not None or cap is not None:
+        raise ValueError("a sort beyond one compare window keeps no key lanes (words, cap)")
     km._pos_dev = _lane(positions, sc.device)
     km._pos_host = None
     km._init_geometry = None
-    if two_bit:  # the forms the port's own sorts retain (ops/sort.py)
-        lane_words = tuple(_lane(w, sc.device) for w in words)
-    else:
-        lane_words = tuple(u32_bits_as_int32(_lane(w, sc.device)) for w in words)
-    km._lanes_cache = {
-        "two_bit": two_bit,
-        "built_k": max_kmer_len,
-        "words": lane_words,
-        "cap": None if cap is None else _lane(cap, sc.device),
-    }
+    if in_window:
+        if two_bit:  # the forms the port's own sorts retain (ops/sort.py)
+            lane_words = tuple(_lane(w, sc.device) for w in words)
+        else:
+            lane_words = tuple(u32_bits_as_int32(_lane(w, sc.device)) for w in words)
+        km._lanes_cache = {
+            "two_bit": two_bit,
+            "built_k": max_kmer_len,
+            "words": lane_words,
+            "cap": None if cap is None else _lane(cap, sc.device),
+        }
+    elif suffix_gid is not None:
+        km._suffix_gid_cache = (_lane(suffix_gid, sc.device), max_kmer_len)
     km._is_sorted = True
     return sc, km

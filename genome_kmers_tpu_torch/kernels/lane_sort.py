@@ -90,8 +90,10 @@ def blocks_resident(n_lanes: int) -> tuple[int, int]:
 def sort_lanes_cuda(lanes) -> tuple:
     """Rows of 1..8 int32 lanes (uint32 bit patterns) sorted ascending,
     lexicographically over all lanes, most significant first, compared as
-    unsigned; the lanes of a row move together. The caller makes the last
-    lane unique and never 0xFFFFFFFF, so the order is total.
+    unsigned; the lanes of a row move together. The caller makes one lane
+    unique and never 0xFFFFFFFF (the position: the last lane, or the one
+    before a cap that rides along), so the order is total and the lanes
+    after the unique one never decide it.
 
     ``lanes`` are contiguous 1-D int32 tensors of equal length on one
     device; they are not modified and not copied. For CUDA tensors the

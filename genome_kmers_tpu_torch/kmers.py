@@ -1,17 +1,22 @@
 """Kmers: the k-mer index and its group statistics, on torch tensors.
 
-Counterpart of ``genome_kmers_tpu/kmers.py`` for a forward-strand index at
-a bounded ``max_kmer_len`` of one compare window (64 bases on an ACGT
-genome's 2-bit keys, 32 on the 4-bit keys of a genome with N runs or IUPAC
-codes):
+Counterpart of ``genome_kmers_tpu/kmers.py`` at any ``max_kmer_len``, None
+(suffix mode: compare to the end of the record) included, on the forward
+strand, the reverse complement or both (``Kmers.from_strand``):
 
-* ``sort()`` of the fresh index, gather-free over every SBA position
-  (ops/sort.sort_positions_dense), and of any other index (a re-sort, an
-  assigned ``kmer_sba_start_indices``) through gathered keys with the
-  position as the last key (ops/sort.sort_positions);
+* ``sort()`` of the fresh index, gather-free over every SBA position: within
+  one compare window (64 bases on an ACGT genome's 2-bit keys, 32 on the
+  4-bit keys of a genome with N runs or IUPAC codes) by
+  ops/sort.sort_positions_dense, beyond it by the refinement rounds of
+  ops/sort.sort_positions_suffix_dense, whose converged run ids are kept;
+  and of any other index (a re-sort, an assigned
+  ``kmer_sba_start_indices``) through gathered keys with the position as
+  the last key (ops/sort.sort_positions);
 * ``get_kmer_group_counts`` / ``get_kmer_count`` over the sorted key lanes
-  that the sort retains (rebuilt once for an assigned sorted index), or
-  over gathered keys when ``kmer_len`` exceeds them;
+  that a one-window sort retains (rebuilt once for an assigned sorted
+  index), over the run ids of a suffix sort at its own identity, or over
+  gathered keys (window by window when ``kmer_len`` is None or beyond a
+  window);
 * ``get_kmers``, ``get_kmers_arrays``, ``get_kmer_str`` and
   ``get_kmer_strs``.
 
@@ -49,8 +54,14 @@ from .ops.sort import (
     boundaries_from_sorted_lanes,
     sort_positions,
     sort_positions_dense,
+    sort_positions_suffix_dense,
 )
-from .sequence_collection import SequenceCollection
+from .sequence_collection import (
+    SequenceCollection,
+    get_forward_seq_idx,
+    get_sba_start_end_indices_for_segment,
+    get_segment_num_from_sba_index,
+)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -64,7 +75,8 @@ class Kmers:
 
     Constructor arguments, validation and error behavior match the JAX
     package (track_strands_separately, a non-forward source_strand and
-    double_pass raise NotImplementedError)."""
+    double_pass raise NotImplementedError; ``from_strand`` implements
+    them)."""
 
     def __init__(
         self,
@@ -89,8 +101,43 @@ class Kmers:
         )
 
     @classmethod
-    def from_strand(cls, *args, **kwargs) -> "Kmers":
-        raise _not_ported("Kmers.from_strand", "A6: reverse-complement indexes")
+    def from_strand(
+        cls,
+        seq_coll: Union[SequenceCollection, None] = None,
+        min_kmer_len: int = 1,
+        max_kmer_len: Union[int, None] = None,
+        source_strand: str = "forward",
+        track_strands_separately: bool = False,
+        method: str = "single_pass",
+        kmer_filters: list = (),
+    ) -> "Kmers":
+        """Construct a Kmers over a chosen strand.
+
+        - ``source_strand="reverse_complement"``: the index enumerates,
+          sorts and groups the k-mers of the reverse-complement SBA exactly
+          as the forward index does for the forward SBA.
+        - ``source_strand="both"``: one index over the k-mers of both
+          strands, built on the concatenated SBA ``forward + '$' + revcomp``
+          (SequenceCollection.both_concat_arrays), an ordinary 2R-segment
+          single-SBA problem for the sort and the statistics. Positions
+          below ``len(forward_sba)`` are "+" k-mers, positions above it "-"
+          k-mers. Equal k-mer strings of the two strands share a group; with
+          ``track_strands_separately=True`` the strand joins the group
+          identity (within a run of equal strings the position tie-break
+          puts every "+" entry before every "-" entry, so the split is one
+          more term of the boundary mask, not another sort).
+
+        ``method="double_pass"`` fills an exactly sized position array
+        record by record and gives the same index as ``single_pass``.
+        Init-time ``kmer_filters`` are not ported (ROADMAP.md A8)."""
+        self = cls.__new__(cls)
+        self._construct(
+            seq_coll, min_kmer_len, max_kmer_len, source_strand,
+            track_strands_separately, method, kmer_filters=kmer_filters,
+            init_extension=True,
+        )
+        self._strand_extension = source_strand != "forward"
+        return self
 
     def _construct(
         self,
@@ -100,7 +147,10 @@ class Kmers:
         source_strand,
         track_strands_separately,
         method,
+        kmer_filters=(),
+        init_extension=False,
     ) -> None:
+        self._strand_extension = False
         if source_strand not in ("forward", "reverse_complement", "both"):
             raise ValueError(f"source_strand ({source_strand}) not recognized")
         if source_strand != "both" and track_strands_separately:
@@ -130,13 +180,30 @@ class Kmers:
         self._pos_dev = None
         self._init_geometry = None
         self._lanes_cache = None
+        # (converged run ids of a suffix sort, the max_kmer_len they hold at)
+        self._suffix_gid_cache = None
 
         if seq_coll is None:
             return
 
         min_seq_len = None
         num_records = 0
-        for _, s, e in seq_coll.iter_records():
+        # "both": record lengths are the same on the two strands, so they
+        # are checked on the forward segments. For from_strand() the
+        # strand-match check comes before the iteration, so that any
+        # mismatched collection fails with the message below.
+        if (source_strand == "both" or init_extension) and (
+            seq_coll.strands_loaded() != source_strand
+        ):
+            raise ValueError(
+                f"source_strand ({source_strand}) does not match sequence_collection loaded strand ({seq_coll.strands_loaded()})"
+            )
+        records_it = (
+            seq_coll.iter_records("forward")
+            if source_strand == "both"
+            else seq_coll.iter_records()
+        )
+        for _, s, e in records_it:
             seq_length = e - s + 1
             if min_seq_len is None or seq_length < min_seq_len:
                 min_seq_len = seq_length
@@ -155,15 +222,25 @@ class Kmers:
 
         self.seq_coll = seq_coll
         self.device = seq_coll.device
-        self._initialize(method=method)
+        self._initialize(
+            kmer_filters=list(kmer_filters), method=method, extension=init_extension
+        )
 
     # ------------------------------------------------------------------ #
     # initialization
     # ------------------------------------------------------------------ #
 
-    def _initialize(self, method: str = "single_pass"):
+    def _initialize(self, kmer_filters=(), method: str = "single_pass", extension=False):
+        # the plain constructor keeps the reference's errors; from_strand()
+        # passes extension=True
+        if kmer_filters:
+            if not extension:
+                raise NotImplementedError("kmer_filters have not been implemented")
+            raise _not_ported("Kmers.from_strand(kmer_filters=[...])", "A8: filters")
         if method == "double_pass":
-            raise NotImplementedError(f"method '{method}' has not been implemented")
+            if not extension:
+                raise NotImplementedError(f"method '{method}' has not been implemented")
+            self._initialize_double_pass()
         elif method == "single_pass":
             self._initialize_single_pass()
         else:
@@ -182,7 +259,7 @@ class Kmers:
 
         seg_starts = []
         counts = []
-        for _, s, e in self.seq_coll.iter_records():
+        for s, e in self._iter_segments():
             seg_starts.append(s)
             counts.append((e - s + 1) - self.min_kmer_len + 1)
         self._init_geometry = (
@@ -192,6 +269,24 @@ class Kmers:
         )
         self._pos_host = None
         self._pos_dev = None
+
+    def _initialize_double_pass(self):
+        """The lower-memory init: count the k-mers of every record first,
+        then fill an exactly sized array. Without init-time filters (not
+        ported) it holds the same positions as single_pass, as an assigned
+        host array."""
+        if self._get_unfiltered_kmer_count() > 2**32 - 1:
+            msg = "the size of the required kmers array exceeds the limit set by a uint32"
+            raise NotImplementedError(msg)
+        spans = [(s, e - self.min_kmer_len + 2) for s, e in self._iter_segments()]
+        out = np.empty(sum(stop - s for s, stop in spans), dtype=np.uint32)
+        write = 0
+        for s, stop in spans:
+            out[write : write + stop - s] = np.arange(s, stop, dtype=np.uint32)
+            write += stop - s
+        if write != len(out):
+            raise AssertionError("logic error filling kmer_sba_start_indices")
+        self.kmer_sba_start_indices = out
 
     def _build_positions_host(self) -> np.ndarray:
         seg_starts, counts, num_kmers = self._init_geometry
@@ -226,13 +321,25 @@ class Kmers:
                 self._pos_dev = torch.from_numpy(host).to(self.device)
         return self._pos_dev
 
-    def _dc(self):
-        return self.seq_coll.device_cache("forward")
+    def _iter_segments(self):
+        """(sba_start, sba_end) of every segment of the active SBA: the
+        forward or revcomp records in record order, or, for a both-strand
+        index, all 2R segments of the concatenated SBA in SBA order (k-mer
+        numbering then runs over the forward positions first)."""
+        if self.kmer_source_strand == "both":
+            sba, starts = self.seq_coll.both_concat_arrays()
+            starts64 = starts.astype(np.int64)
+            ends64 = np.concatenate([starts64[1:] - 2, [len(sba) - 1]])
+            for s, e in zip(starts64, ends64):
+                yield int(s), int(e)
+        else:
+            for _, s, e in self.seq_coll.iter_records():
+                yield s, e
 
     def _get_unfiltered_kmer_count(self) -> int:
         num_kmers = 0
         num_records = 0
-        for _, s, e in self.seq_coll.iter_records():
+        for s, e in self._iter_segments():
             num_kmers += (e - s + 1) - self.min_kmer_len + 1
             num_records += 1
         if num_records == 0:
@@ -256,6 +363,14 @@ class Kmers:
         self._pos_dev = None
         self._init_geometry = None
         self._lanes_cache = None
+        self._suffix_gid_cache = None
+
+    @property
+    def suffix_run_ids(self):
+        """Run ids of the sorted rows, kept by a fresh sort in suffix mode or
+        beyond one window: rows share an id iff their k-mers are equal at the
+        sort's own compare length. None where the last sort kept none."""
+        return None if self._suffix_gid_cache is None else self._suffix_gid_cache[0]
 
     def __len__(self):
         if self._pos_host is not None:
@@ -271,6 +386,14 @@ class Kmers:
     # ------------------------------------------------------------------ #
 
     def _check_forward_only(self):
+        if self._strand_extension and self.kmer_source_strand in (
+            "reverse_complement",
+            "both",
+        ):
+            # from_strand() instances work on the revcomp or the
+            # concatenated both-strand SBA; the forward-only error stays
+            # for every plain-constructed Kmers
+            return
         condition1 = self.kmer_source_strand != "forward"
         condition2 = self.seq_coll.strands_loaded() != "forward"
         if condition1 or condition2:
@@ -278,6 +401,45 @@ class Kmers:
                 f"both kmer_source_strand ({self.kmer_source_strand}) and "
                 "sequence_collection.strands_loaded() must be 'forward'"
             )
+
+    # strand-aware accessors: every compute and query path goes through
+    # these, so from_strand() switches the whole class to the
+    # reverse-complement (or concatenated both-strand) SBA in one place
+    def _strand_to_use(self) -> str:
+        if self.kmer_source_strand == "both":
+            return "both_concat"
+        return (
+            "reverse_complement"
+            if self.kmer_source_strand == "reverse_complement"
+            else "forward"
+        )
+
+    def _host_sba(self) -> np.ndarray:
+        sc = self.seq_coll
+        strand = self._strand_to_use()
+        if strand == "both_concat":
+            return sc.both_concat_arrays()[0]
+        if strand == "reverse_complement":
+            return sc.revcomp_sba
+        return sc.forward_sba
+
+    def _host_seg_starts(self) -> np.ndarray:
+        sc = self.seq_coll
+        strand = self._strand_to_use()
+        if strand == "both_concat":
+            return sc.both_concat_arrays()[1]
+        if strand == "reverse_complement":
+            return sc._revcomp_sba_seg_starts
+        return sc._forward_sba_seg_starts
+
+    def _revcomp_offset(self) -> int:
+        """First concatenated-SBA index of the revcomp half (both mode):
+        positions >= this offset are "-"-strand k-mers. The byte at
+        ``offset - 1`` is the joining '$', never a k-mer position."""
+        return len(self.seq_coll.forward_sba) + 1
+
+    def _dc(self):
+        return self.seq_coll.device_cache(self._strand_to_use())
 
     def _check_group_params_unsorted(self, min_group_size, max_group_size, yield_first_n=None):
         """Group params require a sorted index."""
@@ -349,9 +511,10 @@ class Kmers:
     def _lanes_fast(self, kmer_len):
         """The retained sorted lanes when the whole statistics query can
         run over them (sorted index, bounded kmer_len within the built
-        length), else None."""
+        length, no strand-split term), else None."""
         if not (
             self._is_sorted
+            and not self.track_strands_separately
             and kmer_len is not None
             # rebuilt lanes are built at max_kmer_len: no rebuild for a
             # query they could never serve
@@ -373,8 +536,23 @@ class Kmers:
             return surv_pos, torch.zeros(0, dtype=torch.bool, device=self.device)
         if not self._is_sorted:
             return surv_pos, torch.ones(m, dtype=torch.bool, device=self.device)
-        lanes = self._lanes_fast(kmer_len)
-        if lanes is not None:
+        sg = self._suffix_gid_cache
+        if (
+            sg is not None
+            and not self.track_strands_separately
+            and kmer_len == sg[1]
+        ):
+            # run ids kept by the suffix sort: identity at the sort's own
+            # comparison (None = to the end of the record), so the boundary
+            # is an adjacent difference and no window round runs
+            gid = sg[0]
+            boundary = torch.ones(m, dtype=torch.bool, device=self.device)
+            boundary[1:] = gid[1:] != gid[:-1]
+            return surv_pos, boundary
+        lanes = None
+        if kmer_len is not None and (self.max_kmer_len is None or kmer_len <= self.max_kmer_len):
+            lanes = self._ensure_lanes()
+        if lanes is not None and kmer_len <= lanes["built_k"]:
             boundary = boundaries_from_sorted_lanes(
                 lanes["words"], lanes["cap"], kmer_len, lanes["two_bit"]
             )
@@ -387,6 +565,12 @@ class Kmers:
             boundary = adjacent_boundaries(
                 packed, surv_pos, cap, kmer_len, packed2=packed2, uniform_cap=uniform
             )
+        if self.track_strands_separately:
+            # the strand joins the group identity: within a run of equal
+            # strings every "+" entry (index < offset) comes before every
+            # "-" entry, so the per-strand groups are contiguous
+            is_rc = surv_pos >= self._revcomp_offset()
+            boundary[1:] |= is_rc[1:] != is_rc[:-1]
         return surv_pos, boundary
 
     def _group_arrays(self, kmer_len, kmer_filter_func, min_group_size, max_group_size,
@@ -440,9 +624,7 @@ class Kmers:
         )
         full = kmer_info_to_yield == "full"
         if full:
-            get_record_info = self.seq_coll.generate_get_record_info_from_sba_index_func(
-                one_based_seq_index
-            )
+            get_record_info = self._record_info_func(one_based_seq_index)
         for j in np.flatnonzero(yielded):
             kmer_num = int(surv_nums[j])
             if not full:
@@ -460,6 +642,45 @@ class Kmers:
                 out_kmer_len = kmer_len
             yield (kmer_num, seq_strand, seq_chrom, seq_start_idx, out_kmer_len,
                    int(gsy[j]), int(gst[j]))
+
+    def _record_info_func(self, one_based_seq_index: bool) -> Callable:
+        """Closure mapping an index of the active SBA to ``(seg_num,
+        sba_start, sba_end, strand, record_name, seq_idx)``.
+
+        Forward and revcomp indexes take the collection's closure. A
+        both-strand index looks at the half of the concatenated SBA the
+        index lies in: segments number 0..R-1 forward, then R..2R-1
+        revcomp, bounds are in concatenated coordinates, and seq_idx counts
+        along the forward sequence for either strand."""
+        if self.kmer_source_strand != "both":
+            return self.seq_coll.generate_get_record_info_from_sba_index_func(
+                one_based_seq_index
+            )
+        sc = self.seq_coll
+        off = self._revcomp_offset()
+        n_fwd_records = len(sc.forward_record_names)
+        fwd_starts = sc._forward_sba_seg_starts
+        rc_starts = sc._revcomp_sba_seg_starts
+        len_fwd, len_rc = len(sc.forward_sba), len(sc.revcomp_sba)
+
+        def get_record_info_from_sba_index(sba_idx: int):
+            if sba_idx >= off:
+                local = sba_idx - off
+                seg = get_segment_num_from_sba_index(local, "reverse_complement", rc_starts)
+                s, e = get_sba_start_end_indices_for_segment(
+                    seg, "reverse_complement", rc_starts, len_rc
+                )
+                seq_idx = get_forward_seq_idx(
+                    local, "reverse_complement", s, e, one_based=one_based_seq_index
+                )
+                return (n_fwd_records + seg, s + off, e + off, "-",
+                        sc.revcomp_record_names[seg], seq_idx)
+            seg = get_segment_num_from_sba_index(sba_idx, "forward", fwd_starts)
+            s, e = get_sba_start_end_indices_for_segment(seg, "forward", fwd_starts, len_fwd)
+            seq_idx = get_forward_seq_idx(sba_idx, "forward", s, e, one_based=one_based_seq_index)
+            return (seg, s, e, "+", sc.forward_record_names[seg], seq_idx)
+
+        return get_record_info_from_sba_index
 
     def get_kmers_arrays(
         self,
@@ -560,11 +781,11 @@ class Kmers:
 
     def _segment_ends(self, pos: np.ndarray) -> np.ndarray:
         """Inclusive SBA end of the segment of each int64 position."""
-        seg_starts = self.seq_coll._forward_sba_seg_starts.astype(np.int64)
+        seg_starts = self._host_seg_starts().astype(np.int64)
         seg_ids = np.searchsorted(seg_starts, pos, side="right") - 1
         return np.where(
             seg_ids == len(seg_starts) - 1,
-            len(self.seq_coll.forward_sba) - 1,
+            len(self._host_sba()) - 1,
             seg_starts[np.minimum(seg_ids + 1, len(seg_starts) - 1)] - 2,
         )
 
@@ -581,7 +802,7 @@ class Kmers:
         if (nums < 0).any() or (nums >= len(self)).any():
             raise ValueError("kmer_num out of bounds")
         pos = self.kmer_sba_start_indices[nums].astype(np.int64)
-        sba = self.seq_coll.forward_sba
+        sba = self._host_sba()
         seg_e = self._segment_ends(pos)
         if kmer_len is None:
             lens = seg_e - pos + 1
@@ -617,8 +838,13 @@ class Kmers:
                 f"kmer_len ({kmer_len}) is greater than max_kmer_len ({self.max_kmer_len})"
             )
         sba_start_idx = int(self.kmer_sba_start_indices[kmer_num])
-        seg_num = self.seq_coll.get_segment_num_from_sba_index(sba_start_idx)
-        _, sba_seg_end_idx = self.seq_coll.get_sba_start_end_indices_for_segment(seg_num)
+        if self.kmer_source_strand == "both":
+            # the collection's per-strand lookups need a strand when both
+            # are loaded; the bounds come off the concatenated SBA instead
+            _, _, sba_seg_end_idx, _, _, _ = self._record_info_func(False)(sba_start_idx)
+        else:
+            seg_num = self.seq_coll.get_segment_num_from_sba_index(sba_start_idx)
+            _, sba_seg_end_idx = self.seq_coll.get_sba_start_end_indices_for_segment(seg_num)
         if kmer_len is None:
             largest_kmer_len = sba_seg_end_idx - sba_start_idx + 1
             if self.max_kmer_len is None:
@@ -629,49 +855,58 @@ class Kmers:
             raise ValueError(
                 f"kmer_len ({kmer_len}) for kmer_num ({kmer_num}) extends beyond the end of the segment"
             )
-        sba = self.seq_coll.forward_sba
+        sba = self._host_sba()
         return bytearray(sba[sba_start_idx : sba_start_idx + kmer_len]).decode("utf-8")
 
     # ------------------------------------------------------------------ #
     # sort
     # ------------------------------------------------------------------ #
 
-    def sort(self, mesh=None):
+    def sort(self, mesh=None, on_round=None):
         """Sort the index lexicographically by the k-mers it defines, on the
         collection's device. Equal k-mers end up ordered by start index.
 
-        The fresh index sorts gather-free over every SBA position
-        (ops/sort.sort_positions_dense): 2-bit keys at max_kmer_len <= 64
-        on an ACGT genome, else 4-bit keys at max_kmer_len <= 32. Any other
-        index (a re-sort, an assigned ``kmer_sba_start_indices``) sorts by
-        gathered keys with the position as the last key
-        (ops/sort.sort_positions). The sorted key lanes are retained for
-        the statistics calls."""
+        The fresh index sorts gather-free over every SBA position: 2-bit
+        keys at max_kmer_len <= 64 on an ACGT genome, else 4-bit keys at
+        max_kmer_len <= 32 (ops/sort.sort_positions_dense, which keeps the
+        sorted key lanes for the statistics calls); with max_kmer_len None
+        (suffix mode) or beyond that window by refinement rounds
+        (ops/sort.sort_positions_suffix_dense, which keeps the converged
+        run ids). Any other index (a re-sort, an assigned
+        ``kmer_sba_start_indices``) sorts by gathered keys with the position
+        as the last key (ops/sort.sort_positions). ``on_round(name)`` is
+        called as each refinement round finishes on the device (ops/sort's
+        module doc); a sort within one window has no rounds."""
         self._check_forward_only()
         if mesh is not None:
             raise _not_ported("Kmers.sort(mesh=...)", "A11: torch.distributed")
         self._lanes_cache = None  # every branch below re-establishes or clears
+        self._suffix_gid_cache = None
         dc = self._dc()
         uniform = self.max_kmer_len is not None and self.min_kmer_len == self.max_kmer_len
 
         if self._init_geometry is not None and int(self._init_geometry[2]) > 1:
+            n = int(self._init_geometry[2])
             use2 = (
                 self.max_kmer_len is not None
                 and self.max_kmer_len <= WINDOW2_BASES
                 and dc.packed2 is not None
             )
             limit = WINDOW2_BASES if use2 else WINDOW_BASES
-            if self.max_kmer_len is None or self.max_kmer_len > limit:
-                raise _not_ported(
-                    f"sorting at max_kmer_len ({self.max_kmer_len}) beyond {limit} bases "
-                    f"on {'2' if use2 else '4'}-bit keys",
-                    "A7: suffix mode",
+            if self.max_kmer_len is not None and self.max_kmer_len <= limit:
+                self._pos_dev, self._lanes_cache = sort_positions_dense(
+                    dc.packed2 if use2 else dc.packed, dc.seg_starts, dc.seg_ends,
+                    n, self.min_kmer_len, self.max_kmer_len, two_bit=use2,
                 )
-            self._pos_dev, self._lanes_cache = sort_positions_dense(
-                dc.packed2 if use2 else dc.packed, dc.seg_starts, dc.seg_ends,
-                int(self._init_geometry[2]), self.min_kmer_len, self.max_kmer_len,
-                two_bit=use2,
-            )
+            else:
+                # ACGT genomes take the 2-bit rounds (half the key lanes)
+                packed2 = dc.packed2
+                packed = dc.packed if packed2 is None else None
+                self._pos_dev, gid = sort_positions_suffix_dense(
+                    packed, dc.seg_starts, dc.seg_ends, n, self.min_kmer_len,
+                    self.max_kmer_len, packed2=packed2, return_gid=True, on_round=on_round,
+                )
+                self._suffix_gid_cache = (gid, self.max_kmer_len)
         else:
             positions = self._device_positions()
             valid_len = compute_valid_len(positions, dc.seg_starts, dc.seg_ends)
@@ -687,7 +922,7 @@ class Kmers:
             packed = dc.packed if packed2 is None else None
             self._pos_dev, self._lanes_cache = sort_positions(
                 packed, positions, cap_lengths(valid_len, self.max_kmer_len),
-                self.max_kmer_len, packed2=packed2, uniform_cap=uniform,
+                self.max_kmer_len, packed2=packed2, uniform_cap=uniform, on_round=on_round,
             )
         self._pos_host = None
         self._init_geometry = None  # no longer describes the (sorted) order

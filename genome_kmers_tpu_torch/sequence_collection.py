@@ -184,6 +184,7 @@ class SequenceCollection:
         self._strands_loaded = None
         self._fasta_file_path = None
         self._device = {}
+        self._both_concat = None
 
         self._initialize_mapping_arrays()
 
@@ -207,18 +208,57 @@ class SequenceCollection:
 
     def _invalidate_device_cache(self):
         self._device = {}
+        self._both_concat = None
+
+    def both_concat_arrays(self) -> tuple[np.ndarray, np.ndarray]:
+        """Host ``(sba, seg_starts)`` of the concatenated both-strand SBA:
+        ``forward_sba + b'$' + revcomp_sba`` with 2R segments (the R forward
+        segments, then the R reverse-complement segments in revcomp-SBA
+        order). It backs a ``source_strand="both"`` k-mer index
+        (``Kmers.from_strand``). Requires both strands loaded; a both-strand
+        k-mer index stays under the uint32 ceiling, so uint32 segment starts
+        suffice."""
+        if self.forward_sba is None or self.revcomp_sba is None:
+            raise ValueError(
+                "both strands must be loaded to build the concatenated view"
+            )
+        if self._both_concat is None:
+            n_fwd = len(self.forward_sba)
+            off = n_fwd + 1
+            sba = np.empty(off + len(self.revcomp_sba), dtype=np.uint8)
+            sba[:n_fwd] = self.forward_sba
+            sba[n_fwd] = ord("$")
+            sba[off:] = self.revcomp_sba
+            starts = np.concatenate(
+                [
+                    self._forward_sba_seg_starts.astype(np.uint64),
+                    self._revcomp_sba_seg_starts.astype(np.uint64) + np.uint64(off),
+                ]
+            )
+            if len(sba) > 2**32:
+                raise NotImplementedError(
+                    "concatenated both-strand SBA exceeds uint32 coordinates"
+                )
+            self._both_concat = (sba, starts.astype(np.uint32))
+        return self._both_concat
 
     def device_cache(self, sba_strand: str) -> _DeviceCache:
-        """Device tensors for the given strand's SBA (the forward strand: the
-        reverse-complement index is not ported yet, ROADMAP.md A6)."""
-        if sba_strand != "forward":
-            raise ValueError(f"sba_strand ({sba_strand}) not recognized")
+        """Device tensors for the given strand's SBA: "forward",
+        "reverse_complement" or "both_concat" (``both_concat_arrays``)."""
         if sba_strand not in self._device:
-            if self.forward_sba is None:
-                raise ValueError("forward strand is not loaded")
-            self._device[sba_strand] = _DeviceCache(
-                self.forward_sba, self._forward_sba_seg_starts, self.device
-            )
+            if sba_strand == "forward":
+                if self.forward_sba is None:
+                    raise ValueError("forward strand is not loaded")
+                arrays = (self.forward_sba, self._forward_sba_seg_starts)
+            elif sba_strand == "reverse_complement":
+                if self.revcomp_sba is None:
+                    raise ValueError("reverse_complement strand is not loaded")
+                arrays = (self.revcomp_sba, self._revcomp_sba_seg_starts)
+            elif sba_strand == "both_concat":
+                arrays = self.both_concat_arrays()
+            else:
+                raise ValueError(f"sba_strand ({sba_strand}) not recognized")
+            self._device[sba_strand] = _DeviceCache(*arrays, self.device)
         return self._device[sba_strand]
 
     # ------------------------------------------------------------------ #

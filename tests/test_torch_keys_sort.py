@@ -328,10 +328,17 @@ def test_sort_positions_of_at_most_one_row_and_beyond_the_window():
     cap = tkeys.cap_lengths(tkeys.compute_valid_len(one, t_starts, t_ends), 9)
     pos, lanes = sort_positions(packed, one, cap, 9)
     assert torch.equal(pos, one) and lanes is None
+    # beyond the window the rounds of 32 bases take over: no lanes are kept
     two = torch.tensor([3, 1], dtype=torch.int64)
-    cap = tkeys.compute_valid_len(two, t_starts, t_ends)
+    j_two = jnp.asarray([3, 1], dtype=jnp.uint32)
+    j_packed = jkeys.pack_rank_words(jnp.asarray(sba))
+    j_starts, j_ends = _jax_geometry(sba, seg_starts)
     for max_kmer_len in (33, None):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-            sort_positions(packed, two, cap, max_kmer_len)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-            adjacent_boundaries(packed, two, cap, max_kmer_len)
+        cap = tkeys.cap_lengths(tkeys.compute_valid_len(two, t_starts, t_ends), max_kmer_len)
+        j_cap = jkeys.cap_lengths(jkeys.compute_valid_len(j_two, j_starts, j_ends), max_kmer_len)
+        pos, lanes = sort_positions(packed, two, cap, max_kmer_len)
+        want = jax_sort_positions(j_packed, j_two, j_cap, max_kmer_len)
+        assert lanes is None and np.array_equal(_u32(pos), np.asarray(want))
+        got_b = adjacent_boundaries(packed, two, cap, max_kmer_len)
+        want_b = jax_adjacent_boundaries(j_packed, j_two, j_cap, max_kmer_len)
+        assert np.array_equal(got_b.numpy(), np.asarray(want_b))

@@ -8,7 +8,9 @@ brute-force string oracle; the gather path (re-sorts, assigned indices,
 unsorted counts, statistics beyond the sorted lanes, ``get_kmers``,
 ``get_kmers_arrays``, ``get_kmer_strs``); the constructors' error messages
 verbatim; NotImplementedError, naming a ROADMAP.md item, for every call
-outside the slices; and the device rules. Tolerance: exact equality.
+outside the slices, and the JAX package's answer for the calls that earlier
+slices refused (suffix mode, lengths beyond one window, ``from_strand``);
+and the device rules. Tolerance: exact equality.
 """
 
 import numpy as np
@@ -489,12 +491,9 @@ class _OddFilter(KmerFilter):
 @pytest.mark.parametrize(
     "call",
     [
-        lambda sc, km: gt.Kmers(_tsc(sequence_list=[("a", "ACGTN" * 9)]), 3, 33).sort(),
-        lambda sc, km: gt.Kmers(sc, 3, None).sort(),
-        lambda sc, km: gt.Kmers(sc, 3, 65).sort(),
         lambda sc, km: km.sort(mesh=object()),
         lambda sc, km: (km.sort(), list(km.get_kmers(3, kmer_filter_func=_OddFilter()))),
-        lambda sc, km: gt.Kmers.from_strand(sc, 3, 3, source_strand="both"),
+        lambda sc, km: gt.Kmers.from_strand(sc, 3, 3, kmer_filters=[_OddFilter()]),
         lambda sc, km: gt.LargeKmers(sc, 3, 3),
         lambda sc, km: sc.save("x.h5"),
         lambda sc, km: sc.load("x.h5"),
@@ -506,8 +505,6 @@ class _OddFilter(KmerFilter):
         lambda sc, km: km.get_kmer_count(3, kmer_filter_func=_OddFilter()),
         lambda sc, km: (km.sort(), km.get_kmer_count(3, kmer_filter_func=_OddFilter())),
         lambda sc, km: (km.sort(), km.get_kmer_group_counts(3, kmer_filter_func=_OddFilter())),
-        lambda sc, km: (km.sort(), km.get_kmer_group_counts(None)),
-        lambda sc, km: (km.sort(), km.get_kmer_count(65)),
         lambda sc, km: (km.sort(), km.get_kmer_group_counts(3, mesh=object())),
     ],
 )
@@ -516,6 +513,37 @@ def test_out_of_slice_calls_raise_not_implemented(call):
     km = gt.Kmers(sc, 3, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         call(sc, km)
+
+
+def _sorted(km):
+    km.sort()
+    return km
+
+
+@pytest.mark.parametrize(
+    "seq_list,strands,call",
+    [
+        # suffix mode and lengths beyond one compare window, once refused
+        ([("a", "ACGTN" * 9)], "forward",
+         lambda g, sc: _sorted(g.Kmers(sc, 3, 33)).kmer_sba_start_indices.tolist()),
+        (SEQ_LIST_2, "forward",
+         lambda g, sc: _sorted(g.Kmers(sc, 3, None)).kmer_sba_start_indices.tolist()),
+        (SEQ_LIST_2, "forward",
+         lambda g, sc: _sorted(g.Kmers(sc, 3, 65)).kmer_sba_start_indices.tolist()),
+        (SEQ_LIST_2, "forward",
+         lambda g, sc: _sorted(g.Kmers(sc, 3, 8)).get_kmer_group_counts(None)[0][:4].tolist()),
+        (SEQ_LIST_2, "forward", lambda g, sc: _sorted(g.Kmers(sc, 3, 8)).get_kmer_count(65)),
+        # from_strand, once refused
+        (SEQ_LIST_2, "both",
+         lambda g, sc: _sorted(g.Kmers.from_strand(sc, 3, 3, source_strand="both"))
+         .kmer_sba_start_indices.tolist()),
+    ],
+)
+def test_calls_once_out_of_slice_now_match_jax(seq_list, strands, call):
+    jsc = gj.SequenceCollection(sequence_list=seq_list, strands_to_load=strands)
+    tsc = _tsc(sequence_list=seq_list, strands_to_load=strands)
+    got, want = call(gt, tsc), call(gj, jsc)
+    assert got == want and want not in ([], None)
 
 
 # --------------------------------------------------------------------------- #
