@@ -80,6 +80,27 @@ Phases, each of which raises (exit code 1) on failure:
     both-strand histogram with the strands tracked apart is the sum of the
     two.
 
+13. Filters, on collections of their own rebuilt from the main paths' host
+    arrays (own upload and pack): on phase 4's index, Kmers(sc, 31, 31) on the
+    ACGT genome, the bench's filtered track (get_kmer_group_counts(31,
+    GcContentFilter(0.3, 0.7, 31)) cold, warm, then the median of 3, and
+    k-mers/s); each of five library filters (GC, homopolymer, no-ambiguous,
+    length, CRISPR NGG) through the sorted lanes and through the flag plane,
+    counts and histograms equal, with the genome scans' and each plane's
+    build time, the ms of each route and the kernels each lanes route
+    launches (torch.profiler); each filter's mask on 4096 seeded rows
+    against its scalar filter on the host bytes. The same five, lanes
+    against plane, on phase 5's IUPAC index (4-bit lanes). On the suffix
+    index Kmers(sc) of the ACGT genome (plane and window route):
+    LengthFilter(31) gives phase 4's histogram, and the GC filter raises at
+    the row a host oracle names. At 2^22 bp, Kmers(sc, 20, 48) with records
+    as short as 20 bp: the GC and homopolymer filters raise the message and
+    position of a NumPy oracle of the reference's left-to-right walk, past
+    rows the homopolymer preemption saves. At 2^24 bp, both strands of an
+    IUPAC genome: from_strand(..., kmer_filters=[no-ambiguous, GC]) in both
+    methods against sliding-window sums over the SBA, then sort() through
+    the lane sort and its histogram against a NumPy oracle.
+
 ``--profile DIR`` adds a warm second run of phase 5's calls and of phase 9's
 under torch.profiler and writes the device time by kernel to DIR.
 
@@ -115,7 +136,15 @@ from genome_kmers_tpu_torch.kernels.lane_sort import (
 from genome_kmers_tpu_torch.kernels.pack2 import SOURCE as PACK2_SOURCE
 from genome_kmers_tpu_torch.kernels.pack2 import pack_rank2_words_cuda
 from genome_kmers_tpu_torch.ops.encoding import RANK2_TABLE, RANK_TABLE
-from genome_kmers_tpu_torch.ops.keys import pack_rank2_words, widen_u32
+from genome_kmers_tpu_torch.ops.filters import (
+    FilterContext,
+    GcContentFilter,
+    HomopolymerFilter,
+    LengthFilter,
+    NoAmbiguousBasesFilter,
+    flag_plane,
+)
+from genome_kmers_tpu_torch.ops.keys import compute_valid_len, pack_rank2_words, widen_u32
 from genome_kmers_tpu_torch.ops.sort import sort_lanes
 
 DEVICE = "cuda"
@@ -128,6 +157,9 @@ SMALL_ORACLE_BP = 6000  # suffix mode and strands against whole-record strings
 WINDOW_ROUNDS_BP = 1 << 24
 REVCOMP_BP = 1 << 24
 BOTH_BP = 1 << 26
+FILTER_RAISE_BP = 1 << 22
+INIT_FILTER_BP = 1 << 24
+MASK_ROWS = 4096
 MAIN_RECORDS = 24
 MAIN_LANES = 6  # the 4-bit k=31 sort: invalid, four words, position
 LANE_SORT_EARLIER_MS = 173.66  # the bitonic tile_pass design, same shape, H100 80GB HBM3 at 700 W
@@ -1077,6 +1109,338 @@ def phase_strands(rng) -> dict:
     return launches
 
 
+def library_filters():
+    return [("GC (0.3, 0.7, 31)", GcContentFilter(0.3, 0.7, 31)),
+            ("homopolymer (5, 31)", HomopolymerFilter(5, 31)),
+            ("no ambiguous (31)", NoAmbiguousBasesFilter(31)),
+            ("length (31)", LengthFilter(31)),
+            ("CRISPR NGG", gkt.crispr_ngg_pam_filter)]
+
+
+def on_plane_route(km, fn):
+    """``fn()`` with the index's lanes dropped and their rebuild switched
+    off, so that filtered queries take the flag plane (the JAX package's
+    switch for this); the lanes are put back after."""
+    lanes = km._lanes_cache
+    km._lanes_cache, km._lanes_rebuild = None, False
+    out = fn()
+    km._lanes_cache, km._lanes_rebuild = lanes, True
+    return out
+
+
+def device_kernels(fn):
+    """(kernels launched, their device ms) by ``fn``, from torch.profiler's
+    device events; copies and fills are not counted as kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset"))]
+    if not kernels:
+        raise AssertionError("torch.profiler saw no kernel of a call that launches some")
+    device_us = sum(getattr(e, "device_time_total", None) or e.cuda_time_total for e in kernels)
+    return sum(e.count for e in kernels), device_us / 1e3
+
+
+def expect_value_error(fn, message: str, label: str) -> None:
+    """``fn()`` must raise ValueError(message)."""
+    try:
+        fn()
+    except ValueError as e:
+        if str(e) != message:
+            raise AssertionError(f"{label}: raised {str(e)!r}, expected {message!r}") from e
+        return
+    raise AssertionError(f"{label}: did not raise {message!r}")
+
+
+def filters_on_sorted_index(km, sc, label: str, rng, masks: bool) -> None:
+    """Each library filter through the sorted lanes and through the flag
+    plane: counts and histograms equal; the ms of each route, the build of
+    each plane, the kernels of the lanes flags; with ``masks`` each mask on
+    MASK_ROWS seeded rows against the scalar filter on the host bytes."""
+    dc = sc.device_cache("forward")
+    sba = sc.forward_sba
+    lanes = km._lanes_cache
+    for name, f in library_filters():
+        fl = km._filtered_lanes_stats(31, f)
+        if fl is None:
+            raise AssertionError(f"{label}, {name}: the lanes route does not take the filter")
+        spec = f._plane_spec()
+        build_ms = None
+        if spec is not None:
+            _, build_s = sync_time(lambda: flag_plane(dc, spec[0], spec[1]))
+            build_ms = build_s * 1e3
+        by_route = {}
+        for route, run in (("lanes", lambda fn: fn()), ("plane", lambda fn: on_plane_route(km, fn))):
+            count = run(lambda: km.get_kmer_count(31, kmer_filter_func=f))
+            counts, total = run(lambda: km.get_kmer_group_counts(31, kmer_filter_func=f))
+            ms = run(lambda: cuda_ms(lambda: km.get_kmer_group_counts(31, kmer_filter_func=f),
+                                     reps=3, warmup=0))
+            by_route[route] = (count, counts, total, ms)
+        (c_l, h_l, t_l, ms_l), (c_p, h_p, t_p, ms_p) = by_route["lanes"], by_route["plane"]
+        if not (c_l == c_p == t_l == t_p and np.array_equal(h_l, h_p)):
+            raise AssertionError(f"{label}, {name}: the lanes and the plane route disagree "
+                                 f"(counts {c_l} / {c_p}, totals {t_l} / {t_p})")
+        if spec is not None and spec[0] not in dc.filter_flags:
+            raise AssertionError(f"{label}, {name}: the plane route built no plane")
+        flags_fn, params, _ = fl[3]
+        flags = lambda: flags_fn(lanes["words"], lanes["cap"], km._pos_dev, params)  # noqa: E731
+        n_flags, dev_flags = device_kernels(flags)
+        n_query, dev_query = device_kernels(lambda: km.get_kmer_count(31, kmer_filter_func=f))
+        flags_ms = cuda_ms(flags, reps=5, warmup=1)
+        log(f"{label}, {name}: survivors {t_l} of {len(km)}, histogram equal on both routes; "
+            f"group counts lanes {ms_l:.3f} ms, plane {ms_p:.3f} ms"
+            + ("" if build_ms is None else f" (plane built in {build_ms:.3f} ms)")
+            + f"; lanes flags {flags_fn.__name__} {flags_ms:.3f} ms in {n_flags} kernels "
+            f"({dev_flags:.3f} device ms); the filtered count {n_query} kernels "
+            f"({dev_query:.3f} device ms)")
+        if masks:
+            rows = torch.from_numpy(rng.integers(0, len(km), size=MASK_ROWS)).to(km._pos_dev.device)
+            pos = km._pos_dev[rows]
+            cap = None if lanes["cap"] is None else lanes["cap"][rows]
+            mask_l, errs = flags_fn(tuple(w[rows] for w in lanes["words"]), cap, pos, params)
+            ctx = FilterContext(sba, pos, compute_valid_len(pos, dc.seg_starts, dc.seg_ends),
+                                sba_dev=lambda: dc.sba, scans=dc)
+            mask_p = f.batch_mask(ctx)
+            want = np.array([f(sba, "forward", int(p)) for p in pos.cpu().numpy()])
+            if not (np.array_equal(mask_l.cpu().numpy(), want)
+                    and np.array_equal(mask_p.cpu().numpy(), want)):
+                raise AssertionError(f"{label}, {name}: a mask differs from the scalar filter")
+            if any(bool(e.any()) for e in errs):
+                raise AssertionError(f"{label}, {name}: a raise condition holds on a sampled row")
+            log(f"{label}, {name}: lanes and plane masks equal the scalar filter on {MASK_ROWS} "
+                f"seeded rows ({int(want.sum())} pass)")
+
+
+def filters_acgt(host_sc, rng) -> tuple:
+    """The ACGT genome of phase 4 at (31, 31): the bench's filtered track
+    and the five filters on both routes. Returns (pack launches, the
+    collection)."""
+    label = "filters, ACGT (31, 31)"
+    sba, seg_starts = index_sba(host_sc)
+    reset_launches()
+    sc, km = from_numpy_state(sba, seg_starts, host_sc.forward_record_names, 31, 31, device=DEVICE)
+    dc = sc.device_cache("forward")
+    _, t_sort = sync_time(km.sort)
+    launches = pack_rank2_words_cuda.launches
+    scans = {}
+    for name in ("valid_len_genome", "is_dollar", "gc_cumsum", "run_len", "next_amb"):
+        _, scans[name] = sync_time(lambda: getattr(dc, name))
+    log(f"{label}: sort {t_sort:.4f} s, {launches} pack launches; genome scans built (ms): "
+        + ", ".join(f"{name} {t * 1e3:.3f}" for name, t in scans.items()))
+    gc = GcContentFilter(0.3, 0.7, 31)
+    if km._filtered_lanes_stats(31, gc) is None:
+        raise AssertionError(f"{label}: the bench's filtered track does not take the lanes")
+    track = lambda: km.get_kmer_group_counts(31, kmer_filter_func=gc)  # noqa: E731
+    (counts, total), cold = sync_time(track)
+    _, warm = sync_time(track)
+    timed = sorted(sync_time(track)[1] for _ in range(3))
+    median = timed[1]
+    log(f"{label}: bench filtered track get_kmer_group_counts(31, GcContentFilter(0.3, 0.7, 31)): "
+        f"cold {cold:.4f} s, warm {warm:.4f} s, timed {', '.join(f'{t:.4f}' for t in timed)} s, "
+        f"median {median:.4f} s = {len(km) / median / 1e6:.1f} M k-mers/s; {total} survivors in "
+        f"{int(counts.sum())} groups")
+    filters_on_sorted_index(km, sc, label, rng, masks=True)
+    if launches < 1:
+        raise AssertionError(f"{label}: the pack kernel did not launch")
+    return launches, sc
+
+
+def filters_iupac(host_sc, rng) -> int:
+    """The IUPAC genome of phase 5 at (31, 31), 4-bit lanes: the five
+    filters on both routes. Returns the lane sort's launches."""
+    label = "filters, IUPAC (31, 31)"
+    sba, seg_starts = index_sba(host_sc)
+    reset_launches()
+    sc, km = from_numpy_state(sba, seg_starts, host_sc.forward_record_names, 31, 31, device=DEVICE)
+    _, t_sort = sync_time(km.sort)
+    launches = sort_lanes_cuda.launches
+    if km._lanes_cache["two_bit"] or launches < 1:
+        raise AssertionError(f"{label}: not 4-bit lanes, or the lane sort did not launch")
+    log(f"{label}: sort {t_sort:.4f} s, {launches} lane sort launches")
+    filters_on_sorted_index(km, sc, label, rng, masks=False)
+    return launches
+
+
+def filters_suffix(sc, counts31) -> None:
+    """The suffix index of the ACGT genome: filtered queries take the plane
+    and window route. LengthFilter(31) keeps exactly the k-mers of the
+    (31, 31) index; the GC filter raises at the first row in sorted order
+    whose record ends within 31 bases with at most 21 G/C before it."""
+    label = "filters, suffix index (1, None)"
+    km = gkt.Kmers(sc)
+    _, t_sort = sync_time(km.sort)
+    length = LengthFilter(31)
+    if km._filtered_lanes_stats(31, length) is not None:
+        raise AssertionError(f"{label}: a suffix index took the lanes route")
+    (counts, _), t_len = sync_time(lambda: km.get_kmer_group_counts(31, kmer_filter_func=length))
+    if not np.array_equal(counts, counts31):
+        raise AssertionError(f"{label}: LengthFilter(31) is not the (31, 31) histogram")
+    # the rows with fewer than 31 bases left, in sorted order, and the first
+    # of them whose G/C count stays at or under the maximum
+    sba, seg_starts = index_sba(sc)
+    ends = np.concatenate([seg_starts[1:] - 1, [len(sba)]])
+    short = np.concatenate([np.arange(max(s, e - 30), e) for s, e in zip(seg_starts, ends)])
+    rows = torch.nonzero(torch.isin(km._pos_dev, torch.from_numpy(short).to(km._pos_dev.device)))
+    in_order = km._pos_dev[rows.flatten()].cpu().numpy()
+    gc_cum = np.concatenate([[0], np.cumsum((sba == ord("G")) | (sba == ord("C")))])
+    stop = ends[np.searchsorted(seg_starts, in_order, side="right") - 1]
+    gc = GcContentFilter(0.3, 0.7, 31)
+    raises = gc_cum[stop] - gc_cum[in_order] <= gc.max_allowed_gc_count
+    first = int(in_order[np.flatnonzero(raises)[0]])
+    message = f"The kmer_len (31) requested is too larger for kmer_sba_start_idx ({first})"
+    _, t_gc = sync_time(lambda: expect_value_error(
+        lambda: km.get_kmer_group_counts(31, kmer_filter_func=gc), message, label))
+    log(f"{label}: sort {t_sort:.4f} s; get_kmer_group_counts(31, LengthFilter(31)) {t_len:.4f} s "
+        f"equals the (31, 31) histogram; GcContentFilter(0.3, 0.7, 31) raises at position {first}, "
+        f"row {int(rows[np.flatnonzero(raises)[0]])} of {len(km)} in sorted order, as the oracle "
+        f"says ({len(in_order)} short rows, {int(raises.sum())} of them raising; {t_gc:.4f} s "
+        "with the plane build)")
+
+
+def filters_raise_parity(rng) -> int:
+    """Kmers(sc, 20, 48) at 2^22 bp with records as short as 20 bp: GC and
+    homopolymer filters raise the message and position of a NumPy oracle
+    of the reference's walk, on the lanes and on the plane route. The first
+    record ends in 47 A's: its truncated rows sort first and the
+    homopolymer preemption saves them. Returns the pack launches."""
+    label = f"filters, raise parity (20, 48) at {FILTER_RAISE_BP} bp"
+    records = synthetic_records(rng, FILTER_RAISE_BP, 12, short_lens=(20, 33, 47))
+    records[0][1][-47:] = ord("A")
+    reset_launches()
+    sc = collection_of(records)
+    km = gkt.Kmers(sc, 20, 48)
+    km.sort()
+    launches = pack_rank2_words_cuda.launches
+    sba, seg_starts = index_sba(sc)
+    n, k = len(sba), 48
+    pos = km._pos_dev.cpu().numpy()
+    ends = np.concatenate([seg_starts[1:] - 1, [n]])
+    vl = ends[np.searchsorted(seg_starts, pos, side="right") - 1] - pos
+    d = np.minimum(vl, k)
+    trunc = vl < k
+    gc_cum = np.concatenate([[0], np.cumsum((sba == ord("G")) | (sba == ord("C")))])
+    gc = GcContentFilter(0.3, 0.7, k)
+    gc_raises = trunc & (gc_cum[pos + d] - gc_cum[pos] <= gc.max_allowed_gc_count)
+    max_h = 3
+    changed = np.ones(n, dtype=bool)
+    changed[1:] = sba[1:] != sba[:-1]
+    run_len = np.arange(n) - np.flatnonzero(changed)[np.cumsum(changed) - 1] + 1
+    bad_cum = np.concatenate([[0], np.cumsum(run_len > max_h)])
+    preempted = bad_cum[pos + d] - bad_cum[np.minimum(pos + max_h, pos + d)] > 0
+    hp_raises = (pos + k - 1 >= n) | (trunc & ~preempted)
+    first_gc, first_hp = np.flatnonzero(gc_raises)[0], np.flatnonzero(hp_raises)[0]
+    saved = trunc[:first_hp] & preempted[:first_hp]
+    if not saved.any():
+        raise AssertionError(f"{label}: no row before the first raise is saved by a run")
+    cases = ((gc, f"The kmer_len ({k}) requested is too larger for kmer_sba_start_idx ({pos[first_gc]})"),
+             (HomopolymerFilter(max_h, k),
+              f"The kmer_len ({k}) requested is too large for kmer_sba_start_idx ({pos[first_hp]})"))
+    for f, message in cases:
+        if km._filtered_lanes_stats(k, f) is None:
+            raise AssertionError(f"{label}: {type(f).__name__} does not take the lanes")
+        for route, run in (("lanes", lambda fn: fn()), ("plane", lambda fn: on_plane_route(km, fn))):
+            for call in (lambda: km.get_kmer_group_counts(k, kmer_filter_func=f),
+                         lambda: km.get_kmer_count(k, kmer_filter_func=f)):
+                run(lambda: expect_value_error(call, message, f"{label}, {type(f).__name__}, {route}"))
+    log(f"{label}: GcContentFilter(0.3, 0.7, 48) raises at row {first_gc} (position {pos[first_gc]}) "
+        f"and HomopolymerFilter(3, 48) at row {first_hp} (position {pos[first_hp]}) on the lanes and "
+        f"the plane route, as the oracle says; {int(saved.sum())} truncated rows before it are saved "
+        f"by a longer run, {int(trunc.sum())} rows truncated in all; {launches} pack launches")
+    if launches < 1:
+        raise AssertionError(f"{label}: the pack kernel did not launch")
+    return launches
+
+
+def filters_init_time(rng) -> int:
+    """Init-time filters on both strands of a 2^24 bp IUPAC genome, in both
+    methods, against sliding-window sums over the concatenated SBA; then
+    sort() of the filtered (assigned) index through the lane sort, and its
+    histogram against a NumPy oracle. Returns the lane sort's launches."""
+    label = f"filters, init-time, IUPAC both strands at {INIT_FILTER_BP} bp (31, 31)"
+    records = synthetic_records(rng, INIT_FILTER_BP, 24, short_lens=(31, 40), iupac=True)
+    sc = collection_of(records, "both")
+    del records
+    filters = [NoAmbiguousBasesFilter(31), GcContentFilter(0.2, 0.8, 31)]
+    times, positions = {}, {}
+    for method in ("single_pass", "double_pass"):
+        km, times[method] = sync_time(lambda: gkt.Kmers.from_strand(
+            sc, 31, 31, source_strand="both", method=method, kmer_filters=filters))
+        positions[method] = km.kmer_sba_start_indices.astype(np.int64)
+    if not np.array_equal(positions["single_pass"], positions["double_pass"]):
+        raise AssertionError(f"{label}: single_pass and double_pass keep different positions")
+    sba = index_sba(sc, km)[0]
+    starts = valid_starts_of(sc, km)
+    acgt_cum = np.concatenate([[0], np.cumsum(np.isin(sba, ACGT))])
+    gc_cum = np.concatenate([[0], np.cumsum((sba == ord("G")) | (sba == ord("C")))])
+    gc_count = gc_cum[starts + 31] - gc_cum[starts]
+    keep = (acgt_cum[starts + 31] - acgt_cum[starts] == 31) & (gc_count >= 7) & (gc_count <= 24)
+    expected = starts[keep]
+    if not np.array_equal(positions["single_pass"], expected):
+        raise AssertionError(f"{label}: the filtered positions differ from the sliding-window oracle")
+    km = gkt.Kmers.from_strand(sc, 31, 31, source_strand="both", kmer_filters=filters)
+    reset_launches()
+    _, t_sort = sync_time(km.sort)
+    launches = sort_lanes_cuda.launches
+    if launches < 1:
+        raise AssertionError(f"{label}: the sort of the filtered index did not launch the lane sort")
+    ranks = RANK2_TABLE.astype(np.int64)
+    key = np.zeros(len(expected), dtype=np.int64)
+    for j in range(31):
+        key = (key << 2) | ranks[sba[expected + j]]
+    sizes = np.unique(key, return_counts=True)[1]
+    counts, total = km.get_kmer_group_counts(31, max_counts_bin=1000)
+    if not (np.array_equal(counts, np.bincount(np.minimum(sizes, 1000), minlength=1001))
+            and total == len(expected)):
+        raise AssertionError(f"{label}: the histogram of the filtered index differs from the oracle")
+    log(f"{label}: single_pass {times['single_pass']:.4f} s, double_pass {times['double_pass']:.4f} s "
+        f"keep {len(expected)} of {len(starts)} starts, equal to the oracle; sort {t_sort:.4f} s "
+        f"({launches} lane sort launches), histogram equal to the oracle ({len(sizes)} groups)")
+    return launches
+
+
+def log_peak(label: str, held_before: int) -> None:
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{label}: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB), of which {held_before} "
+        f"bytes were held before it began: its own {(peak - held_before) / 2**30:.3f} GiB")
+
+
+def phase_filters(host_acgt, host_iupac, counts31) -> dict:
+    """Phase 13, on a random stream of its own (the later phases keep their
+    genomes); returns the launches of both kernels by path."""
+    rng = np.random.default_rng(SEED + 13)
+    t0 = time.perf_counter()
+    held_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pack_launches, sc_acgt = filters_acgt(host_acgt, rng)
+    log_peak("filters, ACGT (31, 31)", held_before)
+    torch.cuda.empty_cache()
+    held_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sort_launches = filters_iupac(host_iupac, rng)
+    log_peak("filters, IUPAC (31, 31)", held_before)
+    torch.cuda.empty_cache()
+    held_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    filters_suffix(sc_acgt, counts31)
+    log_peak("filters, suffix index (1, None)", held_before)
+    del sc_acgt
+    torch.cuda.empty_cache()
+    raise_launches = filters_raise_parity(rng)
+    init_launches = filters_init_time(rng)
+    log(f"filters phase: {time.perf_counter() - t0:.1f} s")
+    return {
+        "pack_rank2_words_cuda": {"filters, ACGT 2^27 (31, 31)": pack_launches,
+                                  f"filters, raise parity at {FILTER_RAISE_BP} bp": raise_launches},
+        "sort_lanes_cuda": {"filters, IUPAC 2^27 (31, 31)": sort_launches,
+                            f"filters, init-time filtered index at {INIT_FILTER_BP} bp":
+                                init_launches},
+    }
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -1098,6 +1462,7 @@ def main() -> None:
     suffix_launches = phase_suffix_main(sc_acgt, counts31, rng, args.profile)
     suffix4_launches = phase_suffix_main(sc_iupac, counts31_iupac, rng, None)
     beyond_launches = phase_beyond_window(sc_acgt, sc_iupac, rng)
+    filter_launches = phase_filters(sc_acgt, sc_iupac, counts31)
     del sc_acgt, sc_iupac
     torch.cuda.empty_cache()
     window_launches = phase_window_rounds(rng)
@@ -1115,7 +1480,8 @@ def main() -> None:
             "launches_by_path": {"ACGT main path": pack_launches,
                                  "suffix main path, ACGT genome":
                                      suffix_launches["pack_rank2_words_cuda"],
-                                 **{f"strands at {bp} bp": n for bp, n in strand_launches.items()}},
+                                 **{f"strands at {bp} bp": n for bp, n in strand_launches.items()},
+                                 **filter_launches["pack_rank2_words_cuda"]},
             **pack_timing,
         },
         {
@@ -1128,7 +1494,8 @@ def main() -> None:
                                  "suffix main path, IUPAC genome":
                                      suffix4_launches["sort_lanes_cuda"],
                                  **beyond_launches,
-                                 "unbounded window rounds (20, None)": window_launches},
+                                 "unbounded window rounds (20, None)": window_launches,
+                                 **filter_launches["sort_lanes_cuda"]},
             **sort_timing,
         },
     ]}))

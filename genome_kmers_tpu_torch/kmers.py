@@ -18,7 +18,16 @@ strand, the reverse complement or both (``Kmers.from_strand``):
   gathered keys (window by window when ``kmer_len`` is None or beyond a
   window);
 * ``get_kmers``, ``get_kmers_arrays``, ``get_kmer_str`` and
-  ``get_kmer_strs``.
+  ``get_kmer_strs``;
+* every filter (ops/filters.py) on all of these, by the JAX package's
+  routes in its order: the sorted lanes (lanes flags), then a flag plane in
+  genome order or window gathers, then a compaction to the survivors for
+  the yields and for a filter that is a plain callable (a host loop); and
+  init-time ``kmer_filters`` of ``Kmers.from_strand``.
+
+The module-level functions (``compare_sba_kmers_lexicographically``,
+``kmer_info_by_group_generator``, ``get_kmer_group_size_hist``, ...) are the
+reference's host walk API, NumPy only.
 
 Construction checks and their messages are the JAX package's. The index
 inherits its collection's device. Everything else raises
@@ -27,15 +36,31 @@ NotImplementedError naming the ROADMAP.md item that will port it.
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Generator, Union
 
 import numpy as np
 import torch
 
-from .ops.filters import KeepAllFilter, kmer_filter_keep_all
+from .ops.filters import (  # noqa: F401  (re-exported reference API)
+    FilterContext,
+    KeepAllFilter,
+    KmerFilter,
+    crispr_ngg_pam_filter,
+    gen_kmer_gc_content_filter_func,
+    gen_kmer_homopolymer_filter_func,
+    gen_kmer_length_filter_func,
+    gen_no_ambiguous_bases_filter,
+    kmer_filter_keep_all,
+    kmer_has_required_len,
+)
 from .ops.groups import (
+    filtered_group_total,
+    filtered_sizes_digest,
     group_geometry,
     hist_from_sizes,
+    lanes_filtered_sizes_digest,
+    lanes_filtered_total,
     lanes_group_total,
     lanes_sizes_digest,
     selection_masks,
@@ -62,6 +87,273 @@ from .sequence_collection import (
     get_sba_start_end_indices_for_segment,
     get_segment_num_from_sba_index,
 )
+
+_DOLLAR = ord("$")
+
+# index size at which a filter that is a plain callable (a per-position
+# Python loop) warns and points at VectorizedFilter; module-level so tests
+# can lower it
+_CALLABLE_WARN_THRESHOLD = 1_000_000
+
+
+# --------------------------------------------------------------------------- #
+# comparison kernels (host parity versions of reference kmers.py:262-397)
+# --------------------------------------------------------------------------- #
+
+
+_CMP_CHUNK = 64
+
+
+def _terminator_offset(chunk: np.ndarray, want: int) -> Union[int, None]:
+    """Offset of the first k-mer terminator within ``chunk`` (a '$' byte, or
+    the array end if the slice came back short of ``want``); None if the
+    chunk is clean."""
+    hits = np.flatnonzero(chunk == _DOLLAR)
+    if hits.size:
+        return int(hits[0])
+    if chunk.shape[0] < want:
+        return chunk.shape[0]
+    return None
+
+
+def compare_sba_kmers_lexicographically(
+    sba_a,
+    sba_b,
+    kmer_sba_start_idx_a: int,
+    kmer_sba_start_idx_b: int,
+    max_kmer_len: Union[int, None] = None,
+) -> tuple[int, int]:
+    """Host-side lexicographic k-mer compare with the '$'/array-end => smaller
+    rule; behavior (including the no-valid-bases AssertionError) matches the
+    reference comparator (reference kmers.py:306-397).
+
+    Returns (comparison in {-1, 0, 1}, last_kmer_index_compared). The
+    decision is derived from two scan results rather than a byte-at-a-time
+    walk: t = offset of the nearest terminator on either side, d = offset of
+    the first byte difference. A terminator at t decides whenever
+    t <= min(d, max_kmer_len - 1); otherwise a difference at d < max_kmer_len
+    decides; otherwise the compare cap does. Bytes are scanned a numpy chunk
+    at a time, so the common early-mismatch case touches one small slice.
+
+    The device path never calls this (packed keys reproduce it wholesale,
+    ops/encoding.py); tests and the generic host walk do.
+    """
+    arr_a = np.asarray(sba_a)
+    arr_b = np.asarray(sba_b)
+    # None = compare to the segment end; a non-positive cap never trips the
+    # reference's `kmer_idx == max_kmer_len - 1` break, i.e. it is unbounded
+    cap = max_kmer_len if (max_kmer_len is None or max_kmer_len >= 1) else None
+
+    scanned = 0
+    term_at = None  # (offset, a_terminated, b_terminated)
+    diff_at = None  # (offset, sign)
+    while term_at is None and diff_at is None:
+        if cap is not None and scanned >= cap:
+            break
+        want = _CMP_CHUNK if cap is None else min(_CMP_CHUNK, cap - scanned)
+        lo_a = kmer_sba_start_idx_a + scanned
+        lo_b = kmer_sba_start_idx_b + scanned
+        chunk_a = arr_a[lo_a : lo_a + want]
+        chunk_b = arr_b[lo_b : lo_b + want]
+        t_a = _terminator_offset(chunk_a, want)
+        t_b = _terminator_offset(chunk_b, want)
+        if t_a is not None or t_b is not None:
+            t = min(x for x in (t_a, t_b) if x is not None)
+            term_at = (scanned + t, t_a == t, t_b == t)
+        span = min(chunk_a.shape[0], chunk_b.shape[0])
+        unequal = np.flatnonzero(chunk_a[:span] != chunk_b[:span])
+        if unequal.size:
+            d = int(unequal[0])
+            sign = -1 if chunk_a[d] < chunk_b[d] else 1
+            diff_at = (scanned + d, sign)
+        scanned += want
+
+    horizon = cap - 1 if cap is not None else None
+    if term_at is not None and (diff_at is None or term_at[0] <= diff_at[0]):
+        t, a_ends, b_ends = term_at
+        if horizon is None or t <= horizon:
+            if t == 0:
+                raise AssertionError("There were no valid kmer bases to compare")
+            return (0 if a_ends == b_ends else (-1 if a_ends else 1)), t - 1
+        return 0, horizon
+    if diff_at is not None and (horizon is None or diff_at[0] <= horizon):
+        return diff_at[1], diff_at[0]
+    return 0, horizon
+
+
+class _AlwaysLessThanComparator:
+    """Unsorted-path comparator: every k-mer its own group (reference
+    kmers.py:295-303)."""
+
+    def __call__(self, sba_a, sba_b, idx_a, idx_b, max_kmer_len=None):
+        return -1, 0
+
+
+compare_sba_kmers_always_less_than = _AlwaysLessThanComparator()
+
+
+class _FixedLenComparator:
+    """Comparator with max_kmer_len bound (reference kmers.py:285-292). The
+    vectorized engine recognizes instances by their ``kmer_len`` attribute."""
+
+    def __init__(self, kmer_len):
+        self.kmer_len = kmer_len
+
+    def __call__(self, sba_a, sba_b, idx_a, idx_b):
+        return compare_sba_kmers_lexicographically(
+            sba_a, sba_b, idx_a, idx_b, max_kmer_len=self.kmer_len
+        )
+
+
+def get_compare_sba_kmers_func(kmer_len) -> _FixedLenComparator:
+    """Reference kmers.py:285-292."""
+    return _FixedLenComparator(kmer_len)
+
+
+def get_kmer_info_minimal(
+    kmer_num, kmer_sba_start_indices, sba, kmer_len, group_size_yielded, group_size_total
+):
+    """Reference kmers.py:400-425."""
+    return kmer_num, group_size_yielded, group_size_total
+
+
+def get_kmer_info_group_size_only(
+    kmer_num, kmer_sba_start_indices, sba, kmer_len, group_size_yielded, group_size_total
+):
+    """Reference kmers.py:428-451."""
+    return group_size_total
+
+
+# --------------------------------------------------------------------------- #
+# generic group walk (host fallback; exact reference semantics)
+# --------------------------------------------------------------------------- #
+
+
+def _check_group_bounds(min_group_size, max_group_size, yield_first_n) -> None:
+    """Shared validation for the group-walk APIs (error strings are part of
+    the public contract — reference kmers.py:552-562)."""
+    if min_group_size < 1:
+        raise ValueError(f"min_group_size ({min_group_size}) must be >= 1")
+    if max_group_size is not None and max_group_size < min_group_size:
+        raise ValueError(
+            f"if max_group_size ({max_group_size}) is specified, it must be >= min_group_size ({min_group_size})"
+        )
+    if yield_first_n is not None and yield_first_n < 1:
+        raise ValueError(f"if yield_first_n ({yield_first_n}) is specified, it must be > 0")
+
+
+def _group_qualifies(size: int, min_group_size, max_group_size) -> bool:
+    return size >= min_group_size and (max_group_size is None or size <= max_group_size)
+
+
+def _iter_filter_survivors(sba, sba_strand, kmer_start_indices, keep):
+    """Stream of (kmer_num, sba_start_idx) for every k-mer passing ``keep``
+    — the lazy equivalent of the vectorized engine's survivor mask."""
+    for kmer_num in range(len(kmer_start_indices)):
+        sba_idx = int(kmer_start_indices[kmer_num])
+        if keep(sba, sba_strand, sba_idx):
+            yield kmer_num, sba_idx
+
+
+def _iter_equal_runs(survivors, sba, same_key, head_limit):
+    """Collapse a survivor stream into (head_members, run_size) tuples.
+
+    A run is a maximal stretch of adjacent survivors whose pairwise
+    comparison (``same_key``, previous survivor vs current) returns equal —
+    the streaming mirror of ops/sort.adjacent_boundaries. Only the first
+    ``head_limit`` member kmer_nums are retained per run (None = all);
+    ``run_size`` always counts every member.
+    """
+    head: list[int] = []
+    run_size = 0
+    anchor_idx = None
+    for kmer_num, sba_idx in survivors:
+        if run_size and same_key(sba, sba, anchor_idx, sba_idx)[0] != 0:
+            yield head, run_size
+            head, run_size = [], 0
+        if head_limit is None or len(head) < head_limit:
+            head.append(kmer_num)
+        run_size += 1
+        anchor_idx = sba_idx
+    if run_size:
+        yield head, run_size
+
+
+def kmer_info_by_group_generator(
+    sba,
+    sba_strand,
+    kmer_len,
+    kmer_start_indices,
+    kmer_comparison_func,
+    kmer_filter_func,
+    kmer_info_func,
+    min_group_size: int = 1,
+    max_group_size: Union[int, None] = None,
+    yield_first_n: Union[int, None] = None,
+) -> Generator[tuple, None, None]:
+    """Host generator over k-mer groups, output-identical to the reference's
+    JIT'd group walk (reference kmers.py:523-648) but built as a two-stage
+    stream: filter survivors -> collapse into equal-key runs -> emit
+    ``kmer_info_func`` for (up to yield_first_n) members of each run whose
+    size is within [min_group_size, max_group_size].
+
+    The Kmers methods use the vectorized segmented-op engine instead whenever
+    the supplied callables are the library's own; this stream is the fully
+    general escape hatch for arbitrary user callables. It stays lazy: a run
+    is emitted as soon as the first survivor beyond it is seen, and filter/
+    comparator exceptions surface at the same iteration point they would in
+    the reference.
+    """
+    _check_group_bounds(min_group_size, max_group_size, yield_first_n)
+
+    runs = _iter_equal_runs(
+        _iter_filter_survivors(sba, sba_strand, kmer_start_indices, kmer_filter_func),
+        sba,
+        kmer_comparison_func,
+        yield_first_n,
+    )
+    for head, run_size in runs:
+        if not _group_qualifies(run_size, min_group_size, max_group_size):
+            continue
+        for member in head:
+            yield kmer_info_func(
+                member, kmer_start_indices, sba, kmer_len, len(head), run_size
+            )
+
+
+def get_kmer_group_size_hist(
+    sba,
+    sba_strand,
+    kmer_len,
+    kmer_start_indices,
+    kmer_comparison_func,
+    kmer_filter_func,
+    min_group_size: int = 1,
+    max_group_size: Union[int, None] = None,
+    max_counts_bin: int = 1000000,
+) -> tuple[np.ndarray, int]:
+    """Histogram of group sizes + total k-mer count over the host group walk
+    (same outputs as reference kmers.py:454-520). Consumes the run stream
+    directly — a histogram needs sizes, not member yields.
+    Kmers.get_kmer_group_counts uses the device engine instead; this free
+    function keeps the reference kernel API."""
+    if max_counts_bin <= 0:
+        raise ValueError(f"max_counts_bin ({max_counts_bin}) must be >= 1")
+    _check_group_bounds(min_group_size, max_group_size, None)
+
+    counts_by_group_size = np.zeros((max_counts_bin + 1,), dtype=np.int64)
+    total_kmer_count = 0
+    runs = _iter_equal_runs(
+        _iter_filter_survivors(sba, sba_strand, kmer_start_indices, kmer_filter_func),
+        sba,
+        kmer_comparison_func,
+        head_limit=1,
+    )
+    for _head, run_size in runs:
+        if _group_qualifies(run_size, min_group_size, max_group_size):
+            counts_by_group_size[min(run_size, max_counts_bin)] += 1
+            total_kmer_count += run_size
+    return counts_by_group_size, total_kmer_count
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -129,7 +421,9 @@ class Kmers:
 
         ``method="double_pass"`` fills an exactly sized position array
         record by record and gives the same index as ``single_pass``.
-        Init-time ``kmer_filters`` are not ported (ROADMAP.md A8)."""
+        ``kmer_filters`` keep the positions every one of them passes, in
+        either method (the library filters by window gathers on the device,
+        a plain callable by a host loop)."""
         self = cls.__new__(cls)
         self._construct(
             seq_coll, min_kmer_len, max_kmer_len, source_strand,
@@ -182,6 +476,10 @@ class Kmers:
         self._lanes_cache = None
         # (converged run ids of a suffix sort, the max_kmer_len they hold at)
         self._suffix_gid_cache = None
+        # every position has valid_len >= min_kmer_len: true by construction;
+        # unknown (None) after an assignment, checked once on demand by
+        # _cap_covers_min_k (the CRISPR lanes gate depends on it)
+        self._cap_cover_ok = True
 
         if seq_coll is None:
             return
@@ -233,25 +531,24 @@ class Kmers:
     def _initialize(self, kmer_filters=(), method: str = "single_pass", extension=False):
         # the plain constructor keeps the reference's errors; from_strand()
         # passes extension=True
-        if kmer_filters:
-            if not extension:
-                raise NotImplementedError("kmer_filters have not been implemented")
-            raise _not_ported("Kmers.from_strand(kmer_filters=[...])", "A8: filters")
+        if kmer_filters and not extension:
+            raise NotImplementedError("kmer_filters have not been implemented")
         if method == "double_pass":
             if not extension:
                 raise NotImplementedError(f"method '{method}' has not been implemented")
-            self._initialize_double_pass()
+            self._initialize_double_pass(kmer_filters)
         elif method == "single_pass":
-            self._initialize_single_pass()
+            self._initialize_single_pass(kmer_filters)
         else:
             raise ValueError(f"method '{method}' not recognized")
 
-    def _initialize_single_pass(self):
+    def _initialize_single_pass(self, kmer_filters=()):
         """Every k-mer start position in [seg_start, seg_end - min_kmer_len + 1]
         per record. Only the O(records) geometry is stored; the position
         array is built lazily, on the host when ``kmer_sba_start_indices``
         is read, and never for the fresh sort, which covers every SBA
-        position at once."""
+        position at once. Init-time ``kmer_filters`` materialize every
+        position on the device, mask them once and compact."""
         num_kmers = self._get_unfiltered_kmer_count()
         if num_kmers > 2**32 - 1:
             msg = "the size of the required kmers array exceeds the limit set by a uint32"
@@ -270,23 +567,116 @@ class Kmers:
         self._pos_host = None
         self._pos_dev = None
 
-    def _initialize_double_pass(self):
+        if kmer_filters:
+            positions = self._build_positions_device()
+            mask = self._init_filter_mask(positions, kmer_filters)
+            self._reset_index()  # the geometry no longer describes the index
+            self._pos_dev = positions[mask]
+            # a subset of the canonical positions keeps the cap coverage
+            self._cap_cover_ok = True
+
+    def _initialize_double_pass(self, kmer_filters=()):
         """The lower-memory init: count the k-mers of every record first,
-        then fill an exactly sized array. Without init-time filters (not
-        ported) it holds the same positions as single_pass, as an assigned
+        then fill an exactly sized array. Init-time ``kmer_filters`` are
+        evaluated record by record (the genome scans once, shared through
+        ``scan_cache``), so the unfiltered whole-genome index never
+        materializes. The same positions as single_pass, as an assigned
         host array."""
         if self._get_unfiltered_kmer_count() > 2**32 - 1:
             msg = "the size of the required kmers array exceeds the limit set by a uint32"
             raise NotImplementedError(msg)
-        spans = [(s, e - self.min_kmer_len + 2) for s, e in self._iter_segments()]
-        out = np.empty(sum(stop - s for s, stop in spans), dtype=np.uint32)
+        chunks = []
+        total = 0
+        scan_cache = {}
+        for s, e in self._iter_segments():
+            stop = e - self.min_kmer_len + 2
+            mask = None
+            if kmer_filters:
+                pos = torch.arange(s, stop, dtype=torch.int64, device=self.device)
+                mask = self._init_filter_mask(
+                    pos, kmer_filters, valid_len=e - pos + 1, scan_cache=scan_cache
+                ).cpu().numpy()
+            chunks.append((s, stop, mask))
+            total += stop - s if mask is None else int(mask.sum())
+        out = np.empty(total, dtype=np.uint32)
         write = 0
-        for s, stop in spans:
-            out[write : write + stop - s] = np.arange(s, stop, dtype=np.uint32)
-            write += stop - s
-        if write != len(out):
+        for s, stop, mask in chunks:
+            pos = np.arange(s, stop, dtype=np.uint32)
+            if mask is not None:
+                pos = pos[mask]
+            out[write : write + len(pos)] = pos
+            write += len(pos)
+        if write != total:
             raise AssertionError("logic error filling kmer_sba_start_indices")
         self.kmer_sba_start_indices = out
+        # the canonical fill, filtered or not: the cap coverage holds
+        self._cap_cover_ok = True
+
+    def _callable_mask(self, f: Callable, positions: np.ndarray) -> np.ndarray:
+        """Host bool mask from a filter that is a plain callable with the
+        reference's signature (the slow path, one Python call a position).
+        A both-strand index presents each position in its own strand's SBA
+        coordinates, keeping the reference's single-strand filter contract."""
+        n = len(positions)
+        if n >= _CALLABLE_WARN_THRESHOLD:
+            warnings.warn(
+                f"kmer filter {getattr(f, '__name__', type(f).__name__)} is an "
+                f"arbitrary callable, so it runs as a per-position Python loop "
+                f"over {n} positions (the reference's walk semantics). For a "
+                f"vectorized device evaluation wrap it as "
+                f"genome_kmers_tpu_torch.VectorizedFilter, or use the library "
+                f"KmerFilter classes.",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+        if self.kmer_source_strand == "both":
+            off = self._revcomp_offset()
+            fwd, rc = self.seq_coll.forward_sba, self.seq_coll.revcomp_sba
+            return np.fromiter(
+                (
+                    bool(
+                        f(fwd, "forward", int(p))
+                        if int(p) < off
+                        else f(rc, "reverse_complement", int(p) - off)
+                    )
+                    for p in positions
+                ),
+                dtype=bool,
+                count=n,
+            )
+        sba = self._host_sba()
+        strand = self._strand_to_use()
+        return np.fromiter((bool(f(sba, strand, int(p))) for p in positions), dtype=bool, count=n)
+
+    def _init_filter_mask(self, positions: torch.Tensor, kmer_filters, valid_len=None,
+                          scan_cache=None) -> torch.Tensor:
+        """AND of every init-time filter over the given device positions (a
+        bool tensor on the same device). The library filters share one
+        FilterContext with no device cache, so they take the window route
+        and compute the genome scans once a call (and, through
+        ``scan_cache``, once over double_pass's records); plain callables
+        take the host loop (``_callable_mask``)."""
+        if valid_len is None:
+            dc = self._dc()
+            valid_len = compute_valid_len(positions, dc.seg_starts, dc.seg_ends)
+        mask = torch.ones(positions.shape[0], dtype=torch.bool, device=positions.device)
+        ctx = None
+        cached = ("_sba_dev", "_gc_cumsum", "_run_len", "_next_amb")
+        for f in kmer_filters:
+            if isinstance(f, KmerFilter):
+                if ctx is None:
+                    ctx = FilterContext(self._host_sba(), positions, valid_len)
+                    if scan_cache:
+                        for field in cached:
+                            setattr(ctx, field, scan_cache[field])
+                mask &= f.batch_mask(ctx)
+            else:
+                host = self._callable_mask(f, positions.cpu().numpy())
+                mask &= torch.from_numpy(host).to(positions.device)
+        if ctx is not None and scan_cache is not None:
+            for field in cached:
+                scan_cache[field] = getattr(ctx, field)
+        return mask
 
     def _build_positions_host(self) -> np.ndarray:
         seg_starts, counts, num_kmers = self._init_geometry
@@ -359,11 +749,19 @@ class Kmers:
 
     @kmer_sba_start_indices.setter
     def kmer_sba_start_indices(self, value):
+        self._reset_index()
         self._pos_host = value
+
+    def _reset_index(self):
+        """Forget the index and everything derived from it."""
+        self._pos_host = None
         self._pos_dev = None
         self._init_geometry = None
         self._lanes_cache = None
         self._suffix_gid_cache = None
+        # unknown until checked: an assigned set may hold positions with
+        # valid_len < min_kmer_len (the canonical build never does)
+        self._cap_cover_ok = None
 
     @property
     def suffix_run_ids(self):
@@ -460,31 +858,59 @@ class Kmers:
                 msg += " mean to run sort() before getting kmers?"
                 raise ValueError(msg)
 
-    @staticmethod
-    def _check_filter_ported(kmer_filter_func):
-        if not isinstance(kmer_filter_func, KeepAllFilter):
-            raise _not_ported("a filter other than keep-all", "A8: filters")
-
     # ------------------------------------------------------------------ #
     # group structure on the device
     # ------------------------------------------------------------------ #
 
     def _survivors(self, kmer_filter_func):
-        """The positions a filter keeps and their valid lengths. Only the
-        keep-all filter is ported: every position survives."""
-        self._check_filter_ported(kmer_filter_func)
+        """The positions a filter keeps: (their index numbers as a device
+        tensor, or None when every position survives; their positions;
+        their valid lengths). A KmerFilter is one device mask (plane or
+        window route), a plain callable a host loop; the survivors are then
+        compacted on the device."""
         dc = self._dc()
         positions = self._device_positions()
-        return positions, compute_valid_len(positions, dc.seg_starts, dc.seg_ends)
+        valid_len = compute_valid_len(positions, dc.seg_starts, dc.seg_ends)
+        if isinstance(kmer_filter_func, KeepAllFilter):
+            return None, positions, valid_len
+        if isinstance(kmer_filter_func, KmerFilter):
+            ctx = FilterContext(
+                self._host_sba(), positions, valid_len, sba_dev=lambda: dc.sba, scans=dc
+            )
+            mask = kmer_filter_func.batch_mask(ctx)
+        else:
+            host = self._callable_mask(kmer_filter_func, self.kmer_sba_start_indices)
+            mask = torch.from_numpy(host).to(self.device)
+        surv_nums = torch.nonzero(mask).flatten()
+        return surv_nums, positions[surv_nums], valid_len[surv_nums]
+
+    def _cap_covers_min_k(self) -> bool:
+        """True when every index position has valid_len >= min_kmer_len:
+        guaranteed by construction, checked against the data once (one
+        device reduce) after an assignment to ``kmer_sba_start_indices``.
+        The CRISPR lanes gate consults it."""
+        if self._cap_cover_ok is None:
+            positions = self._device_positions()
+            if positions.shape[0] == 0:
+                self._cap_cover_ok = True
+            else:
+                dc = self._dc()
+                vl = compute_valid_len(positions, dc.seg_starts, dc.seg_ends)
+                self._cap_cover_ok = int(vl.min()) >= self.min_kmer_len
+        return self._cap_cover_ok
 
     def _ensure_lanes(self):
         """The retained sorted key lanes, rebuilt ONCE from the sorted
         positions when absent: an assigned index has no sort of this
         process to retain lanes from. The one key gather makes every later
-        statistics query gather-free."""
+        statistics query gather-free. ``_lanes_rebuild = False`` switches
+        the rebuild off, which sends filtered queries to the plane and
+        window routes."""
         lanes = self._lanes_cache
         if lanes is not None or not self._is_sorted or self.max_kmer_len is None:
             return lanes
+        if not getattr(self, "_lanes_rebuild", True):
+            return None
         dc = self._dc()
         use2 = self.max_kmer_len <= WINDOW2_BASES and dc.packed2 is not None
         if not use2 and self.max_kmer_len > WINDOW_BASES:
@@ -505,16 +931,18 @@ class Kmers:
             "built_k": self.max_kmer_len,
             "words": words,
             "cap": None if uniform else cap,
+            "cap_cover_check": self._cap_covers_min_k,
         }
         return self._lanes_cache
 
-    def _lanes_fast(self, kmer_len):
+    def _lanes_fast(self, kmer_len, kmer_filter_func=kmer_filter_keep_all):
         """The retained sorted lanes when the whole statistics query can
-        run over them (sorted index, bounded kmer_len within the built
-        length, no strand-split term), else None."""
+        run over them (sorted index, no filter, bounded kmer_len within the
+        built length, no strand-split term), else None."""
         if not (
             self._is_sorted
             and not self.track_strands_separately
+            and isinstance(kmer_filter_func, KeepAllFilter)
             and kmer_len is not None
             # rebuilt lanes are built at max_kmer_len: no rebuild for a
             # query they could never serve
@@ -526,19 +954,84 @@ class Kmers:
             return lanes
         return None
 
-    def _boundary_parts(self, kmer_len, kmer_filter_func):
-        """(surviving positions, group-boundary mask) on the device, in
-        index order. An unsorted index has every k-mer as its own group."""
+    def _filtered_lanes_stats(self, kmer_len, kmer_filter_func):
+        """(lanes, positions, strand_split, (flags_fn, params, msg_makers))
+        for a filtered query over the retained sorted lanes, or None. It
+        applies where the lanes cover the query's ``kmer_len`` and the
+        filter's own window and the filter can be read from lane words
+        (``lanes_spec``): then no genome row is read."""
+        if not isinstance(kmer_filter_func, KmerFilter) or isinstance(
+            kmer_filter_func, KeepAllFilter
+        ):
+            return None
+        if not self._is_sorted or kmer_len is None or len(self) == 0:
+            return None
+        if self.max_kmer_len is not None and kmer_len > self.max_kmer_len:
+            return None  # the lanes could never serve it: no rebuild either
+        lanes = self._ensure_lanes()
+        if lanes is None or kmer_len > lanes["built_k"]:
+            return None
+        spec = kmer_filter_func.lanes_spec(lanes, len(self._host_sba()), self.min_kmer_len)
+        if spec is None:
+            return None
+        split = self._revcomp_offset() if self.track_strands_separately else None
+        return lanes, self._device_positions(), split, spec
+
+    @staticmethod
+    def _raise_lanes_errs(err, msg_makers) -> None:
+        """Raise the filter's reference error from the lanes digest's
+        [any, cond_id, first_bad_position] (ops/groups.fold_err_conditions):
+        the first offending row in sorted order, the row the reference's
+        walk raises at."""
+        if err and err[0]:
+            raise ValueError(msg_makers[err[1]](err[2]))
+
+    def _filtered_device_stats(self, kmer_len, kmer_filter_func):
+        """(boundary of all rows, device survivor mask) for a filtered query
+        by the plane or window route, or None where it does not apply.
+
+        It applies to a KmerFilter (not keep-all) when the groups at
+        ``kmer_len`` are contiguous in index order: unsorted (every k-mer
+        its own group), sorted with ``kmer_len`` within the sort's compare
+        length, or suffix-sorted. The survivors' groups are then the groups
+        of all rows restricted to the survivors (the reference's
+        previous-survivor walk), and no compaction is needed."""
+        if not isinstance(kmer_filter_func, KmerFilter) or isinstance(
+            kmer_filter_func, KeepAllFilter
+        ):
+            return None
+        if self._is_sorted and not (
+            self.max_kmer_len is None
+            or (kmer_len is not None and kmer_len <= self.max_kmer_len)
+        ):
+            return None
+        _, _, boundary = self._boundary_parts(kmer_len, kmer_filter_keep_all)
         dc = self._dc()
-        surv_pos, surv_vl = self._survivors(kmer_filter_func)
+        positions = self._device_positions()
+        valid_len = compute_valid_len(positions, dc.seg_starts, dc.seg_ends)
+        ctx = FilterContext(
+            self._host_sba(), positions, valid_len, sba_dev=lambda: dc.sba, scans=dc
+        )
+        kmer_filter_func.check_batch(ctx)
+        return boundary, kmer_filter_func.mask_pure(ctx)
+
+    def _boundary_parts(self, kmer_len, kmer_filter_func):
+        """(survivor index numbers or None, surviving positions,
+        group-boundary mask) on the device, in index order. An unsorted
+        index has every k-mer as its own group. The sort's run ids and the
+        retained lanes describe all rows, so they serve only when every
+        position survives."""
+        dc = self._dc()
+        surv_nums, surv_pos, surv_vl = self._survivors(kmer_filter_func)
         m = surv_pos.shape[0]
         if m == 0:
-            return surv_pos, torch.zeros(0, dtype=torch.bool, device=self.device)
+            return surv_nums, surv_pos, torch.zeros(0, dtype=torch.bool, device=self.device)
         if not self._is_sorted:
-            return surv_pos, torch.ones(m, dtype=torch.bool, device=self.device)
+            return surv_nums, surv_pos, torch.ones(m, dtype=torch.bool, device=self.device)
         sg = self._suffix_gid_cache
         if (
             sg is not None
+            and surv_nums is None
             and not self.track_strands_separately
             and kmer_len == sg[1]
         ):
@@ -548,9 +1041,13 @@ class Kmers:
             gid = sg[0]
             boundary = torch.ones(m, dtype=torch.bool, device=self.device)
             boundary[1:] = gid[1:] != gid[:-1]
-            return surv_pos, boundary
+            return surv_nums, surv_pos, boundary
         lanes = None
-        if kmer_len is not None and (self.max_kmer_len is None or kmer_len <= self.max_kmer_len):
+        if (
+            surv_nums is None
+            and kmer_len is not None
+            and (self.max_kmer_len is None or kmer_len <= self.max_kmer_len)
+        ):
             lanes = self._ensure_lanes()
         if lanes is not None and kmer_len <= lanes["built_k"]:
             boundary = boundaries_from_sorted_lanes(
@@ -571,14 +1068,15 @@ class Kmers:
             # "-" entry, so the per-strand groups are contiguous
             is_rc = surv_pos >= self._revcomp_offset()
             boundary[1:] |= is_rc[1:] != is_rc[:-1]
-        return surv_pos, boundary
+        return surv_nums, surv_pos, boundary
 
     def _group_arrays(self, kmer_len, kmer_filter_func, min_group_size, max_group_size,
                       yield_first_n):
         """Host arrays for the yielding calls, over the filter's survivors
         in index order: (kmer numbers, positions, yielded mask, group size
-        yielded, group size total)."""
-        surv_pos, boundary = self._boundary_parts(kmer_len, kmer_filter_func)
+        yielded, group size total). A survivor's kmer number is its index
+        number."""
+        surv_nums, surv_pos, boundary = self._boundary_parts(kmer_len, kmer_filter_func)
         m = surv_pos.shape[0]
         if m == 0:
             empty_u32 = np.zeros(0, dtype=np.uint32)
@@ -586,8 +1084,9 @@ class Kmers:
                     empty_u32, empty_u32)
         _, _, size, rank = group_geometry(boundary)
         yielded, gsy = selection_masks(size, rank, min_group_size, max_group_size, yield_first_n)
+        nums = np.arange(m, dtype=np.int64) if surv_nums is None else surv_nums.cpu().numpy()
         return (
-            np.arange(m, dtype=np.int64),
+            nums,
             surv_pos.cpu().numpy().astype(np.uint32),
             yielded.cpu().numpy(),
             gsy.cpu().numpy().astype(np.uint32),
@@ -714,10 +1213,10 @@ class Kmers:
             raise ValueError(f"kmer_len ({kmer_len}) must be > 0")
         self._check_group_params_unsorted(min_group_size, max_group_size)
 
-    def _check_stats_ported(self, kmer_filter_func, mesh):
+    @staticmethod
+    def _check_mesh(mesh):
         if mesh is not None:
             raise _not_ported("statistics over a mesh (mesh=)", "A11: torch.distributed")
-        self._check_filter_ported(kmer_filter_func)
 
     def get_kmer_count(
         self,
@@ -728,17 +1227,34 @@ class Kmers:
         mesh=None,
     ) -> int:
         """Total k-mers in groups of size in [min_group_size, max_group_size]
-        at ``kmer_len`` base identity. On an unsorted index every k-mer is
-        its own group."""
+        at ``kmer_len`` base identity; under a filter, the survivors in
+        groups whose survivor count is in range. On an unsorted index every
+        k-mer is its own group. Routes, in order: unfiltered lanes,
+        filtered lanes, flag plane or window, compaction to the survivors."""
         self._check_stats_args(kmer_len, min_group_size, max_group_size)
-        self._check_stats_ported(kmer_filter_func, mesh)
-        lanes = self._lanes_fast(kmer_len)
+        self._check_mesh(mesh)
+        lanes = self._lanes_fast(kmer_len, kmer_filter_func)
         if lanes is not None:
             return lanes_group_total(
                 lanes["words"], lanes["cap"], min_group_size, max_group_size, kmer_len,
                 lanes["two_bit"],
             )
-        _, boundary = self._boundary_parts(kmer_len, kmer_filter_func)
+        fl = self._filtered_lanes_stats(kmer_len, kmer_filter_func)
+        if fl is not None:
+            lanes, positions, split, (flags_fn, params, msgs) = fl
+            total, err = lanes_filtered_total(
+                lanes["words"], lanes["cap"], positions, params, kmer_len, min_group_size,
+                max_group_size, split, lanes["two_bit"], flags_fn,
+            )
+            self._raise_lanes_errs(err, msgs)
+            return total
+        fd = self._filtered_device_stats(kmer_len, kmer_filter_func)
+        if fd is not None:
+            boundary, mask = fd
+            if boundary.shape[0] == 0:
+                return 0
+            return filtered_group_total(boundary, mask, min_group_size, max_group_size)
+        _, _, boundary = self._boundary_parts(kmer_len, kmer_filter_func)
         if boundary.shape[0] == 0:
             return 0
         return sizes_digest(boundary, min_group_size, max_group_size)[2]
@@ -754,21 +1270,37 @@ class Kmers:
     ) -> tuple[np.ndarray, int]:
         """Histogram of group sizes (int64, max_counts_bin + 1 bins, larger
         groups in the top bin) and the total k-mer count of the qualifying
-        groups."""
+        groups; under a filter, of the groups' survivor counts. Routes as
+        in ``get_kmer_count``."""
         self._check_stats_args(kmer_len, min_group_size, max_group_size)
         if not self._is_sorted:
             raise AssertionError("The kmers must be sorted when calling get_kmer_group_counts")
         if max_counts_bin <= 0:
             raise ValueError(f"max_counts_bin ({max_counts_bin}) must be >= 1")
-        self._check_stats_ported(kmer_filter_func, mesh)
-        lanes = self._lanes_fast(kmer_len)
+        self._check_mesh(mesh)
+        lanes = self._lanes_fast(kmer_len, kmer_filter_func)
+        fl = None if lanes is not None else self._filtered_lanes_stats(kmer_len, kmer_filter_func)
         if lanes is not None:
             size, qualifies, total = lanes_sizes_digest(
                 lanes["words"], lanes["cap"], kmer_len, min_group_size, max_group_size,
                 lanes["two_bit"],
             )
+        elif fl is not None:
+            lanes, positions, split, (flags_fn, params, msgs) = fl
+            size, qualifies, total, err = lanes_filtered_sizes_digest(
+                lanes["words"], lanes["cap"], positions, params, kmer_len, min_group_size,
+                max_group_size, split, lanes["two_bit"], flags_fn,
+            )
+            self._raise_lanes_errs(err, msgs)
+        elif (fd := self._filtered_device_stats(kmer_len, kmer_filter_func)) is not None:
+            boundary, mask = fd
+            if boundary.shape[0] == 0:
+                return np.zeros(max_counts_bin + 1, dtype=np.int64), 0
+            size, qualifies, total = filtered_sizes_digest(
+                boundary, mask, min_group_size, max_group_size
+            )
         else:
-            _, boundary = self._boundary_parts(kmer_len, kmer_filter_func)
+            _, _, boundary = self._boundary_parts(kmer_len, kmer_filter_func)
             if boundary.shape[0] == 0:
                 return np.zeros(max_counts_bin + 1, dtype=np.int64), 0
             size, qualifies, total = sizes_digest(boundary, min_group_size, max_group_size)

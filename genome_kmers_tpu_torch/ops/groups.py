@@ -1,8 +1,9 @@
 """Segmented group statistics over a sorted k-mer index.
 
-Counterpart of ``genome_kmers_tpu/ops/groups.py`` for the statistics over
-retained sorted key lanes: boundary mask -> size at each group's first
-row -> qualifying mask, total and histogram.
+Counterpart of ``genome_kmers_tpu/ops/groups.py``: boundary mask -> size
+(or, under a filter, survivor count) at each group's first row ->
+qualifying mask, total and histogram, over retained sorted key lanes or a
+boundary of gathered keys; and the fold of a filter's raise conditions.
 
 The histogram is one ``torch.bincount``, exact at any ``max_counts_bin``.
 The JAX package's two-stage speculative digest was shaped by a link that
@@ -96,6 +97,113 @@ def lanes_group_total(
     boundary = boundaries_from_sorted_lanes(words, cap, kmer_len, two_bit)
     size = group_sizes_at_boundaries(boundary)
     return group_total_count(boundary, size, min_group_size, max_group_size)
+
+
+# --------------------------------------------------------------------------- #
+# filtered statistics: in a sorted index equal k-mers are contiguous, so the
+# reference's "compare each survivor to the previous survivor" walk
+# partitions the survivors as the groups of all rows do, and a group's
+# survivor count is a difference of prefix counts over its extent. Groups
+# with no survivor never existed for the walk: a qualifying group has at
+# least one.
+# --------------------------------------------------------------------------- #
+
+
+def survivor_sizes_at_boundaries(boundary: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """surv[i] = number of filter survivors in i's group where boundary[i]
+    is True, else 0. The JAX package carries the survivors-before count of
+    each group's end back with a reverse ``lax.cummin``; here it is read at
+    the next boundary index (``nonzero``), as ``group_sizes_at_boundaries``
+    does."""
+    n = boundary.shape[0]
+    m = mask.to(torch.int64)
+    before = torch.zeros(n + 1, dtype=torch.int64, device=boundary.device)
+    torch.cumsum(m, dim=0, out=before[1:])  # survivors strictly before each row
+    starts = torch.nonzero(boundary).flatten()
+    ends = torch.cat([starts[1:], starts.new_full((1,), n)])
+    surv = torch.zeros(n, dtype=torch.int64, device=boundary.device)
+    surv[starts] = before[ends] - before[starts]
+    return surv
+
+
+def fold_err_conditions(errs, positions):
+    """Fold a filter's per-row raise conditions to ``[any, cond_id,
+    first_bad_position]``, a 3-element int64 tensor naming the earliest
+    offending row in index (sorted) order, the row the reference's walk
+    raises at; ties at one row go to the earlier-listed condition, the
+    scalar filter's check order. No conditions fold to None."""
+    if not errs:
+        return None
+    n = positions.shape[0]
+    best_row = positions.new_tensor(n)
+    best_cond = positions.new_tensor(0)
+    any_err = torch.zeros((), dtype=torch.bool, device=positions.device)
+    for idx, cond in enumerate(errs):
+        has = torch.any(cond)
+        row = torch.where(has, torch.argmax(cond.to(torch.uint8)), n)
+        take = row < best_row  # strict: the earlier condition wins ties
+        best_cond = torch.where(take, idx, best_cond)
+        best_row = torch.where(take, row, best_row)
+        any_err |= has
+    best_pos = torch.where(any_err, positions[torch.clamp_max(best_row, n - 1)], 0)
+    return torch.stack([any_err.to(torch.int64), best_cond, best_pos])
+
+
+def _lanes_filtered_core(words, cap, positions, params, flags_fn, kmer_len: int,
+                         two_bit: bool, strand_split):
+    """(boundary, survivor sizes, error fold) of a filter evaluated on the
+    retained sorted key lanes (ops/filters lanes flags: no genome read).
+    ``strand_split`` is the first position of the reverse-complement half
+    when the strands are tracked apart, else None."""
+    mask, errs = flags_fn(words, cap, positions, params)
+    boundary = boundaries_from_sorted_lanes(words, cap, kmer_len, two_bit)
+    if strand_split is not None:
+        is_rc = positions >= strand_split
+        boundary[1:] |= is_rc[1:] != is_rc[:-1]
+    surv = survivor_sizes_at_boundaries(boundary, mask)
+    return boundary, surv, fold_err_conditions(errs, positions)
+
+
+def _digest(total: torch.Tensor, err):
+    """(total, [err_any, cond_id, first_bad_position] or []) in one read."""
+    values = torch.stack([total] + ([] if err is None else list(err))).tolist()
+    return values[0], values[1:]
+
+
+def lanes_filtered_sizes_digest(words, cap, positions, params, kmer_len: int, min_group_size: int,
+                                max_group_size, strand_split, two_bit: bool, flags_fn):
+    """Survivor sizes, the qualifying mask, the total and the error triple
+    of a filtered query over retained sorted key lanes: (surv, qualifies,
+    total, err)."""
+    boundary, surv, err = _lanes_filtered_core(
+        words, cap, positions, params, flags_fn, kmer_len, two_bit, strand_split
+    )
+    qualifies = _qualifies(boundary, surv, max(min_group_size, 1), max_group_size)
+    total, err = _digest(torch.where(qualifies, surv, 0).sum(), err)
+    return surv, qualifies, total, err
+
+
+def lanes_filtered_total(words, cap, positions, params, kmer_len: int, min_group_size: int,
+                         max_group_size, strand_split, two_bit: bool, flags_fn):
+    """(total, err) of ``lanes_filtered_sizes_digest``, for count queries."""
+    return lanes_filtered_sizes_digest(
+        words, cap, positions, params, kmer_len, min_group_size, max_group_size,
+        strand_split, two_bit, flags_fn,
+    )[2:]
+
+
+def filtered_sizes_digest(boundary, mask, min_group_size: int, max_group_size):
+    """Survivor sizes, the qualifying mask and the total of a filtered query
+    over a boundary of all rows and a survivor mask (the plane and window
+    routes): (surv, qualifies, total)."""
+    surv = survivor_sizes_at_boundaries(boundary, mask)
+    qualifies = _qualifies(boundary, surv, max(min_group_size, 1), max_group_size)
+    return surv, qualifies, _total(surv, qualifies)
+
+
+def filtered_group_total(boundary, mask, min_group_size: int, max_group_size) -> int:
+    """Total survivors in qualifying groups: the reduce-only sibling."""
+    return filtered_sizes_digest(boundary, mask, min_group_size, max_group_size)[2]
 
 
 def selection_masks(size, rank, min_group_size: int, max_group_size, yield_first_n):

@@ -6,7 +6,8 @@ into one ASCII "sequence byte array" (SBA), uint32 segment starts, record
 names in read order. The device side is a ``_DeviceCache`` of torch tensors
 on the collection's explicit ``device``: the segment starts and ends, the
 2-bit pack of an ACGT genome, built on a CUDA device by the hand written
-kernel ``kernels/pack2.py``, and the 4-bit pack that any genome has.
+kernel ``kernels/pack2.py``, the 4-bit pack that any genome has, and the
+filters' genome scans and flag planes (ops/filters.py).
 """
 
 from __future__ import annotations
@@ -21,7 +22,15 @@ import torch
 from .io.fasta import _get_fasta_record_name, parse_fasta_file
 from .kernels.pack2 import pack_rank2_words_cuda
 from .ops.encoding import reverse_complement_bytes
-from .ops.keys import compute_seg_ends, pack_rank_words
+from .ops.filters import (
+    _gc_cumsum_ranks2,
+    _gc_cumsum_ranks4,
+    _next_ambiguous_ranks4,
+    _run_lengths_ranks2,
+    _run_lengths_ranks4,
+    no_ambiguous_scan,
+)
+from .ops.keys import compute_seg_ends, pack_rank_words, valid_len_all
 
 
 def resolve_device(device) -> torch.device:
@@ -90,8 +99,9 @@ def get_sba_start_end_indices_for_segment(
 
 class _DeviceCache:
     """Lazily built device tensors of one strand's SBA: the raw bytes, the
-    segment starts and ends (int64) and the 2-bit and 4-bit packs (int32
-    bit patterns of uint32 words)."""
+    segment starts and ends (int64), the 2-bit and 4-bit packs (int32 bit
+    patterns of uint32 words), and the filters' genome scans (int32) and
+    flag planes (uint8)."""
 
     def __init__(self, sba: np.ndarray, seg_starts: np.ndarray, device: torch.device):
         self._sba_np = sba
@@ -103,6 +113,14 @@ class _DeviceCache:
         self._packed2 = None
         self._seg_starts_dev = None
         self._seg_ends_dev = None
+        self._vl_genome = None
+        self._is_dollar = None
+        self._next_amb = None
+        self._gc_cumsum = None
+        self._run_len = None
+        # genome-order filter flag planes, keyed by (filter, params, k):
+        # built once a strand, reused across queries (ops/filters.py)
+        self.filter_flags = {}
 
     @property
     def sba(self) -> torch.Tensor:
@@ -154,6 +172,63 @@ class _DeviceCache:
         if self._seg_ends_dev is None:
             self._seg_ends_dev = compute_seg_ends(self.seg_starts, len(self._sba_np))
         return self._seg_ends_dev
+
+    # the filters' genome scans: int32 (every value is below 2^31 on one
+    # device), each built once from the pack the sort reads, so a filtered
+    # query on an ACGT genome reads no second copy of the bytes
+
+    @property
+    def valid_len_genome(self) -> torch.Tensor:
+        """Bases to the segment end for every genome row (0 on a '$' row,
+        which no k-mer position references)."""
+        if self._vl_genome is None:
+            self._vl_genome = valid_len_all(
+                self.seg_starts, self.seg_ends, len(self._sba_np)
+            ).to(torch.int32)
+        return self._vl_genome
+
+    @property
+    def is_dollar(self) -> torch.Tensor:
+        """Bool mask of the '$' rows, from the segment table, not the bytes."""
+        if self._is_dollar is None:
+            self._is_dollar = torch.zeros(len(self._sba_np), dtype=torch.bool, device=self.device)
+            self._is_dollar[self.seg_starts[1:] - 1] = True
+        return self._is_dollar
+
+    @property
+    def next_amb(self) -> torch.Tensor:
+        """next_amb[i] = the first j >= i whose byte is neither ACGT nor
+        '$': a constant sentinel on an ACGT genome, else from the 4-bit
+        ranks."""
+        if self._next_amb is None:
+            if self.is_acgt_only:
+                self._next_amb = no_ambiguous_scan(len(self._sba_np), self.device)
+            else:
+                self._next_amb = _next_ambiguous_ranks4(self.packed)
+        return self._next_amb
+
+    @property
+    def gc_cumsum(self) -> torch.Tensor:
+        """Prefix G/C counts (length n + 1), from the 2-bit pack on an ACGT
+        genome, else from the 4-bit pack."""
+        if self._gc_cumsum is None:
+            if self.is_acgt_only:
+                self._gc_cumsum = _gc_cumsum_ranks2(self.packed2)
+            else:
+                self._gc_cumsum = _gc_cumsum_ranks4(self.packed)
+        return self._gc_cumsum
+
+    @property
+    def run_len(self) -> torch.Tensor:
+        """Equal-byte run lengths. From the 2-bit ranks on an ACGT genome,
+        with breaks at the '$' rows ('$' packs as rank 0, as A does); from
+        the 4-bit ranks otherwise, which tell '$' apart themselves."""
+        if self._run_len is None:
+            if self.is_acgt_only:
+                self._run_len = _run_lengths_ranks2(self.packed2, self.is_dollar)
+            else:
+                self._run_len = _run_lengths_ranks4(self.packed)
+        return self._run_len
 
 
 class SequenceCollection:

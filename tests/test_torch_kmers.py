@@ -9,7 +9,8 @@ unsorted counts, statistics beyond the sorted lanes, ``get_kmers``,
 ``get_kmers_arrays``, ``get_kmer_strs``); the constructors' error messages
 verbatim; NotImplementedError, naming a ROADMAP.md item, for every call
 outside the slices, and the JAX package's answer for the calls that earlier
-slices refused (suffix mode, lengths beyond one window, ``from_strand``);
+slices refused (suffix mode, lengths beyond one window, ``from_strand``,
+filters);
 and the device rules. Tolerance: exact equality.
 """
 
@@ -488,12 +489,34 @@ class _OddFilter(KmerFilter):
         return kmer_sba_start_idx % 2 == 1
 
 
+class _JaxOddFilter(gj.kmers.KmerFilter):
+    def __call__(self, sba, sba_strand, kmer_sba_start_idx) -> bool:
+        return kmer_sba_start_idx % 2 == 1
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda g, sc, km, f: (km.sort(), list(km.get_kmers(3, kmer_filter_func=f))),
+        lambda g, sc, km, f: g.Kmers.from_strand(sc, 3, 3, kmer_filters=[f]),
+        lambda g, sc, km, f: km.get_kmer_count(3, kmer_filter_func=f),
+        lambda g, sc, km, f: (km.sort(), km.get_kmer_count(3, kmer_filter_func=f)),
+        lambda g, sc, km, f: (km.sort(), km.get_kmer_group_counts(3, kmer_filter_func=f)),
+    ],
+)
+def test_filter_calls_once_out_of_slice_now_match_jax(call):
+    """Filters, once refused: a KmerFilter with no mask raises the JAX
+    package's NotImplementedError from its base ``mask_pure``."""
+    tsc, jsc = _tsc(sequence_list=SEQ_LIST_2), gj.SequenceCollection(sequence_list=SEQ_LIST_2)
+    got = _outcome(lambda: call(gt, tsc, gt.Kmers(tsc, 3, 8), _OddFilter()))
+    want = _outcome(lambda: call(gj, jsc, gj.Kmers(jsc, 3, 8), _JaxOddFilter()))
+    assert got == want and want[0] is NotImplementedError
+
+
 @pytest.mark.parametrize(
     "call",
     [
         lambda sc, km: km.sort(mesh=object()),
-        lambda sc, km: (km.sort(), list(km.get_kmers(3, kmer_filter_func=_OddFilter()))),
-        lambda sc, km: gt.Kmers.from_strand(sc, 3, 3, kmer_filters=[_OddFilter()]),
         lambda sc, km: gt.LargeKmers(sc, 3, 3),
         lambda sc, km: sc.save("x.h5"),
         lambda sc, km: sc.load("x.h5"),
@@ -502,9 +525,6 @@ class _OddFilter(KmerFilter):
         lambda sc, km: km.count_queries(["ACG"], 3),
         lambda sc, km: km.count_queries_canonical(["ACG"], 3),
         lambda sc, km: km.get_canonical_kmer_group_counts(3),
-        lambda sc, km: km.get_kmer_count(3, kmer_filter_func=_OddFilter()),
-        lambda sc, km: (km.sort(), km.get_kmer_count(3, kmer_filter_func=_OddFilter())),
-        lambda sc, km: (km.sort(), km.get_kmer_group_counts(3, kmer_filter_func=_OddFilter())),
         lambda sc, km: (km.sort(), km.get_kmer_group_counts(3, mesh=object())),
     ],
 )

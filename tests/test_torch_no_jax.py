@@ -16,7 +16,8 @@ REPO = Path(__file__).resolve().parents[1]
     "module",
     ["genome_kmers_tpu_torch", "genome_kmers_tpu_torch.interop", "chip_smoke",
      "genome_kmers_tpu_torch.kernels.lane_sort", "genome_kmers_tpu_torch.ops.sort",
-     "genome_kmers_tpu_torch.kmers", "genome_kmers_tpu_torch.sequence_collection"],
+     "genome_kmers_tpu_torch.kmers", "genome_kmers_tpu_torch.sequence_collection",
+     "genome_kmers_tpu_torch.ops.filters", "genome_kmers_tpu_torch.ops.groups"],
 )
 def test_import_loads_no_jax(module):
     code = (

@@ -344,12 +344,18 @@ def test_from_strand_errors_match_jax(loaded, kwargs):
 
 @pytest.mark.parametrize("strand", ["forward", "reverse_complement", "both"])
 def test_init_time_filters_are_not_ported(strand):
-    """The JAX package applies them; the port names the item that will."""
+    """Once refused (ROADMAP.md A8), now ported: the port keeps the JAX
+    package's positions, and its error for a filter that is not callable."""
     jsc, tsc = _collections(_records("acgt", 5), strand)
-    assert len(gj.Kmers.from_strand(jsc, 5, 20, source_strand=strand,
-                                    kmer_filters=[GcContentFilter(0.4, 0.6, 5)])) > 0
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md A8"):
-        gt.Kmers.from_strand(tsc, 5, 20, source_strand=strand, kmer_filters=[object()])
+    want = gj.Kmers.from_strand(jsc, 5, 20, source_strand=strand,
+                                kmer_filters=[GcContentFilter(0.4, 0.6, 5)])
+    got = gt.Kmers.from_strand(tsc, 5, 20, source_strand=strand,
+                               kmer_filters=[gt.gen_kmer_gc_content_filter_func(0.4, 0.6, 5)])
+    assert 0 < len(want) and np.array_equal(got.kmer_sba_start_indices, want.kmer_sba_start_indices)
+    not_callable = [_outcome(lambda: m.Kmers.from_strand(sc, 5, 20, source_strand=strand,
+                                                         kmer_filters=[object()]))
+                    for m, sc in ((gt, tsc), (gj, jsc))]
+    assert not_callable[0] == not_callable[1] and not_callable[0][0] is TypeError
     assert len(gt.Kmers.from_strand(tsc, 5, 20, source_strand=strand, kmer_filters=[])) > 0
 
 
