@@ -7,6 +7,7 @@ Phases, each of which raises (exit code 1) on failure:
 1. Require CUDA; print the card's name and power limit (nvidia-smi), and
    the torch and CUDA versions.
 2. Build both kernels from ``genome_kmers_tpu_torch/csrc/``, one nvcc each,
+   and the native host library (``native/fasta_parser.cpp``, g++), all
    started together; print the build time and nvcc's register and
    shared-memory report.
 3. Hold each kernel against its plain PyTorch version on the card, bitwise:
@@ -29,14 +30,17 @@ Phases, each of which raises (exit code 1) on failure:
    records with copied segments -> SequenceCollection(device="cuda") ->
    Kmers(sc, 31, 31) -> sort() -> get_kmer_group_counts(31) ->
    get_kmer_count(31), with each phase's time and the peak device memory.
-   Checks that the pack kernel ran, that the sorted keys do not decrease
+   The FASTA must go through the native parser, multithreaded, once; the
+   native parse alone and the alphabet check alone are timed, and the NumPy
+   parse of the same file (its plain version) must give the same (sba,
+   seg_starts, names) byte for byte. Checks that the pack kernel ran, that the sorted keys do not decrease
    (ties by position), that the positions are the valid starts, that a
    sample of the sorted key words matches the genome, and that the
    histogram, the total and the index length agree.
 5. IUPAC main path (4-bit keys) at an SBA of exactly 2^27 bytes: the same
    genome with long N runs (2% of the bases) and sparse IUPAC codes,
-   through the same calls and checks; the sort must go through the
-   multi-lane sort kernel.
+   through the same calls and checks (the NumPy parse is not run again); the
+   sort must go through the multi-lane sort kernel.
 6. The general 2-bit sort (cap lane, multi-key chain) with Kmers(sc, 20, 48)
    at 2^24 bp under the same checks.
 7. The gather path at 2^22 bp, on 2-bit and on 4-bit keys: a re-sort of a
@@ -49,7 +53,11 @@ Phases, each of which raises (exit code 1) on failure:
    again from an assigned descending index (the gather path); at a few
    thousand bases also suffix mode (1, None) and (3, None), (5, 70) on
    2-bit keys, (3, 40) on 4-bit keys and the reverse-complement and both-strand
-   indexes of ``Kmers.from_strand``.
+   indexes of ``Kmers.from_strand``. At 2^20 bp, on the ACGT and the IUPAC
+   genome, Kmers(sc, 20, 31): canonical histograms at k = 31 and 20 on the
+   fresh and the sorted index against np.unique of min(kmer, revcomp(kmer))
+   byte strings, and count_queries / count_queries_canonical against a
+   dictionary of the k-mers' counts.
 9. Suffix main path at full width: the ACGT genome of phase 4 (its host
    arrays, no second parse, as a new collection with its own upload and
    pack), Kmers(sc) = (1, None) -> sort() (a folded 28-base first round,
@@ -100,9 +108,22 @@ Phases, each of which raises (exit code 1) on failure:
     IUPAC genome: from_strand(..., kmer_filters=[no-ambiguous, GC]) in both
     methods against sliding-window sums over the SBA, then sort() through
     the lane sort and its histogram against a NumPy oracle.
+14. Queries and canonical statistics, on collections of their own rebuilt
+    from phase 4's and phase 5's host arrays (own upload and pack):
+    get_canonical_kmer_group_counts(31) on the fresh Kmers(sc, 31, 31)
+    (dense route, cold and warm) and on the sorted index (gather route):
+    equal histograms, the total the count of full-length k-mers, the pack
+    kernel launched on the ACGT genome and the multi-lane sort on the IUPAC
+    genome (6 lanes: invalid, four words, row number). Then count_queries
+    and count_queries_canonical of 2^16 k-mers at seeded positions, 4096
+    random k-mers and, on the IUPAC genome, 1024 k-mers with an N, against
+    the sizes of their groups read by torch.searchsorted over the sorted
+    index's fused int64 keys; queries/s and the peak device memory.
 
-``--profile DIR`` adds a warm second run of phase 5's calls and of phase 9's
-under torch.profiler and writes the device time by kernel to DIR.
+``--profile DIR`` adds a warm second run of phase 5's calls and of phase 9's,
+and a canonical dense-route call and a count_queries call of phase 14 on
+each genome, under torch.profiler and writes the device time by kernel to
+DIR.
 
 The next-to-last line of output is a JSON object describing each kernel of
 the paths; the last is {"ok": true, "device": {...}}. No JAX is imported.
@@ -124,6 +145,7 @@ import numpy as np
 import torch
 
 import genome_kmers_tpu_torch as gkt
+from genome_kmers_tpu_torch import native
 from genome_kmers_tpu_torch.interop import from_numpy_state
 from genome_kmers_tpu_torch.kernels import build
 from genome_kmers_tpu_torch.kernels.lane_sort import SOURCE as LANE_SORT_SOURCE
@@ -133,9 +155,11 @@ from genome_kmers_tpu_torch.kernels.lane_sort import (
     pass_schedule,
     sort_lanes_cuda,
 )
+from genome_kmers_tpu_torch.io.fasta import _parse_fasta_dispatch, parse_fasta_bytes
 from genome_kmers_tpu_torch.kernels.pack2 import SOURCE as PACK2_SOURCE
 from genome_kmers_tpu_torch.kernels.pack2 import pack_rank2_words_cuda
-from genome_kmers_tpu_torch.ops.encoding import RANK2_TABLE, RANK_TABLE
+from genome_kmers_tpu_torch.native import parse_fasta_bytes_native
+from genome_kmers_tpu_torch.ops.encoding import COMPLEMENT_TABLE, RANK2_TABLE, RANK_TABLE
 from genome_kmers_tpu_torch.ops.filters import (
     FilterContext,
     GcContentFilter,
@@ -145,6 +169,7 @@ from genome_kmers_tpu_torch.ops.filters import (
     flag_plane,
 )
 from genome_kmers_tpu_torch.ops.keys import compute_valid_len, pack_rank2_words, widen_u32
+from genome_kmers_tpu_torch.ops.query import encode_query_words
 from genome_kmers_tpu_torch.ops.sort import sort_lanes
 
 DEVICE = "cuda"
@@ -159,6 +184,12 @@ REVCOMP_BP = 1 << 24
 BOTH_BP = 1 << 26
 FILTER_RAISE_BP = 1 << 22
 INIT_FILTER_BP = 1 << 24
+QUERY_SAMPLES = 1 << 16  # count queries at seeded genome positions
+QUERY_RANDOM = 4096  # random k-mers, most of them absent
+QUERY_WITH_N = 1024  # k-mers with an N, on the IUPAC genome
+# end to end of phases 4 and 5 when the FASTA went through the NumPy parser
+# (H100 80GB HBM3 at 700 W)
+EARLIER_END_TO_END = "2.58 s (ACGT), 2.50-2.83 s (IUPAC)"
 MASK_ROWS = 4096
 MAIN_RECORDS = 24
 MAIN_LANES = 6  # the 4-bit k=31 sort: invalid, four words, position
@@ -526,10 +557,11 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    sources = (PACK2_SOURCE, LANE_SORT_SOURCE)
+    builds = [lambda: build.build(PACK2_SOURCE), lambda: build.build(LANE_SORT_SOURCE),
+              native.build_library]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc each, side by side
-        libs = list(pool.map(build.build, sources))
+    with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc each and the g++, side by side
+        libs = list(pool.map(lambda fn: fn(), builds))
     log(f"built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.3f} s")
     for lib in libs:
         log_file = lib.with_suffix(".log")
@@ -765,11 +797,20 @@ def phase_main_path(rng, tmp: Path, iupac: bool, profile_dir):
 
     kernel = sort_lanes_cuda if iupac else pack_rank2_words_cuda
     reset_launches()
+    parse_fasta_bytes_native.runs = 0
     torch.cuda.reset_peak_memory_stats()
     sc, km, times = run_main_calls(fasta)
     launches = kernel.launches
     peak = torch.cuda.max_memory_allocated()
+    if parse_fasta_bytes_native.runs != 1 or parse_fasta_bytes_native.chunks < 2:
+        raise AssertionError(f"{label}: the native parser did not run, multithreaded, once "
+                             f"(runs {parse_fasta_bytes_native.runs}, "
+                             f"chunks {parse_fasta_bytes_native.chunks})")
     log(f"{label} times (s): " + ", ".join(f"{name} {t:.4f}" for name, t in times.items()))
+    log(f"{label}: end to end {times['end to end']:.4f} s (earlier, with the NumPy parse: "
+        f"{EARLIER_END_TO_END}); the FASTA went through the native parser in "
+        f"{parse_fasta_bytes_native.chunks} threads")
+    check_native_parse(fasta, sc, label, compare_plain=not iupac)
     log(f"{label}: SBA {len(sc.forward_sba)} bytes, {len(km)} k-mers, "
         f"sort {len(km) / times['sort'] / 1e6:.1f} M k-mers/s, "
         f"peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
@@ -785,6 +826,27 @@ def phase_main_path(rng, tmp: Path, iupac: bool, profile_dir):
     if iupac and profile_dir is not None:
         profile_main_calls(fasta, Path(profile_dir))  # warm: the allocator keeps the memory
     return launches, sc, counts
+
+
+def check_native_parse(fasta: Path, sc, label: str, compare_plain: bool) -> None:
+    """The native parse alone and the alphabet check alone, timed; with
+    ``compare_plain`` also the NumPy parse of the same file, which must give
+    the collection's (sba, seg_starts, names) byte for byte."""
+    data = fasta.read_bytes()
+    (sba, seg_starts, names), t_native = sync_time(lambda: _parse_fasta_dispatch(data))
+    _, t_alpha = sync_time(lambda: sc._validate_alphabet(sba))
+    text = (f"{label}: native parse alone {t_native:.4f} s = {len(sba) / t_native / 1e6:.1f} Mbp/s "
+            f"({len(data)} bytes of FASTA, {parse_fasta_bytes_native.chunks} threads), alphabet "
+            f"check alone {t_alpha:.4f} s")
+    if compare_plain:
+        (p_sba, p_starts, p_names), t_plain = sync_time(lambda: parse_fasta_bytes(data))
+        if not (np.array_equal(p_sba, sc.forward_sba) and np.array_equal(p_starts, sc._forward_sba_seg_starts)
+                and p_names == sc.forward_record_names and p_sba.dtype == sc.forward_sba.dtype
+                and p_starts.dtype == sc._forward_sba_seg_starts.dtype):
+            raise AssertionError(f"{label}: the native parse differs from the NumPy parse")
+        text += (f"; NumPy parse (the plain version) {t_plain:.4f} s = "
+                 f"{len(p_sba) / t_plain / 1e6:.1f} Mbp/s, byte for byte equal")
+    log(text)
 
 
 def profile_main_calls(fasta: Path, out_dir: Path) -> None:
@@ -887,12 +949,12 @@ def phase_gather_path(rng) -> None:
 
 def phase_oracle(rng) -> None:
     acgt = synthetic_records(rng, ORACLE_BP, 12, short_lens=(31, 40, 47))
-    iupac = synthetic_records(rng, ORACLE_BP, 12, short_lens=(31, 40, 47), iupac=True)
+    iupac_large = synthetic_records(rng, ORACLE_BP, 12, short_lens=(31, 40, 47), iupac=True)
     for descending in (False, True):
         oracle_check(acgt, 31, 31, descending)
         oracle_check(acgt, 20, 48, descending)
-        oracle_check(iupac, 31, 31, descending)
-        oracle_check(iupac, 12, 32, descending)
+        oracle_check(iupac_large, 31, 31, descending)
+        oracle_check(iupac_large, 12, 32, descending)
     # whole-record strings: suffix mode, beyond one window, the other strands
     acgt1 = synthetic_records(rng, SMALL_ORACLE_BP, 6, short_lens=(1, 5, 71))
     acgt5 = synthetic_records(rng, SMALL_ORACLE_BP, 6, short_lens=(5, 40, 71))
@@ -906,6 +968,75 @@ def phase_oracle(rng) -> None:
             oracle_check(records, mn, mx, descending, strands="reverse_complement")
             oracle_check(records, mn, mx, descending, strands="both")
             oracle_check(records, mn, mx, descending, strands="both", track=True)
+    # queries on a random stream of their own: the later phases keep their genomes
+    query_rng = np.random.default_rng(SEED + 8)
+    canonical_oracle(acgt, "canonical oracle (20, 31), ACGT", query_rng)
+    canonical_oracle(iupac_large, "canonical oracle (20, 31), IUPAC", query_rng)
+
+
+def revcomp_rows(win: np.ndarray) -> np.ndarray:
+    """The reverse complement of each row of a (n, k) byte matrix."""
+    return np.ascontiguousarray(COMPLEMENT_TABLE[win[:, ::-1]])
+
+
+def canonical_strings(win: np.ndarray, k: int) -> np.ndarray:
+    """min(kmer, revcomp(kmer)) of each row, as byte strings."""
+    fwd, rc = as_strings(win, k), as_strings(revcomp_rows(win[:, :k]), k)
+    return np.where(rc < fwd, rc, fwd)
+
+
+def as_queries(win: np.ndarray) -> list:
+    return [row.tobytes().decode() for row in win]
+
+
+def canonical_oracle(records, label: str, rng) -> None:
+    """``Kmers(sc, 20, 31)``: canonical histograms at k = 31 and 20 on the
+    fresh index (dense route) and the sorted one (gather route) against
+    np.unique of min(kmer, revcomp(kmer)) byte strings, then count_queries
+    and count_queries_canonical against a dictionary of the forward counts,
+    for sampled, random and (on an IUPAC genome) N-holding queries."""
+    sc = collection_of(records)
+    km = gkt.Kmers(sc, 20, 31)
+    starts = valid_starts(records, 20)
+    left = bases_left(sc, starts)
+    win = kmer_windows(sc, starts, 31)
+    for route in ("dense", "gather"):
+        if route == "gather":
+            km.sort()
+        for k in (31, 20):
+            full = win[left >= k, :k]
+            sizes = np.unique(canonical_strings(full, k), return_counts=True)[1]
+            expected = np.bincount(np.minimum(sizes, 1000), minlength=1001)
+            counts, total = km.get_canonical_kmer_group_counts(k, max_counts_bin=1000)
+            if not (np.array_equal(counts, expected) and total == len(full)):
+                raise AssertionError(f"{label}, {route} route, k={k}: canonical histogram differs")
+    iupac = not bool(np.isin(sc.forward_sba, np.frombuffer(b"ACGT$", dtype=np.uint8)).all())
+    n_queries = 0
+    for k in (31, 20):
+        full = win[left >= k, :k]
+        keys, counts = np.unique(as_strings(full, k), return_counts=True)
+        qwin = [full[rng.integers(0, len(full), size=2000)], ACGT[rng.integers(0, 4, size=(200, k))]]
+        if iupac:
+            with_n = full[rng.integers(0, len(full), size=100)].copy()
+            with_n[np.arange(100), rng.integers(0, k, size=100)] = ord("N")
+            qwin.append(with_n)
+        qwin = np.concatenate(qwin)
+
+        def lookup(strings):
+            at = np.minimum(np.searchsorted(keys, strings), len(keys) - 1)
+            return np.where(keys[at] == strings, counts[at], 0)
+
+        fwd = lookup(as_strings(qwin, k))
+        rc_strings = as_strings(revcomp_rows(qwin), k)
+        canon = fwd + np.where(rc_strings == as_strings(qwin, k), 0, lookup(rc_strings))
+        queries = as_queries(qwin)
+        if not np.array_equal(km.count_queries(queries, k), fwd):
+            raise AssertionError(f"{label}, k={k}: count_queries differs from the oracle")
+        if not np.array_equal(km.count_queries_canonical(queries, k), canon):
+            raise AssertionError(f"{label}, k={k}: count_queries_canonical differs from the oracle")
+        n_queries += len(queries)
+    log(f"{label} at {len(sc.forward_sba)} bytes: canonical histograms at k = 31 and 20 on the "
+        f"dense and the gather route, and {n_queries} queries (plain and canonical), agree")
 
 
 def short_tail_counts(sc, k: int, max_counts_bin: int = 1000000) -> np.ndarray:
@@ -1128,21 +1259,24 @@ def on_plane_route(km, fn):
     return out
 
 
-def device_kernels(fn):
-    """(kernels launched, their device ms) by ``fn``, from torch.profiler's
-    device events; copies and fills are not counted as kernels."""
+def device_kernels(fn, reps: int = 3):
+    """(kernels launched, their device ms) by one call of ``fn``: the mean
+    over ``reps`` calls under torch.profiler (one call of a single kernel
+    was once seen with no device event); copies and fills are not counted
+    as kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.key.startswith(("Memcpy", "Memset"))]
     if not kernels:
         raise AssertionError("torch.profiler saw no kernel of a call that launches some")
     device_us = sum(getattr(e, "device_time_total", None) or e.cuda_time_total for e in kernels)
-    return sum(e.count for e in kernels), device_us / 1e3
+    return sum(e.count for e in kernels) / reps, device_us / 1e3 / reps
 
 
 def expect_value_error(fn, message: str, label: str) -> None:
@@ -1194,8 +1328,8 @@ def filters_on_sorted_index(km, sc, label: str, rng, masks: bool) -> None:
         log(f"{label}, {name}: survivors {t_l} of {len(km)}, histogram equal on both routes; "
             f"group counts lanes {ms_l:.3f} ms, plane {ms_p:.3f} ms"
             + ("" if build_ms is None else f" (plane built in {build_ms:.3f} ms)")
-            + f"; lanes flags {flags_fn.__name__} {flags_ms:.3f} ms in {n_flags} kernels "
-            f"({dev_flags:.3f} device ms); the filtered count {n_query} kernels "
+            + f"; lanes flags {flags_fn.__name__} {flags_ms:.3f} ms in {n_flags:g} kernels "
+            f"({dev_flags:.3f} device ms); the filtered count {n_query:g} kernels "
             f"({dev_query:.3f} device ms)")
         if masks:
             rows = torch.from_numpy(rng.integers(0, len(km), size=MASK_ROWS)).to(km._pos_dev.device)
@@ -1441,6 +1575,161 @@ def phase_filters(host_acgt, host_iupac, counts31) -> dict:
     }
 
 
+def fused_keys(lanes: dict):
+    """The sorted (31, 31) index's words as int64 keys, independent of the
+    query code: one 62-bit key a row on 2-bit lanes; on 4-bit lanes (124
+    bits) a (63-bit, 61-bit) pair, ranked to one key below."""
+    w = [unsigned(x) for x in lanes["words"]]
+    if lanes["two_bit"]:
+        return ((w[0] << 30) | (w[1] >> 2),)
+    n15 = w[1] & 0xF
+    hi = (((w[0] << 28) | (w[1] >> 4)) << 3) | (n15 >> 1)
+    lo = ((n15 & 1) << 60) | (w[2] << 28) | (w[3] >> 4)
+    return hi, lo
+
+
+def fused_query_keys(win: np.ndarray, two_bit: bool, dev):
+    """``fused_keys`` of query strings of 31 bases, from their bytes."""
+    if two_bit:
+        r = RANK2_TABLE.astype(np.int64)[win]
+        key = np.zeros(len(win), dtype=np.int64)
+        for j in range(31):
+            key = (key << 2) | r[:, j]
+        return (torch.from_numpy(key).to(dev),)
+    r = RANK_TABLE.astype(np.int64)[win]
+    a = np.zeros(len(win), dtype=np.int64)
+    b = np.zeros(len(win), dtype=np.int64)
+    for j in range(15):
+        a = (a << 4) | r[:, j]
+        b = (b << 4) | r[:, 16 + j]
+    hi = (a << 3) | (r[:, 15] >> 1)
+    lo = ((r[:, 15] & 1) << 60) | b
+    return torch.from_numpy(hi).to(dev), torch.from_numpy(lo).to(dev)
+
+
+def searchsorted_counts(keys: tuple, qkeys: tuple) -> np.ndarray:
+    """Occurrences of each query key among the sorted row keys, by
+    torch.searchsorted. A (hi, lo) pair is first ranked into one key: the
+    rank of hi among the distinct hi values times their count plus the rank
+    of lo among the distinct lo values, an order-preserving map."""
+    if len(keys) == 2:
+        (hi, lo), (qhi, qlo) = keys, qkeys
+        uh, ul = torch.unique(hi), torch.unique(lo)
+        rh, rl = torch.searchsorted(uh, qhi), torch.searchsorted(ul, qlo)
+        present = ((uh[torch.clamp_max(rh, len(uh) - 1)] == qhi)
+                   & (ul[torch.clamp_max(rl, len(ul) - 1)] == qlo))
+        keys = (torch.searchsorted(uh, hi) * len(ul) + torch.searchsorted(ul, lo),)
+        qkeys = (torch.where(present, rh * len(ul) + rl, -1),)
+    (key,), (qkey,) = keys, qkeys
+    n = torch.searchsorted(key, qkey, right=True) - torch.searchsorted(key, qkey)
+    return n.cpu().numpy()
+
+
+def queries_on(km, sc, two_bit: bool, label: str, rng, profile_dir) -> None:
+    """count_queries and count_queries_canonical on the sorted (31, 31)
+    index for QUERY_SAMPLES k-mers at seeded genome positions, QUERY_RANDOM
+    random k-mers and on an IUPAC genome QUERY_WITH_N k-mers with an N,
+    held against the sizes of their groups read by torch.searchsorted over
+    the index's fused keys."""
+    starts = valid_starts(records_of(sc), 31)
+    sampled = kmer_windows(sc, starts[rng.integers(0, len(starts), size=QUERY_SAMPLES)], 31)
+    parts = [sampled, ACGT[rng.integers(0, 4, size=(QUERY_RANDOM, 31))]]
+    if not two_bit:
+        with_n = sampled[:QUERY_WITH_N].copy()
+        with_n[np.arange(QUERY_WITH_N), rng.integers(0, 31, size=QUERY_WITH_N)] = ord("N")
+        parts.append(with_n)
+    qwin = np.concatenate(parts)
+    queries = as_queries(qwin)
+    dev = km._pos_dev.device
+    keys = fused_keys(km._lanes_cache)
+    expected = searchsorted_counts(keys, fused_query_keys(qwin, two_bit, dev))
+    rc_win = revcomp_rows(qwin)
+    palindrome = np.all(rc_win == qwin, axis=1)
+    expected_rc = searchsorted_counts(keys, fused_query_keys(rc_win, two_bit, dev))
+    expected_canon = expected + np.where(palindrome, 0, expected_rc)
+    del keys
+    got, t_cold = sync_time(lambda: km.count_queries(queries, 31))
+    _, t_warm = sync_time(lambda: km.count_queries(queries, 31))
+    canon, t_canon = sync_time(lambda: km.count_queries_canonical(queries, 31))
+    _, t_encode = sync_time(lambda: encode_query_words(queries, 31))
+    if not np.array_equal(got, expected):
+        bad = np.flatnonzero(got != expected)
+        raise AssertionError(f"{label}: count_queries differs from torch.searchsorted on {len(bad)} "
+                             f"queries, e.g. {queries[bad[0]]}: {got[bad[0]]} vs {expected[bad[0]]}")
+    if not np.array_equal(canon, expected_canon):
+        raise AssertionError(f"{label}: count_queries_canonical differs from the searchsorted sums")
+    nq = len(queries)
+    log(f"{label}: count_queries of {nq} queries ({len(sampled)} sampled, {QUERY_RANDOM} random"
+        + ("" if two_bit else f", {QUERY_WITH_N} with an N") + f"; {int((got > 0).sum())} present, "
+        f"largest count {int(got.max())}) {t_cold:.4f} s cold (the 4-bit pack built on first use), "
+        f"{t_warm:.4f} s warm = {nq / t_warm / 1e6:.3f} M queries/s; count_queries_canonical "
+        f"{t_canon:.4f} s ({int(palindrome.sum())} palindromes); both equal torch.searchsorted "
+        f"over the fused keys; the host encoding of the queries alone {t_encode:.4f} s")
+    if profile_dir is not None:
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            km.count_queries(queries, 31)
+            torch.cuda.synchronize()
+        write_profile(prof, Path(profile_dir) / f"queries_{'acgt' if two_bit else 'iupac'}.txt")
+
+
+def phase_queries_canonical(host_acgt, host_iupac, profile_dir) -> dict:
+    """Phase 14: on collections of their own rebuilt from the main paths'
+    host arrays (own upload and pack), canonical statistics at k = 31 on the
+    fresh (31, 31) index (dense route) and on the sorted one (gather route),
+    then the queries. Returns the launches of the path's kernel by path."""
+    rng = np.random.default_rng(SEED + 14)
+    launches = {}
+    for host_sc in (host_acgt, host_iupac):
+        two_bit = host_sc.device_cache("forward").is_acgt_only
+        label = f"queries and canonical statistics, {'ACGT' if two_bit else 'IUPAC'} 2^27 (31, 31)"
+        kernel = pack_rank2_words_cuda if two_bit else sort_lanes_cuda
+        sba, seg_starts = index_sba(host_sc)
+        held_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        sc, km = from_numpy_state(sba, seg_starts, host_sc.forward_record_names, 31, 31, device=DEVICE)
+        (dense, total), t_cold = sync_time(lambda: km.get_canonical_kmer_group_counts(31))
+        dense_launches = kernel.launches
+        (dense2, _), t_warm = sync_time(lambda: km.get_canonical_kmer_group_counts(31))
+        if not np.array_equal(dense, dense2) or total != len(km):
+            raise AssertionError(f"{label}: the dense route's total {total} is not the "
+                                 f"{len(km)} full-length k-mers, or two calls differ")
+        _, t_sort = sync_time(km.sort)
+        before = kernel.launches
+        (gather, total_g), t_gather = sync_time(lambda: km.get_canonical_kmer_group_counts(31))
+        gather_launches = kernel.launches - before
+        if not (np.array_equal(dense, gather) and total_g == total):
+            raise AssertionError(f"{label}: the dense and the gather route differ")
+        if dense_launches < 1 or (not two_bit and gather_launches < 1):
+            raise AssertionError(f"{label}: {kernel.__name__} did not launch on the canonical path")
+        sizes = np.arange(len(dense), dtype=np.int64)
+        log(f"{label}: get_canonical_kmer_group_counts(31) dense route {t_cold:.4f} s cold (upload "
+            f"and pack included), {t_warm:.4f} s warm = {len(km) / t_warm / 1e6:.1f} M k-mers/s; "
+            f"sort {t_sort:.4f} s; gather route {t_gather:.4f} s; equal histograms, {total} k-mers "
+            f"in {int(dense.sum())} canonical groups ({int(dense[2:].sum())} of size > 1, "
+            f"sum(s * counts[s]) {int((sizes * dense).sum())}); {kernel.__name__} launches: dense "
+            f"{dense_launches}, gather {gather_launches}")
+        queries_on(km, sc, two_bit, label, rng, profile_dir)
+        launches[label] = kernel.launches
+        log_peak(label, held_before)
+        if profile_dir is not None:
+            from torch.profiler import ProfilerActivity, profile
+
+            fresh = gkt.Kmers(sc, 31, 31)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fresh.get_canonical_kmer_group_counts(31)
+                torch.cuda.synchronize()
+            write_profile(prof, Path(profile_dir) / f"canonical_{'acgt' if two_bit else 'iupac'}.txt")
+            del fresh
+        del sc, km
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -1463,6 +1752,7 @@ def main() -> None:
     suffix4_launches = phase_suffix_main(sc_iupac, counts31_iupac, rng, None)
     beyond_launches = phase_beyond_window(sc_acgt, sc_iupac, rng)
     filter_launches = phase_filters(sc_acgt, sc_iupac, counts31)
+    query_launches = phase_queries_canonical(sc_acgt, sc_iupac, args.profile)
     del sc_acgt, sc_iupac
     torch.cuda.empty_cache()
     window_launches = phase_window_rounds(rng)
@@ -1481,7 +1771,8 @@ def main() -> None:
                                  "suffix main path, ACGT genome":
                                      suffix_launches["pack_rank2_words_cuda"],
                                  **{f"strands at {bp} bp": n for bp, n in strand_launches.items()},
-                                 **filter_launches["pack_rank2_words_cuda"]},
+                                 **filter_launches["pack_rank2_words_cuda"],
+                                 **{k: v for k, v in query_launches.items() if "ACGT" in k}},
             **pack_timing,
         },
         {
@@ -1495,7 +1786,8 @@ def main() -> None:
                                      suffix4_launches["sort_lanes_cuda"],
                                  **beyond_launches,
                                  "unbounded window rounds (20, None)": window_launches,
-                                 **filter_launches["sort_lanes_cuda"]},
+                                 **filter_launches["sort_lanes_cuda"],
+                                 **{k: v for k, v in query_launches.items() if "IUPAC" in k}},
             **sort_timing,
         },
     ]}))

@@ -1,11 +1,14 @@
-"""Vectorized FASTA ingestion (NumPy only).
+"""FASTA ingestion.
 
-Counterpart of ``genome_kmers_tpu/io/fasta.py`` without its C++ sidecar:
-one whole-buffer NumPy pipeline (boolean-mask compress, table-lookup
-uppercase, one ``np.insert`` for the '$' separators). Output and error
-strings are identical: one uint8 ASCII array with records joined by '$',
-uint32 segment start indices, and the record-name list (after '>' up to
-whitespace).
+Counterpart of ``genome_kmers_tpu/io/fasta.py``. ``parse_fasta_file`` parses
+with the native C++ library (``native/``, multithreaded from 8 MB on);
+``parse_fasta_bytes``, one whole-buffer NumPy pipeline (boolean-mask
+compress, table-lookup uppercase, one ``np.insert`` for the '$'
+separators), is its plain version: the tests hold the two byte for byte,
+and it parses the one buffer the native parse declines, one with more
+records than ``max(1024, len // 8)``. Output and error strings are the JAX
+package's: one uint8 ASCII array with records joined by '$', uint32 segment
+start indices, and the record-name list (after '>' up to whitespace).
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
+
+from ..native import parse_fasta_bytes_native
 
 _UPPER_TABLE = np.arange(256, dtype=np.uint8)
 for _c in range(ord("a"), ord("z") + 1):
@@ -143,13 +148,28 @@ def iter_fasta_records(fasta_file_path):
 def parse_fasta_file(fasta_file_path) -> tuple[np.ndarray, np.ndarray, list[str]]:
     data = Path(fasta_file_path).read_bytes()
     try:
-        return parse_fasta_bytes(data)
+        return _parse_fasta_dispatch(data)
     except ValueError as e:
         if "empty sequence" in str(e):
             raise ValueError(
                 f"At least one empty sequence was found in the input file ({fasta_file_path})"
             ) from None
         raise
+
+
+def _parse_fasta_dispatch(data: bytes) -> tuple[np.ndarray, np.ndarray, list[str]]:
+    """The native parse, or the NumPy one where the native parse declines
+    the buffer (too many records); byte-identical outputs."""
+    result = parse_fasta_bytes_native(data)
+    if result is None:
+        return parse_fasta_bytes(data)
+    sba, seg_starts, header_spans = result
+    if sba.size == 0:
+        raise AssertionError("After parsing the fasta file, we expect sba to be full")
+    record_names = [
+        _get_fasta_record_name(data[int(s) : int(e)].decode()) for s, e in header_spans
+    ]
+    return sba, seg_starts, record_names
 
 
 def _get_fasta_record_name(line: str) -> str:

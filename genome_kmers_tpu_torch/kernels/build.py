@@ -1,12 +1,13 @@
-"""Builds the package's CUDA kernels at first use and loads them with ctypes.
+"""Builds the package's shared libraries at first use.
 
-Each kernel source under ``genome_kmers_tpu_torch/csrc/`` exports a plain C
-function, so it compiles with ``nvcc`` alone, without PyTorch's headers, in
-seconds. The shared library goes to ``build/genome_kmers_tpu_torch/`` at
-the root of the checkout, named with a hash of its source, so an edited
-source builds anew and an unchanged one is reused. ``nvcc``'s
-``-Xptxas -v`` report (registers, shared memory, spills) is kept beside the
-library as ``<name>.log``.
+Each CUDA kernel source under ``genome_kmers_tpu_torch/csrc/`` exports a
+plain C function, so it compiles with ``nvcc`` alone, without PyTorch's
+headers, in seconds; the host library of ``native/`` compiles with ``g++``.
+Both are loaded with ctypes. A library goes to ``build/genome_kmers_tpu_torch/``
+at the root of the checkout, named with a hash of its source and of its
+compile command, so an edited source builds anew and an unchanged one is
+reused. The compiler's report (for ``nvcc``, ``-Xptxas -v``: registers,
+shared memory, spills) is kept beside the library as ``<name>.log``.
 """
 
 from __future__ import annotations
@@ -37,31 +38,49 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives."""
-    digest = hashlib.sha256((CSRC / source).read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
+def hashed_library_path(source: Path, key: bytes = b"") -> Path:
+    """Where the library built from ``source`` lives: its name carries a hash
+    of the source and of ``key`` (what else decides the binary)."""
+    digest = hashlib.sha256(source.read_bytes() + key).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
 
 
-def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` unless its library already exists; return
-    the library's path. Raises RuntimeError with nvcc's output on failure."""
-    lib = library_path(source)
+def compile_library(source: Path, command: list, lib: Path) -> Path:
+    """Run ``command + ["-o", <temporary file>, source]`` unless ``lib``
+    already exists, then move the result to ``lib`` in one step, so that a
+    concurrent loader (another process building the same library) sees all
+    of it or nothing. Raises RuntimeError with the compiler's output on
+    failure."""
     if lib.exists():
         return lib
-    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+    cmd = [*command, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc failed to build {source} (exit {proc.returncode}):\n"
+            f"{Path(command[0]).name} failed to build {source.name} (exit {proc.returncode}):\n"
             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
         )
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    os.replace(tmp, lib)
     return lib
+
+
+def library_path(source: str) -> Path:
+    """Where the library built from ``csrc/<source>`` lives."""
+    return hashed_library_path(CSRC / source)
+
+
+def build(source: str) -> Path:
+    """Compile ``csrc/<source>`` with nvcc unless its library already
+    exists; return the library's path. Raises RuntimeError with nvcc's
+    output on failure."""
+    lib = library_path(source)
+    if lib.exists():
+        return lib
+    return compile_library(CSRC / source, [_nvcc(), *NVCC_FLAGS], lib)
 
 
 def load(source: str) -> ctypes.CDLL:

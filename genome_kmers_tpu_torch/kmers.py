@@ -23,15 +23,22 @@ strand, the reverse complement or both (``Kmers.from_strand``):
   routes in its order: the sorted lanes (lanes flags), then a flag plane in
   genome order or window gathers, then a compaction to the survivors for
   the yields and for a filter that is a plain callable (a host loop); and
-  init-time ``kmer_filters`` of ``Kmers.from_strand``.
+  init-time ``kmer_filters`` of ``Kmers.from_strand``;
+* ``count_queries`` / ``count_queries_canonical`` (ops/query.py: a bound
+  search over the sorted index on the 4-bit pack) and
+  ``get_canonical_kmer_group_counts`` (ops/canonical.py), gather-free over
+  the fresh index, else over gathered keys;
+* the reference's host methods: equality, ``get_kmer_str_no_checks``,
+  ``get_is_less_than_func``, ``generate_get_kmer_info_func``.
 
 The module-level functions (``compare_sba_kmers_lexicographically``,
 ``kmer_info_by_group_generator``, ``get_kmer_group_size_hist``, ...) are the
 reference's host walk API, NumPy only.
 
 Construction checks and their messages are the JAX package's. The index
-inherits its collection's device. Everything else raises
-NotImplementedError naming the ROADMAP.md item that will port it.
+inherits its collection's device. What the port does not have yet (``mesh=``,
+persistence and export, ``LargeKmers``) raises NotImplementedError naming
+the ROADMAP.md item that will port it.
 """
 
 from __future__ import annotations
@@ -54,6 +61,13 @@ from .ops.filters import (  # noqa: F401  (re-exported reference API)
     kmer_filter_keep_all,
     kmer_has_required_len,
 )
+from .native import decode_rows_native, decode_rows_var_native
+from .ops.canonical import (
+    canonical_sizes_digest,
+    canonical_sizes_digest4,
+    canonical_sizes_digest_dense,
+)
+from .ops.encoding import iupac_revcomp_strs
 from .ops.groups import (
     filtered_group_total,
     filtered_sizes_digest,
@@ -72,6 +86,8 @@ from .ops.keys import (
     cap_lengths,
     compute_valid_len,
 )
+from .ops.query import count_queries as _count_queries
+from .ops.query import encode_query_words
 from .ops.sort import (
     WINDOW2_BASES,
     WINDOW_BASES,
@@ -466,6 +482,8 @@ class Kmers:
         self.kmer_source_strand = source_strand
         self.track_strands_separately = track_strands_separately
 
+        self._is_initialized = False
+        self._is_set = False
         self._is_sorted = False
         # The index lives as a host uint32 array or as a device int64
         # tensor; either is materialized lazily from the other or from the
@@ -541,6 +559,7 @@ class Kmers:
             self._initialize_single_pass(kmer_filters)
         else:
             raise ValueError(f"method '{method}' not recognized")
+        self._is_initialized = True
 
     def _initialize_single_pass(self, kmer_filters=()):
         """Every k-mer start position in [seg_start, seg_end - min_kmer_len + 1]
@@ -778,6 +797,10 @@ class Kmers:
         if self._init_geometry is not None:
             return self._init_geometry[2]
         raise TypeError("Kmers index is not initialized")
+
+    def __getitem__(self):
+        """Stub, as in the reference."""
+        pass
 
     # ------------------------------------------------------------------ #
     # checks
@@ -1181,6 +1204,71 @@ class Kmers:
 
         return get_record_info_from_sba_index
 
+    def generate_get_kmer_info_func(self, one_based_seq_index: bool) -> Callable:
+        """The reference's full-info closure: (kmer_num, kmer_sba_start_indices,
+        sba, kmer_len, group_size_yielded, group_size_total) -> (kmer_num,
+        strand, record name, seq_start_idx, kmer_len, group_size_yielded,
+        group_size_total)."""
+        get_record_info_from_sba_index = self._record_info_func(one_based_seq_index)
+
+        def get_kmer_info(
+            kmer_num, kmer_sba_start_indices, sba, kmer_len, group_size_yielded, group_size_total
+        ):
+            if kmer_num < 0:
+                raise ValueError(f"kmer_num ({kmer_num}) cannot be less than zero")
+            if kmer_num >= len(kmer_sba_start_indices):
+                raise ValueError(
+                    f"kmer_num ({kmer_num}) is out of bounds (num kmers = {len(kmer_sba_start_indices)})"
+                )
+            sba_idx = int(kmer_sba_start_indices[kmer_num])
+            _, _, e, seq_strand, seq_chrom, seq_start_idx = get_record_info_from_sba_index(sba_idx)
+            if kmer_len is None:
+                kmer_len = e - sba_idx + 1
+            elif sba_idx + kmer_len - 1 > e:
+                raise ValueError(
+                    f"kmer_len ({kmer_len}) for kmer_num ({kmer_num}) extends beyond the end of the segment"
+                )
+            return (kmer_num, seq_strand, seq_chrom, seq_start_idx, kmer_len,
+                    group_size_yielded, group_size_total)
+
+        return get_kmer_info
+
+    # ------------------------------------------------------------------ #
+    # equality
+    # ------------------------------------------------------------------ #
+
+    def __ne__(self, other):
+        return not self.__eq__(other)
+
+    def __eq__(self, other):
+        """Lengths, strand fields, state flags, the index and the
+        collection are equal (the device is not compared)."""
+        if self.min_kmer_len != other.min_kmer_len:
+            return False
+        if (self.max_kmer_len is None) != (other.max_kmer_len is None):
+            return False
+        if self.max_kmer_len is not None and self.max_kmer_len != other.max_kmer_len:
+            return False
+        if self.kmer_source_strand != other.kmer_source_strand:
+            return False
+        if self.track_strands_separately != other.track_strands_separately:
+            return False
+        if self._is_initialized != other._is_initialized:
+            return False
+        if self._is_set != other._is_set:
+            return False
+        if self._is_sorted != other._is_sorted:
+            return False
+        if (self.kmer_sba_start_indices is None) != (other.kmer_sba_start_indices is None):
+            return False
+        if self.kmer_sba_start_indices is not None and not np.array_equal(
+            self.kmer_sba_start_indices, other.kmer_sba_start_indices
+        ):
+            return False
+        if self.seq_coll != other.seq_coll:
+            return False
+        return True
+
     def get_kmers_arrays(
         self,
         kmer_len: Union[int, None],
@@ -1321,10 +1409,21 @@ class Kmers:
             seg_starts[np.minimum(seg_ids + 1, len(seg_starts) - 1)] - 2,
         )
 
+    def get_kmer_str_no_checks(self, kmer_num: int, kmer_strand: str, kmer_len: int) -> str:
+        if kmer_strand == "+":
+            sba = self._host_sba()
+            sba_start_idx = self.kmer_sba_start_indices[kmer_num]
+        elif kmer_strand == "-":
+            raise NotImplementedError("Only implemented for kmer_strand='+'")
+        else:
+            raise ValueError(f"kmer_strand ({kmer_strand}) not recognized")
+        return bytearray(sba[sba_start_idx : sba_start_idx + kmer_len]).decode("utf-8")
+
     def get_kmer_strs(self, kmer_nums, kmer_len: Union[int, None]) -> list:
-        """Decode many k-mers at once. A k-mer running past its segment end
-        raises like ``get_kmer_str``; ``kmer_len=None`` decodes each k-mer
-        at its natural length, min(max_kmer_len, bases to segment end)."""
+        """Decode many k-mers at once, by the native row decoders (one
+        contiguous copy a row). A k-mer running past its segment end raises
+        like ``get_kmer_str``; ``kmer_len=None`` decodes each k-mer at its
+        natural length, min(max_kmer_len, bases to segment end)."""
         if kmer_len is not None and kmer_len < 1:
             raise ValueError(f"kmer_len ({kmer_len}) must be a positive int")
         self._check_forward_only()
@@ -1340,19 +1439,15 @@ class Kmers:
             lens = seg_e - pos + 1
             if self.max_kmer_len is not None:
                 lens = np.minimum(lens, self.max_kmer_len)
-            offsets = np.zeros(len(pos) + 1, dtype=np.int64)
-            np.cumsum(lens, out=offsets[1:])
-            idx = np.repeat(pos - offsets[:-1], lens) + np.arange(offsets[-1], dtype=np.int64)
-            b = sba[idx].tobytes()
+            data, offsets = decode_rows_var_native(sba, pos, lens)
+            b = data.tobytes()
             return [b[offsets[r] : offsets[r + 1]].decode("ascii") for r in range(len(pos))]
         if (pos + kmer_len - 1 > seg_e).any():
             bad = int(nums[np.flatnonzero(pos + kmer_len - 1 > seg_e)[0]])
             raise ValueError(
                 f"kmer_len ({kmer_len}) for kmer_num ({bad}) extends beyond the end of the segment"
             )
-        block = np.empty((len(pos), kmer_len), dtype=np.uint8)
-        for j in range(kmer_len):
-            block[:, j] = sba[pos + j]
+        block = decode_rows_native(sba, pos, kmer_len)
         return block.view(f"S{kmer_len}").ravel().astype(f"U{kmer_len}").tolist()
 
     def get_kmer_str(self, kmer_num: int, kmer_len: Union[int, None] = None) -> str:
@@ -1460,6 +1555,127 @@ class Kmers:
         self._init_geometry = None  # no longer describes the (sorted) order
         self._is_sorted = True
 
+    def get_is_less_than_func(self, validate_kmers: bool = True, break_ties: bool = False) -> Callable:
+        """The reference's sort comparator closure over SBA start indices, on
+        the host; the sort never calls it."""
+        self._check_forward_only()
+        sba = self._host_sba()
+        min_kmer_len = self.min_kmer_len
+        max_kmer_len = self.max_kmer_len
+
+        def is_less_than(kmer_sba_start_idx_a: int, kmer_sba_start_idx_b: int) -> bool:
+            comparison, last_kmer_index_compared = compare_sba_kmers_lexicographically(
+                sba, sba, kmer_sba_start_idx_a, kmer_sba_start_idx_b, max_kmer_len=max_kmer_len
+            )
+            if comparison < 0:
+                a_lt_b = True
+            elif comparison > 0:
+                a_lt_b = False
+            else:
+                a_lt_b = kmer_sba_start_idx_a < kmer_sba_start_idx_b if break_ties else False
+            if validate_kmers:
+                num_bases_to_check = min_kmer_len - (last_kmer_index_compared + 1)
+                kmer_a_is_valid = kmer_has_required_len(
+                    sba, kmer_sba_start_idx_a + last_kmer_index_compared + 1, num_bases_to_check
+                )
+                kmer_b_is_valid = kmer_has_required_len(
+                    sba, kmer_sba_start_idx_b + last_kmer_index_compared + 1, num_bases_to_check
+                )
+                if not kmer_a_is_valid or not kmer_b_is_valid:
+                    raise AssertionError(
+                        f"kmers compared were less than min_kmer_len ({min_kmer_len}).  Was kmer_sba_start_indices initialized correctly?"
+                    )
+            return a_lt_b
+
+        return is_less_than
+
+    # ------------------------------------------------------------------ #
+    # queries and canonical statistics
+    # ------------------------------------------------------------------ #
+
+    def count_queries(self, queries: list, kmer_len: Union[int, None] = None, mesh=None) -> np.ndarray:
+        """Occurrences of each query k-mer string in the sorted index (uint32
+        array), by a bound search on the 4-bit pack (ops/query.py). Query
+        identity is ``get_kmers(kmer_len=L)`` group identity, L defaulting to
+        the first query's length, so a query shorter than max_kmer_len
+        counts prefix occurrences."""
+        if not self._is_sorted:
+            raise ValueError("count_queries requires a sorted index. Run sort() first.")
+        self._check_forward_only()
+        if not queries:
+            return np.zeros(0, dtype=np.uint32)
+        if kmer_len is None:
+            kmer_len = len(queries[0])
+        if kmer_len < 1:
+            raise ValueError(f"kmer_len ({kmer_len}) must be > 0")
+        self._check_mesh(mesh)
+        dc = self._dc()
+        positions = self._device_positions()
+        cap = cap_lengths(compute_valid_len(positions, dc.seg_starts, dc.seg_ends), kmer_len)
+        q_words = encode_query_words(queries, kmer_len)
+        return _count_queries(dc.packed, positions, cap, q_words, kmer_len)
+
+    def count_queries_canonical(
+        self, queries: list, kmer_len: Union[int, None] = None, mesh=None
+    ) -> np.ndarray:
+        """Strand-collapsed occurrences: each query counts its own hits plus
+        its reverse complement's (once for a palindrome). Uppercase IUPAC
+        queries on a single-strand sorted index."""
+        if self.kmer_source_strand == "both":
+            raise NotImplementedError(
+                "canonical queries are defined on a single-strand index; "
+                "count_queries on a both-strand index already counts both "
+                "strands"
+            )
+        if not queries:
+            return np.zeros(0, dtype=np.uint32)
+        rcs = iupac_revcomp_strs(queries)
+        fwd = self.count_queries(queries, kmer_len, mesh=mesh)
+        rc = self.count_queries(rcs, kmer_len, mesh=mesh)
+        is_palindrome = np.array([q == r for q, r in zip(queries, rcs)])
+        return fwd + np.where(is_palindrome, 0, rc).astype(np.uint32)
+
+    def get_canonical_kmer_group_counts(
+        self, kmer_len: int, max_counts_bin: int = 1000000, mesh=None
+    ) -> tuple[np.ndarray, int]:
+        """Group-size histogram and total over canonical k-mers, each
+        identified with min(kmer, revcomp(kmer)) (ops/canonical.py); only
+        full-length k-mers take part. 2-bit keys on an ACGT genome (kmer_len
+        <= 64), 4-bit keys otherwise (kmer_len <= 32). Gather-free over the
+        fresh index (dense route), else over gathered keys."""
+        self._check_forward_only()
+        if self.kmer_source_strand == "both":
+            raise NotImplementedError(
+                "canonical statistics are defined on a single-strand index "
+                "(a both-strand index already contains each k-mer's reverse "
+                "complement)"
+            )
+        if max_counts_bin <= 0:
+            raise ValueError(f"max_counts_bin ({max_counts_bin}) must be >= 1")
+        dc = self._dc()
+        two_bit = dc.packed2 is not None
+        limit = WINDOW2_BASES if two_bit else WINDOW_BASES
+        if kmer_len is None or kmer_len < 1 or kmer_len > limit:
+            raise ValueError(
+                f"kmer_len ({kmer_len}) must be in [1, {limit}]"
+                + ("" if two_bit else " (4-bit IUPAC lanes)")
+            )
+        self._check_mesh(mesh)
+        packed = dc.packed2 if two_bit else dc.packed
+        if len(self) == 0:
+            return np.zeros(max_counts_bin + 1, dtype=np.int64), 0
+        if self._init_geometry is not None:
+            size, qualifies, total = canonical_sizes_digest_dense(
+                packed, dc.seg_starts, dc.seg_ends, self.min_kmer_len, kmer_len, two_bit=two_bit
+            )
+        else:
+            positions = self._device_positions()
+            valid_len = compute_valid_len(positions, dc.seg_starts, dc.seg_ends)
+            digest = canonical_sizes_digest if two_bit else canonical_sizes_digest4
+            size, qualifies, total = digest(packed, positions, valid_len, kmer_len)
+        counts = hist_from_sizes(size, qualifies, max_counts_bin)
+        return counts.cpu().numpy().astype(np.int64), total
+
     # ------------------------------------------------------------------ #
     # not ported yet
     # ------------------------------------------------------------------ #
@@ -1470,13 +1686,8 @@ class Kmers:
     def load(self, *args, **kwargs):
         raise _not_ported("Kmers.load", "A10: persistence")
 
-    def count_queries(self, *args, **kwargs):
-        raise _not_ported("Kmers.count_queries", "A9: queries and canonical stats")
+    def get_kmers_full_arrays(self, *args, **kwargs):
+        raise _not_ported("Kmers.get_kmers_full_arrays", "A10: persistence")
 
-    def count_queries_canonical(self, *args, **kwargs):
-        raise _not_ported("Kmers.count_queries_canonical", "A9: queries and canonical stats")
-
-    def get_canonical_kmer_group_counts(self, *args, **kwargs):
-        raise _not_ported(
-            "Kmers.get_canonical_kmer_group_counts", "A9: queries and canonical stats"
-        )
+    def to_csv(self, *args, **kwargs):
+        raise _not_ported("Kmers.to_csv", "A10: persistence")

@@ -1,4 +1,4 @@
-"""Base encodings for the PyTorch k-mer engine (host tables, NumPy only).
+"""Base encodings for the PyTorch k-mer engine (host tables).
 
 Counterpart of ``genome_kmers_tpu/ops/encoding.py``. The 15 IUPAC codes
 and the '$' record separator are 16 symbols whose ASCII order
@@ -20,6 +20,8 @@ explicit key lane (see ops/sort.py).
 from __future__ import annotations
 
 import numpy as np
+
+from ..native import reverse_complement_native
 
 # IUPAC complement, as a 256-entry byte-to-byte table so reverse complement
 # is a flip plus one table gather.
@@ -62,6 +64,24 @@ for _r in range(17):
     DIBIT_MASKS[_r] = (0xFFFFFFFF << (2 * (16 - _r))) & 0xFFFFFFFF if _r else 0
 
 
+_QUERY_COMP_TABLE = str.maketrans({_k: _v for _k, _v in COMPLEMENT_PAIRS.items() if _k != "$"})
+_QUERY_ALLOWED = frozenset(COMPLEMENT_PAIRS) - {"$"}
+
+
+def iupac_revcomp_strs(queries) -> list[str]:
+    """Reverse complements of uppercase IUPAC query strings. Raises
+    ValueError on any non-IUPAC character."""
+    out = []
+    for q in queries:
+        if set(q) - _QUERY_ALLOWED:
+            raise ValueError(f"canonical queries must be uppercase IUPAC: '{q}'")
+        out.append(q.translate(_QUERY_COMP_TABLE)[::-1])
+    return out
+
+
 def reverse_complement_bytes(sba: np.ndarray) -> np.ndarray:
-    """Reverse complement of an ASCII SBA: one table gather and a flip."""
+    """Reverse complement of an ASCII SBA: one native scan from 2^16 bytes
+    on, below that (and as its plain version) a table gather and a flip."""
+    if sba.size >= 1 << 16:
+        return reverse_complement_native(sba, COMPLEMENT_TABLE)
     return COMPLEMENT_TABLE[sba][::-1].copy()

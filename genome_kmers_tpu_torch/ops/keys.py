@@ -21,6 +21,8 @@ Positions, lengths and caps are int64 tensors.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -46,9 +48,14 @@ def u32_bits_as_int32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
-def _mask_table(masks_u32: np.ndarray, device) -> torch.Tensor:
-    """A uint32 mask table as int32 bit patterns on ``device``."""
-    return torch.as_tensor(masks_u32.view(np.int32), device=device)
+@functools.cache
+def _mask_table(per_word: int, device: torch.device) -> torch.Tensor:
+    """The mask table of words of ``per_word`` fields (DIBIT_MASKS or
+    NIBBLE_MASKS) as int32 bit patterns on ``device``, uploaded once: an
+    upload from pageable memory waits for the device, which a loop of key
+    builds (the query search) must not do every round."""
+    masks = DIBIT_MASKS if per_word == BASES_PER_WORD2 else NIBBLE_MASKS
+    return torch.as_tensor(masks.view(np.int32), device=device)
 
 
 def _pack_ranks(sba_u8: torch.Tensor, rank_table: np.ndarray, per_word: int) -> torch.Tensor:
@@ -131,11 +138,11 @@ def cap_lengths(valid_len: torch.Tensor, max_kmer_len) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 
 
-def _dense_words(packed: torch.Tensor, cap_len, n_words: int, per_word: int, masks_u32):
+def _dense_words(packed: torch.Tensor, cap_len, n_words: int, per_word: int):
     """int32 bit-pattern key words for every position of the int32 pack,
     zero past its end, with the fields at and past ``cap_len`` zeroed."""
     length = packed.shape[0]
-    masks = _mask_table(masks_u32, packed.device)
+    masks = _mask_table(per_word, packed.device)
     words = []
     for w in range(n_words):
         off = per_word * w
@@ -149,14 +156,14 @@ def _dense_words(packed: torch.Tensor, cap_len, n_words: int, per_word: int, mas
 def build_key2_words_dense(packed2: torch.Tensor, cap_len, n_words: int):
     """2-bit key words for every position 0..L-1, as int64 lanes of uint32
     values (the dense 2-bit sort shifts and compares them)."""
-    words = _dense_words(packed2, cap_len, n_words, BASES_PER_WORD2, DIBIT_MASKS)
+    words = _dense_words(packed2, cap_len, n_words, BASES_PER_WORD2)
     return tuple(widen_u32(w) for w in words)
 
 
 def build_key_words_dense(packed: torch.Tensor, cap_len, n_words: int):
     """4-bit key words for every position 0..L-1, as int32 bit patterns.
     Equal to ``build_key_words(packed, arange(L), cap_len, n_words)``."""
-    return _dense_words(packed, cap_len, n_words, BASES_PER_WORD, NIBBLE_MASKS)
+    return _dense_words(packed, cap_len, n_words, BASES_PER_WORD)
 
 
 # --------------------------------------------------------------------------- #
@@ -164,13 +171,12 @@ def build_key_words_dense(packed: torch.Tensor, cap_len, n_words: int):
 # --------------------------------------------------------------------------- #
 
 
-def _gathered_words(packed, positions, cap_len, n_words: int, offset: int, per_word: int,
-                    masks_u32):
+def _gathered_words(packed, positions, cap_len, n_words: int, offset: int, per_word: int):
     """int32 bit-pattern key words per position: word w covers the bases
     [offset + per_word * w, offset + per_word * (w + 1)) from the position,
     read from the pack with the index clipped to its last entry, and the
     fields at and past ``cap_len`` bases from the position zeroed."""
-    masks = _mask_table(masks_u32, packed.device)
+    masks = _mask_table(per_word, packed.device)
     last = packed.shape[0] - 1
     words = []
     for w in range(n_words):
@@ -185,14 +191,10 @@ def build_key_words(packed, positions, cap_len, n_words: int, offset: int = 0):
     """``n_words`` 4-bit key words for each position (int32 bit patterns).
     Nibbles at or beyond ``cap_len`` are zero, so comparison ends exactly
     where the k-mer does."""
-    return _gathered_words(
-        packed, positions, cap_len, n_words, offset, BASES_PER_WORD, NIBBLE_MASKS
-    )
+    return _gathered_words(packed, positions, cap_len, n_words, offset, BASES_PER_WORD)
 
 
 def build_key2_words(packed2, positions, cap_len, n_words: int, offset: int = 0):
     """``n_words`` 2-bit key words for each position (int32 bit patterns);
     the cap itself must ride as a separate key lane."""
-    return _gathered_words(
-        packed2, positions, cap_len, n_words, offset, BASES_PER_WORD2, DIBIT_MASKS
-    )
+    return _gathered_words(packed2, positions, cap_len, n_words, offset, BASES_PER_WORD2)

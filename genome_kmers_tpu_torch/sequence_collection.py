@@ -1,9 +1,10 @@
 """SequenceCollection: the genome container of the PyTorch engine.
 
 Counterpart of ``genome_kmers_tpu/sequence_collection.py``. The host side
-is the same NumPy code with the same error strings: records joined by '$'
-into one ASCII "sequence byte array" (SBA), uint32 segment starts, record
-names in read order. The device side is a ``_DeviceCache`` of torch tensors
+is the same code with the same error strings: records joined by '$' into
+one ASCII "sequence byte array" (SBA), uint32 segment starts, record names
+in read order; the FASTA parse, the alphabet check and the reverse
+complement of a large SBA run in the native library (``native/``). The device side is a ``_DeviceCache`` of torch tensors
 on the collection's explicit ``device``: the segment starts and ends, the
 2-bit pack of an ACGT genome, built on a CUDA device by the hand written
 kernel ``kernels/pack2.py``, the 4-bit pack that any genome has, and the
@@ -21,7 +22,8 @@ import torch
 
 from .io.fasta import _get_fasta_record_name, parse_fasta_file
 from .kernels.pack2 import pack_rank2_words_cuda
-from .ops.encoding import reverse_complement_bytes
+from .native import validate_alphabet_native
+from .ops.encoding import COMPLEMENT_TABLE, reverse_complement_bytes
 from .ops.filters import (
     _gc_cumsum_ranks2,
     _gc_cumsum_ranks4,
@@ -45,6 +47,28 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"device ({device}) must be a CUDA device or the CPU")
     return dev
+
+
+def bisect_right(a, x):
+    """Rightmost insertion point of ``x`` in the sorted array ``a``."""
+    lo, hi = 0, len(a)
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if x < a[mid]:
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
+def reverse_complement_sba(sba: np.ndarray, complement_mapping_arr: np.ndarray, inplace=False):
+    """Reverse complement of an ASCII SBA through a 256-entry byte table,
+    written into ``sba`` when ``inplace``."""
+    out = complement_mapping_arr[sba][::-1]
+    if inplace:
+        sba[:] = out
+        return sba
+    return out.copy()
 
 
 def get_segment_num_from_sba_index(sba_idx: int, sba_strand: str, sba_seg_starts: np.ndarray) -> int:
@@ -412,17 +436,30 @@ class SequenceCollection:
     # construction
     # ------------------------------------------------------------------ #
 
+    @staticmethod
+    def _get_complement_mapping_array():
+        return COMPLEMENT_TABLE.copy()
+
     def _initialize_mapping_arrays(self):
         self._allowed_bases = set("ACGTRYSWKMBDHVN$")
         self._allowed_uint8 = {ord(b) for b in self._allowed_bases}
+        self._complement_mapping_arr = SequenceCollection._get_complement_mapping_array()
+        self._uint8_to_u1_mapping = np.zeros(256, dtype="U1")
+        self._u1_to_uint8_mapping = dict()
+        for i in range(256):
+            self._u1_to_uint8_mapping[chr(i)] = i
+            self._uint8_to_u1_mapping[i] = chr(i)
 
     @staticmethod
     def _get_fasta_record_name(line: str) -> str:
         return _get_fasta_record_name(line)
 
     def _validate_alphabet(self, sba: np.ndarray) -> None:
-        """Reject bytes outside IUPAC + '$'; the message lists every
-        offending byte value."""
+        """Reject bytes outside IUPAC + '$'. The native scan checks; only
+        when it finds an offending byte does ``np.bincount`` run, because
+        the message lists every offending byte value."""
+        if validate_alphabet_native(sba, self._allowed_uint8) < 0:
+            return
         counts = np.bincount(sba, minlength=256)
         values_not_allowed = {int(v) for v in np.flatnonzero(counts)} - self._allowed_uint8
         if values_not_allowed != set():

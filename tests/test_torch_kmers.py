@@ -522,9 +522,9 @@ def test_filter_calls_once_out_of_slice_now_match_jax(call):
         lambda sc, km: sc.load("x.h5"),
         lambda sc, km: km.save("x.h5"),
         lambda sc, km: km.load("x.h5"),
-        lambda sc, km: km.count_queries(["ACG"], 3),
-        lambda sc, km: km.count_queries_canonical(["ACG"], 3),
-        lambda sc, km: km.get_canonical_kmer_group_counts(3),
+        lambda sc, km: km.get_kmers_full_arrays(3),
+        lambda sc, km: (km.sort(), km.count_queries(["ACG"], 3, mesh=object())),
+        lambda sc, km: km.get_canonical_kmer_group_counts(3, mesh=object()),
         lambda sc, km: (km.sort(), km.get_kmer_group_counts(3, mesh=object())),
     ],
 )
@@ -557,6 +557,13 @@ def _sorted(km):
         (SEQ_LIST_2, "both",
          lambda g, sc: _sorted(g.Kmers.from_strand(sc, 3, 3, source_strand="both"))
          .kmer_sba_start_indices.tolist()),
+        # queries and canonical statistics, once refused
+        (SEQ_LIST_2, "forward",
+         lambda g, sc: _sorted(g.Kmers(sc, 3, 8)).count_queries(["ATC", "TTG", "GGG"], 3).tolist()),
+        (SEQ_LIST_2, "forward",
+         lambda g, sc: _sorted(g.Kmers(sc, 3, 8)).count_queries_canonical(["ATC", "CAA"], 3).tolist()),
+        (SEQ_LIST_2, "forward",
+         lambda g, sc: g.Kmers(sc, 3, 8).get_canonical_kmer_group_counts(3)[0][:4].tolist()),
     ],
 )
 def test_calls_once_out_of_slice_now_match_jax(seq_list, strands, call):
