@@ -120,6 +120,34 @@ Phases, each of which raises (exit code 1) on failure:
     the sizes of their groups read by torch.searchsorted over the sorted
     index's fused int64 keys; queries/s and the peak device memory.
 
+15. The sorted index on a mesh of 4 shards of one card (make_mesh(4,
+    devices=["cuda:0"] * 4)), on collections of their own rebuilt from
+    phase 4's and phase 5's host arrays (own upload and pack): Kmers(sc, 31,
+    31).sort(mesh=m), the dense sample sort, timed step by step (local sort,
+    splitters, bucket bounds, exchange, merge), cold and warm; the real rows
+    of its ragged layout must be phase 4's and phase 5's sorted positions;
+    get_kmer_group_counts(31, mesh=m) and get_kmer_count(31, mesh=m) must be
+    phase 4's and 5's histogram and total; the bench's GC filter and
+    count_queries / count_queries_canonical of 2^14 + 1024 k-mers must equal
+    one card's; the same sort on make_mesh(1). Both kernels must launch (the
+    pack on the ACGT genome; the lane sort for every shard's local sort,
+    the splitters and the merge). The lane sort on 2^22 rows x 7 lanes of
+    which 40% are identical all-ones rows against its plain version (the
+    mesh path itself gives the kernel real rows only). Per-shard real rows,
+    the capacity factor,
+    seconds by step and the peak device memory are printed. Then the gather
+    path (an assigned descending index at 2^22 bp, 2-bit and 4-bit keys)
+    against one card's sort, and an all-'A' record that makes the exchange
+    retry.
+16. Persistence and export: the sorted 2^27 ACGT index with its collection
+    saved and loaded in shelve, and in hdf5 where h5py imports; the loaded
+    index's histogram and count on the card equal phase 4's and no sort
+    launches; the 4-shard mesh index through save_kmers_sharded /
+    load_kmers_sharded; seconds and MB/s of each. At 2^20 bp
+    get_kmers_full_arrays and to_csv (where pyarrow or pandas imports)
+    against a NumPy oracle, and at 2^18 bp to_csv against its row loop;
+    the profiling sweep of the index build at 2^20 bp, where pandas imports.
+
 ``--profile DIR`` adds a warm second run of phase 5's calls and of phase 9's,
 and a canonical dense-route call and a count_queries call of phase 14 on
 each genome, under torch.profiler and writes the device time by kernel to
@@ -132,6 +160,7 @@ the paths; the last is {"ok": true, "device": {...}}. No JAX is imported.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import math
 import subprocess
@@ -145,7 +174,7 @@ import numpy as np
 import torch
 
 import genome_kmers_tpu_torch as gkt
-from genome_kmers_tpu_torch import native
+from genome_kmers_tpu_torch import native, profiling
 from genome_kmers_tpu_torch.interop import from_numpy_state
 from genome_kmers_tpu_torch.kernels import build
 from genome_kmers_tpu_torch.kernels.lane_sort import SOURCE as LANE_SORT_SOURCE
@@ -171,6 +200,11 @@ from genome_kmers_tpu_torch.ops.filters import (
 from genome_kmers_tpu_torch.ops.keys import compute_valid_len, pack_rank2_words, widen_u32
 from genome_kmers_tpu_torch.ops.query import encode_query_words
 from genome_kmers_tpu_torch.ops.sort import sort_lanes
+from genome_kmers_tpu_torch.parallel import (
+    load_kmers_sharded,
+    make_mesh,
+    save_kmers_sharded,
+)
 
 DEVICE = "cuda"
 SEED = 20261016
@@ -187,6 +221,11 @@ INIT_FILTER_BP = 1 << 24
 QUERY_SAMPLES = 1 << 16  # count queries at seeded genome positions
 QUERY_RANDOM = 4096  # random k-mers, most of them absent
 QUERY_WITH_N = 1024  # k-mers with an N, on the IUPAC genome
+MESH_SHARDS = 4  # phase 15: shards of one card
+MESH_QUERIES = 1 << 14
+RETRY_BP = 1 << 16
+EXPORT_BP = 1 << 20  # phase 16: full arrays and to_csv against a NumPy oracle
+ROW_LOOP_BP = 1 << 18  # phase 16: to_csv against its row loop (17 us a row on a host core)
 # end to end of phases 4 and 5 when the FASTA went through the NumPy parser
 # (H100 80GB HBM3 at 700 W)
 EARLIER_END_TO_END = "2.58 s (ACGT), 2.50-2.83 s (IUPAC)"
@@ -786,7 +825,7 @@ def run_main_calls(fasta: Path):
 
 def phase_main_path(rng, tmp: Path, iupac: bool, profile_dir):
     """One main path at 2^27 SBA bytes; returns (its kernel's launches, the
-    collection, the k=31 histogram)."""
+    collection, the k=31 histogram, the sorted positions on the host)."""
     label = "IUPAC main path (31, 31)" if iupac else "ACGT main path (31, 31)"
     # the SBA joins the records with one '$' each: exactly 2^27 bytes
     records = synthetic_records(rng, MAIN_BP - (MAIN_RECORDS - 1), MAIN_RECORDS, iupac=iupac)
@@ -822,10 +861,11 @@ def phase_main_path(rng, tmp: Path, iupac: bool, profile_dir):
         raise AssertionError(f"{label} took the wrong key encoding")
     counts = check_sorted_index(km, valid_starts(records_of(sc), 31), label)
     check_words_against_genome(km, sc, rng, label)
+    positions = km.kmer_sba_start_indices.copy()  # the mesh phase's reference
     del km
     if iupac and profile_dir is not None:
         profile_main_calls(fasta, Path(profile_dir))  # warm: the allocator keeps the memory
-    return launches, sc, counts
+    return launches, sc, counts, positions
 
 
 def check_native_parse(fasta: Path, sc, label: str, compare_plain: bool) -> None:
@@ -1730,6 +1770,331 @@ def phase_queries_canonical(host_acgt, host_iupac, profile_dir) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 15: the sorted index on a mesh; phase 16: persistence and export
+# --------------------------------------------------------------------------- #
+
+
+class StepLog:
+    """``on_step`` callback of ``Kmers.sort(mesh=...)``: synchronises and
+    adds the seconds since the previous step (or ``start``) to the step's
+    name."""
+
+    def __init__(self):
+        self.steps = {}
+        self.t = None
+
+    def start(self) -> None:
+        torch.cuda.synchronize()
+        self.t = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.steps[name] = self.steps.get(name, 0.0) + now - self.t
+        self.t = now
+
+
+def mesh_sort(km, mesh, expected: np.ndarray, label: str):
+    """``km.sort(mesh=mesh)`` timed step by step; the real rows of its
+    ragged layout in shard order must be ``expected``. Returns (seconds,
+    seconds by step, the sample sort's info)."""
+    steps, info = StepLog(), {}
+    steps.start()
+    t0 = steps.t
+    km.sort(mesh=mesh, on_step=steps, mesh_info=info)
+    torch.cuda.synchronize()
+    t_sort = time.perf_counter() - t0
+    if any(p.device.type != DEVICE for p in km._dist_cache.positions):
+        raise AssertionError(f"{label}: the mesh layout does not live on the card")
+    if not np.array_equal(km.kmer_sba_start_indices, expected):
+        raise AssertionError(f"{label}: the mesh layout's rows are not the single-card sorted positions")
+    return t_sort, steps.steps, info
+
+
+def mesh_queries(sc, rng) -> list:
+    """MESH_QUERIES k-mers at seeded genome positions and 1024 random ones."""
+    starts = valid_starts(records_of(sc), 31)
+    sampled = kmer_windows(sc, starts[rng.integers(0, len(starts), size=MESH_QUERIES)], 31)
+    return as_queries(np.concatenate([sampled, ACGT[rng.integers(0, 4, size=(1024, 31))]]))
+
+
+def mesh_main(host_sc, expected: np.ndarray, counts31: np.ndarray, m4, m1, rng):
+    """Phase 15 on one genome at 2^27 SBA bytes; returns (pack launches,
+    lane sort launches) of its mesh path."""
+    two_bit = host_sc.device_cache("forward").is_acgt_only
+    label = f"mesh of {MESH_SHARDS} shards on one card, {'ACGT' if two_bit else 'IUPAC'} 2^27 (31, 31)"
+    sba, seg_starts = index_sba(host_sc)
+    held_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    sc, km = from_numpy_state(sba, seg_starts, host_sc.forward_record_names, 31, 31, device=DEVICE)
+    t_sort, steps, info = mesh_sort(km, m4, expected, label)
+    km.get_kmer_group_counts(31, mesh=m4)  # cold: the allocator grows
+    t_sort_warm, steps_warm, _ = mesh_sort(gkt.Kmers(sc, 31, 31), m4, expected, label)
+    (counts, total), t_stats = sync_time(lambda: km.get_kmer_group_counts(31, mesh=m4))
+    count, t_count = sync_time(lambda: km.get_kmer_count(31, mesh=m4))
+    if not (np.array_equal(counts, counts31) and total == count == len(expected)):
+        raise AssertionError(f"{label}: the mesh histogram or count differs from the main path's")
+    pack_l, sort_l = pack_rank2_words_cuda.launches, sort_lanes_cuda.launches
+    if (two_bit and pack_l < 1) or sort_l < 3 * MESH_SHARDS:
+        raise AssertionError(f"{label}: a kernel of the mesh path did not launch "
+                             f"(pack {pack_l}, lane sort {sort_l})")
+    peak = torch.cuda.max_memory_allocated()
+    # the bench's GC filter and the queries against the single-card index
+    single = gkt.Kmers(sc, 31, 31)
+    single.sort()
+    gc = GcContentFilter(0.3, 0.7, 31)
+    (fcounts, ftotal), t_filter = sync_time(lambda: km.get_kmer_group_counts(31, gc, mesh=m4))
+    want = single.get_kmer_group_counts(31, gc)
+    if not (np.array_equal(fcounts, want[0]) and ftotal == want[1]):
+        raise AssertionError(f"{label}: the GC-filtered mesh histogram differs from one card's")
+    queries = mesh_queries(sc, rng)
+    got, t_q = sync_time(lambda: km.count_queries(queries, 31, mesh=m4))
+    canon = km.count_queries_canonical(queries, 31, mesh=m4)
+    if not (np.array_equal(got, single.count_queries(queries, 31))
+            and np.array_equal(canon, single.count_queries_canonical(queries, 31))):
+        raise AssertionError(f"{label}: mesh count queries differ from one card's")
+    del single
+    km1 = gkt.Kmers(sc, 31, 31)
+    t_one, _, info1 = mesh_sort(km1, m1, expected, f"{label}, one shard")
+    counts1, _ = km1.get_kmer_group_counts(31, mesh=m1)
+    if not np.array_equal(counts1, counts31):
+        raise AssertionError(f"{label}: the one-shard mesh histogram differs")
+    log(f"{label}: sort(mesh) {t_sort:.4f} s cold, {t_sort_warm:.4f} s warm = "
+        f"{len(expected) / t_sort_warm / 1e6:.1f} M k-mers/s; real rows by shard {info['rows']} "
+        f"(layout {info['capacity'] * MESH_SHARDS} rows a shard), capacity factor "
+        f"{info['capacity_factor']} after {info['retries']} retries; seconds by step (warm) "
+        + ", ".join(f"{k} {v:.4f}" for k, v in steps_warm.items())
+        + f" (cold: " + ", ".join(f"{k} {v:.4f}" for k, v in steps.items()) + ")")
+    log(f"{label}: get_kmer_group_counts(31, mesh) {t_stats:.4f} s, get_kmer_count(31, mesh) "
+        f"{t_count:.4f} s, both equal to the main path's; GC filter (0.3, 0.7, 31) {t_filter:.4f} s "
+        f"({ftotal} k-mers), equal to one card's; count_queries of {len(queries)} queries "
+        f"{t_q:.4f} s, equal to one card's (canonical too); one-shard mesh sort {t_one:.4f} s "
+        f"(capacity factor {info1['capacity_factor']}); launches: pack {pack_l}, lane sort {sort_l}")
+    log(f"{label}: peak device memory of the sort and statistics {peak} bytes ({peak / 2**30:.3f} "
+        f"GiB), {held_before} held before: its own {(peak - held_before) / 2**30:.3f} GiB")
+    del km, km1, sc
+    torch.cuda.empty_cache()
+    return pack_l, sort_l
+
+
+def check_identical_rows(rng, n: int = 1 << 22, n_lanes: int = 7) -> None:
+    """The lane sort kernel on rows of which 40% are all-ones in every lane
+    (identical rows, the shape of a ragged layout's pads), against its plain
+    version: the same bytes. The kernel's contract asks for a unique last
+    lane; the mesh path keeps to it (it sorts real rows only), and this
+    shows what the kernel does where a caller does not."""
+    dev = torch.device(DEVICE)
+    lanes = [torch.from_numpy(rng.integers(0, 1 << 32, size=n, dtype=np.uint64)
+                              .astype(np.uint32).view(np.int32)).to(dev) for _ in range(n_lanes)]
+    ones = torch.from_numpy(rng.random(n) < 0.4).to(dev)
+    lanes = [torch.where(ones, -1, lane) for lane in lanes]
+    got, want = sort_lanes_cuda(lanes), sort_lanes(lanes)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("lane sort: rows identical in every lane do not sort as the plain version")
+    log(f"lane sort with {int(ones.sum())} identical all-ones rows of {n} x {n_lanes} lanes: "
+        f"bitwise equal to the plain version")
+
+
+def phase_mesh(host_acgt, host_iupac, positions, counts, rng_seed: int) -> dict:
+    """Phase 15: the mesh at full width on both genomes, then the gather
+    path at 2^22 bp and an all-'A' genome that makes the exchange retry.
+    Returns the launches of both kernels by path."""
+    rng = np.random.default_rng(rng_seed)
+    t0 = time.perf_counter()
+    check_identical_rows(rng)
+    m4 = make_mesh(MESH_SHARDS, devices=[f"{DEVICE}:0"] * MESH_SHARDS)
+    m1 = make_mesh(1)
+    out = {"pack_rank2_words_cuda": {}, "sort_lanes_cuda": {}}
+    for host_sc, key in ((host_acgt, "ACGT"), (host_iupac, "IUPAC")):
+        pack_l, sort_l = mesh_main(host_sc, positions[key], counts[key], m4, m1, rng)
+        out["pack_rank2_words_cuda"][f"mesh of {MESH_SHARDS}, {key} 2^27 (31, 31)"] = pack_l
+        out["sort_lanes_cuda"][f"mesh of {MESH_SHARDS}, {key} 2^27 (31, 31)"] = sort_l
+    # the gather path: an assigned descending index, 2-bit and 4-bit keys
+    for iupac, mn, mx in ((False, 20, 48), (True, 12, 24)):
+        label = f"mesh gather path at {GATHER_BP} bp, {'4' if iupac else '2'}-bit keys ({mn}, {mx})"
+        sc = collection_of(synthetic_records(rng, GATHER_BP, 12, short_lens=(20, 33), iupac=iupac))
+        single = gkt.Kmers(sc, mn, mx)
+        single.kmer_sba_start_indices = single.kmer_sba_start_indices[::-1].copy()
+        single.sort()
+        reset_launches()
+        km = gkt.Kmers(sc, mn, mx)
+        km.kmer_sba_start_indices = km.kmer_sba_start_indices[::-1].copy()
+        t_sort, _, info = mesh_sort(km, m4, single.kmer_sba_start_indices, label)
+        want = single.get_kmer_group_counts(mx, max_counts_bin=1000)
+        got = km.get_kmer_group_counts(mx, max_counts_bin=1000, mesh=m4)
+        if not (np.array_equal(got[0], want[0]) and got[1] == want[1]):
+            raise AssertionError(f"{label}: the mesh histogram differs from one card's")
+        if sort_lanes_cuda.launches < 3 * MESH_SHARDS:
+            raise AssertionError(f"{label}: the lane sort did not launch on every shard")
+        out["sort_lanes_cuda"][label] = sort_lanes_cuda.launches
+        log(f"{label}: sort(mesh) {t_sort:.4f} s, rows by shard {info['rows']}, equal to one card's "
+            f"sort and histogram; lane sort launches {sort_lanes_cuda.launches}")
+    # an all-'A' record: the first exchange capacity overflows
+    records = synthetic_records(rng, RETRY_BP, 4)
+    records.append(("allA", np.full(RETRY_BP, ord("A"), dtype=np.uint8)))
+    sc = collection_of(records)
+    single = gkt.Kmers(sc, 31, 31)
+    single.sort()
+    km = gkt.Kmers(sc, 31, 31)
+    _, _, info = mesh_sort(km, m4, single.kmer_sba_start_indices, "mesh retry")
+    if info["retries"] < 1:
+        raise AssertionError(f"mesh retry: an all-'A' record took no retry ({info})")
+    got, want = km.get_kmer_group_counts(31, mesh=m4), single.get_kmer_group_counts(31)
+    if not (np.array_equal(got[0], want[0]) and got[1] == want[1]):
+        raise AssertionError("mesh retry: the histogram differs from one card's")
+    log(f"mesh retry at {2 * RETRY_BP} bp with an all-'A' record: {info['retries']} retries, capacity "
+        f"factor {info['capacity_factor']}, rows by shard {info['rows']}; equal to one card's")
+    log(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def refuse_sort(*args, **kwargs):
+    raise AssertionError("the loaded index was sorted again")
+
+
+def _files_bytes(path: Path) -> int:
+    """Bytes of the file ``path`` or of the files a shelve made from it."""
+    return sum(f.stat().st_size for f in path.parent.glob(path.name + "*"))
+
+
+def phase_persistence(host_acgt, positions, counts31, tmp: Path, rng_seed: int) -> dict:
+    """Phase 16: save and load of the sorted 2^27 ACGT index with its
+    collection (shelve; hdf5 where h5py imports), the sharded checkpoint of
+    its mesh index, and at EXPORT_BP the full arrays and to_csv against a
+    NumPy oracle (and to_csv against its row loop at ROW_LOOP_BP). Returns
+    the pack launches of the loaded indexes."""
+    rng = np.random.default_rng(rng_seed)
+    t0 = time.perf_counter()
+    formats = ["shelve"]
+    try:
+        import h5py  # noqa: F401
+        formats.append("hdf5")
+    except ImportError:
+        pass
+    writer = None
+    for name in ("pyarrow", "pandas"):
+        try:
+            __import__(name)
+            writer = name
+            break
+        except ImportError:
+            continue
+    log(f"persistence: formats {formats}; CSV writer {writer or 'none (to_csv not run)'}")
+    sba, seg_starts = index_sba(host_acgt)
+    sc, km = from_numpy_state(sba, seg_starts, host_acgt.forward_record_names, 31, 31, device=DEVICE)
+    km.sort()
+    launches = {}
+    real_sort = gkt.Kmers.sort
+    for fmt in formats:
+        path = tmp / f"index_{fmt}"
+        _, t_save = sync_time(lambda: km.save(str(path), include_sequence_collection=True, format=fmt))
+        size = _files_bytes(path)
+        reset_launches()
+        loaded = gkt.Kmers()
+        _, t_load = sync_time(lambda: loaded.load(str(path), format=fmt, device=DEVICE))
+        gkt.Kmers.sort = refuse_sort
+        try:
+            (counts, total), t_stats = sync_time(lambda: loaded.get_kmer_group_counts(31))
+            count = loaded.get_kmer_count(31)
+        finally:
+            gkt.Kmers.sort = real_sort
+        if not (loaded._is_sorted and np.array_equal(counts, counts31) and total == count == len(positions)
+                and np.array_equal(loaded.kmer_sba_start_indices, positions)):
+            raise AssertionError(f"persistence ({fmt}): the loaded index differs from phase 4's")
+        if sort_lanes_cuda.launches or pack_rank2_words_cuda.launches < 1:
+            raise AssertionError(f"persistence ({fmt}): a sort launched, or the pack did not")
+        launches[f"loaded index ({fmt}), ACGT 2^27"] = pack_rank2_words_cuda.launches
+        log(f"persistence ({fmt}): save {t_save:.4f} s = {size / t_save / 1e6:.1f} MB/s, load "
+            f"{t_load:.4f} s = {size / t_load / 1e6:.1f} MB/s ({size} bytes, index and collection); "
+            f"statistics of the loaded index on the card {t_stats:.4f} s, equal to phase 4's, no sort")
+        del loaded
+        torch.cuda.empty_cache()
+    # the sharded checkpoint of the 4-shard mesh index
+    mesh = make_mesh(MESH_SHARDS, devices=[f"{DEVICE}:0"] * MESH_SHARDS)
+    km4 = gkt.Kmers(sc, 31, 31)
+    km4.sort(mesh=mesh)
+    ckpt = tmp / "ckpt"
+    _, t_save = sync_time(lambda: save_kmers_sharded(km4, ckpt))
+    size = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+    fresh = gkt.Kmers(sc, 31, 31)
+    _, t_load = sync_time(lambda: load_kmers_sharded(fresh, ckpt, mesh=mesh))
+    counts, total = fresh.get_kmer_group_counts(31)
+    if not (np.array_equal(fresh.kmer_sba_start_indices, positions) and np.array_equal(counts, counts31)):
+        raise AssertionError("sharded checkpoint: the restored index differs")
+    log(f"sharded checkpoint of the {MESH_SHARDS}-shard mesh index: save {t_save:.4f} s = "
+        f"{size / t_save / 1e6:.1f} MB/s, load {t_load:.4f} s = {size / t_load / 1e6:.1f} MB/s "
+        f"({size} bytes); the restored index equals phase 4's")
+    del km, km4, fresh, sc
+    torch.cuda.empty_cache()
+    export_checks(rng, tmp, writer)
+    if importlib.util.find_spec("pandas") is None:
+        log("profiling: pandas does not import, the sweeps (DataFrames) not run")
+    else:
+        frame = profiling.profile_kmers_sort([EXPORT_BP], [31], num_iterations=1, device=DEVICE)
+        log("profiling.profile_kmers_sort at 2^20 bp, k = 31, on the card: "
+            + frame.to_string(index=False).replace("\n", "; "))
+    log(f"persistence phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def export_checks(rng, tmp: Path, writer) -> None:
+    """get_kmers_full_arrays and to_csv of a sorted (31, 31) index at
+    EXPORT_BP against a NumPy oracle (byte strings sorted stably, np.unique
+    group sizes), and to_csv against its row loop at ROW_LOOP_BP."""
+    records = synthetic_records(rng, EXPORT_BP, 12, short_lens=(31, 40, 47))
+    sc = collection_of(records)
+    km = gkt.Kmers(sc, 31, 31)
+    km.sort()
+    starts = valid_starts(records, 31)
+    strings = as_strings(kmer_windows(sc, starts, 31), 31)
+    order = np.argsort(strings, kind="stable")  # ties by position: starts ascend
+    pos, strs = starts[order], strings[order]
+    _, inverse, sizes = np.unique(strs, return_inverse=True, return_counts=True)
+    rec_starts = np.array([s for _, s, _ in sc.iter_records()], dtype=np.int64)
+    rec = np.searchsorted(rec_starts, pos, side="right") - 1
+    want = {
+        "kmer_num": np.arange(len(pos), dtype=np.int64), "record_num": rec,
+        "strand": np.full(len(pos), "+", dtype="U1"), "seq_start_idx": pos - rec_starts[rec] + 1,
+        "kmer_len": np.full(len(pos), 31, dtype=np.int64),
+        "group_size_yielded": sizes[inverse], "group_size_total": sizes[inverse],
+    }
+    full, t_full = sync_time(lambda: km.get_kmers_full_arrays(31, one_based_seq_index=True))
+    for name, values in want.items():
+        if not np.array_equal(full[name], values):
+            raise AssertionError(f"export: get_kmers_full_arrays()[{name!r}] differs from the oracle")
+    log(f"export at {EXPORT_BP} bp: get_kmers_full_arrays(31) {t_full:.4f} s, equal to a NumPy oracle "
+        f"({len(pos)} rows)")
+    if writer is None:
+        return
+    fields = ["kmer", "kmer_num", "chrom", "start", "strand", "group_size"]
+    names = np.array([name for name, _ in records])
+    lines = [",".join(fields)]
+    lines += [f"{s.decode()},{i},{names[r]},{st},+,{g}" for i, (s, r, st, g) in enumerate(
+        zip(strs, rec, pos - rec_starts[rec], sizes[inverse]))]
+    oracle = ("\n".join(lines) + "\n").encode()
+    path = tmp / "export.csv"
+    _, t_csv = sync_time(lambda: km.to_csv(31, str(path), fields))
+    if path.read_bytes() != oracle:
+        raise AssertionError("export: to_csv differs from the NumPy oracle's bytes")
+    log(f"export at {EXPORT_BP} bp: to_csv(31, 6 fields) {t_csv:.4f} s = "
+        f"{len(oracle) / t_csv / 1e6:.1f} MB/s ({writer}), equal to the oracle's bytes")
+    small = collection_of(synthetic_records(rng, ROW_LOOP_BP, 6, short_lens=(31, 40)))
+    km = gkt.Kmers(small, 31, 48)
+    km.sort()
+    for k, flds in ((31, fields), (None, ["kmer_num", "kmer", "group_size"])):
+        _, t_bulk = sync_time(lambda: km.to_csv(k, str(tmp / "bulk.csv"), flds))
+        t_loop = time.perf_counter()
+        km._to_csv_row_loop(k, str(tmp / "loop.csv"), flds)
+        t_loop = time.perf_counter() - t_loop
+        if (tmp / "bulk.csv").read_bytes() != (tmp / "loop.csv").read_bytes():
+            raise AssertionError(f"export: to_csv({k}) differs from its row loop")
+        log(f"export at {ROW_LOOP_BP} bp, (31, 48), kmer_len {k}: to_csv {t_bulk:.4f} s, row loop "
+            f"{t_loop:.4f} s, equal bytes")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -1741,9 +2106,10 @@ def main() -> None:
     pack_timing = phase_pack_kernel(rng)
     sort_timing = phase_lane_sort_kernel(rng)
     with tempfile.TemporaryDirectory() as tmp:
-        pack_launches, sc_acgt, counts31 = phase_main_path(rng, Path(tmp), False, None)
+        pack_launches, sc_acgt, counts31, pos_acgt = phase_main_path(rng, Path(tmp), False, None)
         torch.cuda.empty_cache()
-        sort_launches, sc_iupac, counts31_iupac = phase_main_path(rng, Path(tmp), True, args.profile)
+        sort_launches, sc_iupac, counts31_iupac, pos_iupac = phase_main_path(
+            rng, Path(tmp), True, args.profile)
     torch.cuda.empty_cache()
     phase_general(rng)
     phase_gather_path(rng)
@@ -1753,7 +2119,11 @@ def main() -> None:
     beyond_launches = phase_beyond_window(sc_acgt, sc_iupac, rng)
     filter_launches = phase_filters(sc_acgt, sc_iupac, counts31)
     query_launches = phase_queries_canonical(sc_acgt, sc_iupac, args.profile)
-    del sc_acgt, sc_iupac
+    mesh_launches = phase_mesh(sc_acgt, sc_iupac, {"ACGT": pos_acgt, "IUPAC": pos_iupac},
+                               {"ACGT": counts31, "IUPAC": counts31_iupac}, SEED + 15)
+    with tempfile.TemporaryDirectory() as tmp:
+        persistence_launches = phase_persistence(sc_acgt, pos_acgt, counts31, Path(tmp), SEED + 16)
+    del sc_acgt, sc_iupac, pos_acgt, pos_iupac
     torch.cuda.empty_cache()
     window_launches = phase_window_rounds(rng)
     strand_launches = phase_strands(rng)
@@ -1772,7 +2142,9 @@ def main() -> None:
                                      suffix_launches["pack_rank2_words_cuda"],
                                  **{f"strands at {bp} bp": n for bp, n in strand_launches.items()},
                                  **filter_launches["pack_rank2_words_cuda"],
-                                 **{k: v for k, v in query_launches.items() if "ACGT" in k}},
+                                 **{k: v for k, v in query_launches.items() if "ACGT" in k},
+                                 **mesh_launches["pack_rank2_words_cuda"],
+                                 **persistence_launches},
             **pack_timing,
         },
         {
@@ -1787,7 +2159,8 @@ def main() -> None:
                                  **beyond_launches,
                                  "unbounded window rounds (20, None)": window_launches,
                                  **filter_launches["sort_lanes_cuda"],
-                                 **{k: v for k, v in query_launches.items() if "IUPAC" in k}},
+                                 **{k: v for k, v in query_launches.items() if "IUPAC" in k},
+                                 **mesh_launches["sort_lanes_cuda"]},
             **sort_timing,
         },
     ]}))

@@ -29,20 +29,30 @@ strand, the reverse complement or both (``Kmers.from_strand``):
   ``get_canonical_kmer_group_counts`` (ops/canonical.py), gather-free over
   the fresh index, else over gathered keys;
 * the reference's host methods: equality, ``get_kmer_str_no_checks``,
-  ``get_is_less_than_func``, ``generate_get_kmer_info_func``.
+  ``get_is_less_than_func``, ``generate_get_kmer_info_func``;
+* persistence and export: ``save`` / ``load`` (hdf5 and shelve, the JAX
+  package's schema: a file either package writes loads into the other),
+  ``get_kmers_full_arrays`` and ``to_csv`` (byte for byte the JAX
+  package's output, through the native row decoders);
+* a one-dimensional mesh (parallel/) at a bounded ``max_kmer_len``:
+  ``sort(mesh=)`` by the sample sort, whose ragged layout the index keeps
+  (``_DistIndexCache``), and ``get_kmer_count`` / ``get_kmer_group_counts``
+  / ``count_queries`` / ``count_queries_canonical`` with ``mesh=``.
 
 The module-level functions (``compare_sba_kmers_lexicographically``,
 ``kmer_info_by_group_generator``, ``get_kmer_group_size_hist``, ...) are the
 reference's host walk API, NumPy only.
 
 Construction checks and their messages are the JAX package's. The index
-inherits its collection's device. What the port does not have yet (``mesh=``,
-persistence and export, ``LargeKmers``) raises NotImplementedError naming
-the ROADMAP.md item that will port it.
+inherits its collection's device. What the port does not have yet (the
+unbounded or beyond-window mesh sort, mesh statistics that need run ids,
+canonical statistics on a mesh; ``LargeKmers``) raises NotImplementedError
+naming the ROADMAP.md item that will port it.
 """
 
 from __future__ import annotations
 
+import shelve
 import warnings
 from typing import Callable, Generator, Union
 
@@ -61,6 +71,7 @@ from .ops.filters import (  # noqa: F401  (re-exported reference API)
     kmer_filter_keep_all,
     kmer_has_required_len,
 )
+from .io.csv_out import write_csv_columnar
 from .native import decode_rows_native, decode_rows_var_native
 from .ops.canonical import (
     canonical_sizes_digest,
@@ -97,6 +108,18 @@ from .ops.sort import (
     sort_positions_dense,
     sort_positions_suffix_dense,
 )
+from .parallel import (
+    compact_ragged,
+    distributed_count_queries,
+    distributed_group_size_histogram_ragged,
+    distributed_hist_from_sizes,
+    mesh_lanes_filter_flags,
+    sample_sort_positions_dense_ragged,
+    sample_sort_positions_ragged,
+)
+from .parallel.collectives import replicate
+from .parallel.distributed import shard_evenly
+from .parallel.sample_sort import ragged_rows
 from .sequence_collection import (
     SequenceCollection,
     get_forward_seq_idx,
@@ -378,6 +401,55 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
+_MESH_ITEM = "A11: the rest of the mesh"
+
+
+class _DistIndexCache:
+    """The sorted index a ``sort(mesh=...)`` keeps: the sample sort's ragged
+    layout (per shard: positions, pad flags, and the sorted key words built
+    at ``built_k``, ``lanes_two_bit`` their encoding), so that a following
+    mesh statistics or query call on the same mesh needs no re-sort and no
+    key gather. ``n_real`` is the index length."""
+
+    def __init__(self, mesh, positions, is_pad, n_real: int, lanes=None,
+                 lanes_two_bit=None, built_k=None):
+        self.mesh = mesh
+        self.positions = positions
+        self.is_pad = is_pad
+        self.n_real = n_real
+        self.lanes = lanes
+        self.lanes_two_bit = lanes_two_bit
+        self.built_k = built_k
+
+
+class _ShardScans:
+    """The collection's device cache (``_DeviceCache``) as shard ``p`` of a
+    mesh sees it, the ``scans`` of a filter's ``FilterContext``: each
+    tensor it hands out (genome scans, packs, valid lengths) is the cache's,
+    replicated over the mesh once (``shared`` holds the copies of all
+    shards), and a shard on the cache's own device shares its filter
+    planes."""
+
+    def __init__(self, dc, mesh, p: int, shared: dict):
+        self._dc, self._mesh, self._p, self._shared = dc, mesh, p, shared
+        dev = mesh.devices[p]
+        if dc.filter_flags is None:
+            self.filter_flags = None
+        elif dev == dc.seg_starts.device:
+            self.filter_flags = dc.filter_flags
+        else:
+            self.filter_flags = shared.setdefault(("filter_flags", dev), {})
+
+    def __getattr__(self, name):
+        if name not in self._shared:
+            value = getattr(self._dc, name)
+            n_dev = len(self._mesh.devices)
+            self._shared[name] = (
+                replicate(value, self._mesh) if isinstance(value, torch.Tensor) else [value] * n_dev
+            )
+        return self._shared[name][self._p]
+
+
 class Kmers:
     """Memory-efficient k-mer calculations on a genome, on a GPU.
 
@@ -494,6 +566,8 @@ class Kmers:
         self._lanes_cache = None
         # (converged run ids of a suffix sort, the max_kmer_len they hold at)
         self._suffix_gid_cache = None
+        # the ragged layout a sort(mesh=...) keeps (_DistIndexCache)
+        self._dist_cache = None
         # every position has valid_len >= min_kmer_len: true by construction;
         # unknown (None) after an assignment, checked once on demand by
         # _cap_covers_min_k (the CRISPR lanes gate depends on it)
@@ -723,7 +797,11 @@ class Kmers:
     def _device_positions(self) -> torch.Tensor:
         """The index as an int64 device tensor, materialized lazily."""
         if self._pos_dev is None:
-            if self._pos_host is None and self._init_geometry is not None:
+            if (
+                self._pos_host is None
+                and self._init_geometry is not None
+                and self._dist_cache is None
+            ):
                 self._pos_dev = self._build_positions_device()
             else:
                 host = np.asarray(self.kmer_sba_start_indices).astype(np.int64)
@@ -755,13 +833,26 @@ class Kmers:
             raise ValueError("SequenceCollection does not have any records")
         return num_kmers
 
+    def _ragged_to_host(self) -> np.ndarray:
+        """The kept mesh layout compacted to a host uint32 array (global
+        sorted order, pads removed)."""
+        cache = self._dist_cache
+        out = ragged_rows(cache.positions, cache.is_pad)
+        if out.shape[0] != cache.n_real:
+            raise AssertionError(
+                f"the mesh layout holds {out.shape[0]} rows, the index {cache.n_real}"
+            )
+        return out
+
     @property
     def kmer_sba_start_indices(self):
         """Host uint32 view of the k-mer index, materialized lazily from the
-        device tensor or the init geometry."""
+        device tensor, the kept mesh layout or the init geometry."""
         if self._pos_host is None:
             if self._pos_dev is not None:
                 self._pos_host = self._pos_dev.cpu().numpy().astype(np.uint32)
+            elif self._dist_cache is not None:
+                self._pos_host = self._ragged_to_host()
             elif self._init_geometry is not None:
                 self._pos_host = self._build_positions_host()
         return self._pos_host
@@ -778,6 +869,7 @@ class Kmers:
         self._init_geometry = None
         self._lanes_cache = None
         self._suffix_gid_cache = None
+        self._dist_cache = None
         # unknown until checked: an assigned set may hold positions with
         # valid_len < min_kmer_len (the canonical build never does)
         self._cap_cover_ok = None
@@ -794,6 +886,8 @@ class Kmers:
             return len(self._pos_host)
         if self._pos_dev is not None:
             return int(self._pos_dev.shape[0])
+        if self._dist_cache is not None:
+            return self._dist_cache.n_real
         if self._init_geometry is not None:
             return self._init_geometry[2]
         raise TypeError("Kmers index is not initialized")
@@ -1301,11 +1395,6 @@ class Kmers:
             raise ValueError(f"kmer_len ({kmer_len}) must be > 0")
         self._check_group_params_unsorted(min_group_size, max_group_size)
 
-    @staticmethod
-    def _check_mesh(mesh):
-        if mesh is not None:
-            raise _not_ported("statistics over a mesh (mesh=)", "A11: torch.distributed")
-
     def get_kmer_count(
         self,
         kmer_len: Union[int, None],
@@ -1318,9 +1407,16 @@ class Kmers:
         at ``kmer_len`` base identity; under a filter, the survivors in
         groups whose survivor count is in range. On an unsorted index every
         k-mer is its own group. Routes, in order: unfiltered lanes,
-        filtered lanes, flag plane or window, compaction to the survivors."""
+        filtered lanes, flag plane or window, compaction to the survivors.
+        ``mesh``: count over the mesh (``_mesh_group_hist``); the index must
+        be sorted."""
         self._check_stats_args(kmer_len, min_group_size, max_group_size)
-        self._check_mesh(mesh)
+        if mesh is not None:
+            if not self._is_sorted:
+                raise NotImplementedError("get_kmer_count(mesh=...) requires a sorted index")
+            return self._mesh_group_hist(
+                kmer_len, kmer_filter_func, min_group_size, max_group_size, 1, mesh
+            )[1]
         lanes = self._lanes_fast(kmer_len, kmer_filter_func)
         if lanes is not None:
             return lanes_group_total(
@@ -1359,13 +1455,18 @@ class Kmers:
         """Histogram of group sizes (int64, max_counts_bin + 1 bins, larger
         groups in the top bin) and the total k-mer count of the qualifying
         groups; under a filter, of the groups' survivor counts. Routes as
-        in ``get_kmer_count``."""
+        in ``get_kmer_count``; ``mesh`` computes them over the mesh
+        (``_mesh_group_hist``)."""
         self._check_stats_args(kmer_len, min_group_size, max_group_size)
         if not self._is_sorted:
             raise AssertionError("The kmers must be sorted when calling get_kmer_group_counts")
         if max_counts_bin <= 0:
             raise ValueError(f"max_counts_bin ({max_counts_bin}) must be >= 1")
-        self._check_mesh(mesh)
+        if mesh is not None:
+            return self._mesh_group_hist(
+                kmer_len, kmer_filter_func, min_group_size, max_group_size, max_counts_bin,
+                mesh,
+            )
         lanes = self._lanes_fast(kmer_len, kmer_filter_func)
         fl = None if lanes is not None else self._filtered_lanes_stats(kmer_len, kmer_filter_func)
         if lanes is not None:
@@ -1394,6 +1495,110 @@ class Kmers:
             size, qualifies, total = sizes_digest(boundary, min_group_size, max_group_size)
         counts = hist_from_sizes(size, qualifies, max_counts_bin)
         return counts.cpu().numpy().astype(np.int64), total
+
+    def _mesh_group_hist(self, kmer_len, kmer_filter_func, min_group_size, max_group_size,
+                         max_counts_bin, mesh) -> tuple[np.ndarray, int]:
+        """Group-size histogram and total over the mesh, equal to the
+        single-device statistics.
+
+        A layout kept by ``sort(mesh=...)`` on the same mesh serves a
+        library filter (or none) directly: unfiltered over its sorted lanes;
+        a filter with a lanes form as a survivor mask over them
+        (``mesh_lanes_filter_flags``); any other library filter is checked
+        shard by shard over the valid rows (the first offending row in
+        global order raises) and masked, and the pads it makes are moved to
+        each shard's tail (``compact_ragged``). Otherwise (no kept layout,
+        another mesh, or a filter that is a plain callable) the survivors
+        are sample-sorted over the mesh afresh. Identity at ``kmer_len`` is
+        the key words of one compare window; beyond it (or None) it needs
+        the run ids of the unbounded mesh sort, not ported yet."""
+        dc = self._dc()
+        if kmer_len is None or kmer_len > (WINDOW2_BASES if dc.packed2 is not None else WINDOW_BASES):
+            raise _not_ported(
+                "mesh statistics at kmer_len None or beyond one compare window (run ids)",
+                _MESH_ITEM,
+            )
+        strand_split = self._revcomp_offset() if self.track_strands_separately else None
+        use2 = dc.packed2 is not None
+        packed2 = dc.packed2 if use2 else None
+        packed = None if use2 else dc.packed
+        keep_all = isinstance(kmer_filter_func, KeepAllFilter)
+        cache = self._dist_cache
+        sorted_words = None
+        mask = None
+        if cache is not None and cache.mesh == mesh and isinstance(kmer_filter_func, KmerFilter):
+            rag_pos, rag_pad = cache.positions, cache.is_pad
+            lanes_fit = (
+                cache.lanes is not None
+                and cache.lanes_two_bit == use2
+                and kmer_len <= cache.built_k
+            )
+            if keep_all and lanes_fit:
+                sorted_words = cache.lanes
+            elif not keep_all:
+                spec = None
+                if lanes_fit:
+                    n_words = -(-cache.built_k // (16 if cache.lanes_two_bit else 8))
+                    spec = kmer_filter_func.lanes_spec(
+                        {
+                            "two_bit": cache.lanes_two_bit,
+                            "built_k": cache.built_k,
+                            "words": tuple(w[:n_words] for w in cache.lanes[0]),
+                            # the ragged sort keeps no cap lane: the caps are
+                            # recomputed in mesh_lanes_filter_flags
+                            "cap": None,
+                            "cap_cover_check": self._cap_covers_min_k,
+                        },
+                        len(self._host_sba()),
+                        self.min_kmer_len,
+                    )
+                if spec is not None:
+                    flags_fn, params, msgs = spec
+                    mask, err = mesh_lanes_filter_flags(
+                        cache.lanes, rag_pos, rag_pad, params, flags_fn, dc.seg_starts,
+                        dc.seg_ends, cache.built_k, mesh,
+                    )
+                    self._raise_lanes_errs(err, msgs)
+                    sorted_words = cache.lanes
+                else:
+                    masks = self._mesh_filter_masks(kmer_filter_func, rag_pos, rag_pad, mesh)
+                    new_pad = [pad | ~m for pad, m in zip(rag_pad, masks)]
+                    rag_pos, rag_pad = compact_ragged(rag_pos, new_pad, mesh)
+        else:
+            _, surv_pos, _ = self._survivors(kmer_filter_func)
+            rag_pos, rag_pad, sorted_words = sample_sort_positions_ragged(
+                packed, surv_pos, dc.seg_starts, dc.seg_ends, kmer_len, mesh,
+                packed2=packed2, return_lanes=True,
+            )
+        size, qualifies, total = distributed_group_size_histogram_ragged(
+            packed, rag_pos, rag_pad, dc.seg_starts, dc.seg_ends, kmer_len, mesh,
+            min_group_size=min_group_size, max_group_size=max_group_size, packed2=packed2,
+            strand_split=strand_split, sorted_words=sorted_words, mask=mask,
+            return_sizes=True,
+        )
+        counts = distributed_hist_from_sizes(size, qualifies, max_counts_bin, mesh)
+        return counts.cpu().numpy().astype(np.int64), total
+
+    def _mesh_filter_masks(self, kmer_filter_func, positions, is_pad, mesh) -> list:
+        """A library filter over the sharded rows by its plane or window
+        route: its raise check shard by shard in shard order over the valid
+        rows only (``FilterContext.valid_rows``), so the first offending row
+        in global sorted order raises, as in the reference's walk; then its
+        survivor mask per shard. Pad rows read position 0 here."""
+        dc = self._dc()
+        shared = {}
+        ctxs = []
+        for p, (pos, pad) in enumerate(zip(positions, is_pad)):
+            scans = _ShardScans(dc, mesh, p, shared)
+            pos = torch.where(pad, 0, pos)
+            valid_len = compute_valid_len(pos, scans.seg_starts, scans.seg_ends)
+            ctx = FilterContext(
+                self._host_sba(), pos, valid_len, sba_dev=lambda s=scans: s.sba,
+                valid_rows=~pad, scans=scans,
+            )
+            kmer_filter_func.check_batch(ctx)
+            ctxs.append(ctx)
+        return [kmer_filter_func.mask_pure(ctx) for ctx in ctxs]
 
     # ------------------------------------------------------------------ #
     # k-mer strings (host)
@@ -1489,9 +1694,16 @@ class Kmers:
     # sort
     # ------------------------------------------------------------------ #
 
-    def sort(self, mesh=None, on_round=None):
+    def sort(self, mesh=None, on_round=None, on_step=None, mesh_info=None):
         """Sort the index lexicographically by the k-mers it defines, on the
         collection's device. Equal k-mers end up ordered by start index.
+
+        ``mesh`` (parallel.make_mesh) runs the sample sort over the mesh
+        instead (parallel/sample_sort.py), at a bounded ``max_kmer_len``
+        within one compare window: gather-free over every SBA position for
+        the fresh index, by gathered keys otherwise. The index keeps the
+        ragged layout for the mesh statistics and queries; ``on_step`` and
+        ``mesh_info`` see ``sample_sort_positions_ragged``.
 
         The fresh index sorts gather-free over every SBA position: 2-bit
         keys at max_kmer_len <= 64 on an ACGT genome, else 4-bit keys at
@@ -1506,9 +1718,11 @@ class Kmers:
         module doc); a sort within one window has no rounds."""
         self._check_forward_only()
         if mesh is not None:
-            raise _not_ported("Kmers.sort(mesh=...)", "A11: torch.distributed")
+            self._sort_mesh(mesh, on_step, mesh_info)
+            return
         self._lanes_cache = None  # every branch below re-establishes or clears
         self._suffix_gid_cache = None
+        self._dist_cache = None
         dc = self._dc()
         uniform = self.max_kmer_len is not None and self.min_kmer_len == self.max_kmer_len
 
@@ -1553,6 +1767,58 @@ class Kmers:
             )
         self._pos_host = None
         self._init_geometry = None  # no longer describes the (sorted) order
+        self._is_sorted = True
+
+    def _sort_mesh(self, mesh, on_step, info) -> None:
+        """``sort(mesh=...)``: the dense sample sort of the fresh index, or
+        the gather sample sort of any other, within one compare window (2-bit
+        keys on an ACGT genome: k <= 64; else 4-bit: k <= 32)."""
+        self._lanes_cache = None
+        self._suffix_gid_cache = None
+        self._dist_cache = None
+        dc = self._dc()
+        max_k = self.max_kmer_len
+        uniform = max_k is not None and self.min_kmer_len == max_k
+        beyond = _not_ported(
+            "Kmers.sort(mesh=...) with max_kmer_len None or beyond one compare window",
+            _MESH_ITEM,
+        )
+        if self._init_geometry is not None and int(self._init_geometry[2]) > 1:
+            n = int(self._init_geometry[2])
+            use2 = max_k is not None and max_k <= WINDOW2_BASES and dc.packed2 is not None
+            if max_k is None or max_k > (WINDOW2_BASES if use2 else WINDOW_BASES):
+                raise beyond
+            pos, pad, lanes = sample_sort_positions_dense_ragged(
+                dc.packed2 if use2 else dc.packed, dc.seg_starts, dc.seg_ends, n,
+                self.min_kmer_len, max_k, mesh, two_bit=use2, uniform_cap=uniform,
+                return_lanes=True, on_step=on_step, info=info,
+            )
+        else:
+            positions = self._device_positions()
+            n = int(positions.shape[0])
+            if self.min_kmer_len > 1 and n:
+                valid_len = compute_valid_len(positions, dc.seg_starts, dc.seg_ends)
+                if int(valid_len.min()) < self.min_kmer_len:
+                    raise AssertionError(
+                        f"kmers compared were less than min_kmer_len ({self.min_kmer_len}).  Was kmer_sba_start_indices initialized correctly?"
+                    )
+            # 2-bit keys whenever the alphabet allows: the 4-bit pack is
+            # then never built
+            packed2 = dc.packed2
+            use2 = packed2 is not None
+            if max_k is None or max_k > (WINDOW2_BASES if use2 else WINDOW_BASES):
+                raise beyond
+            pos, pad, lanes = sample_sort_positions_ragged(
+                None if use2 else dc.packed, positions, dc.seg_starts, dc.seg_ends, max_k,
+                mesh, packed2=packed2, uniform_cap=uniform, return_lanes=True,
+                on_step=on_step, info=info,
+            )
+        self._dist_cache = _DistIndexCache(
+            mesh, pos, pad, n, lanes=lanes, lanes_two_bit=use2, built_k=max_k
+        )
+        self._pos_dev = None
+        self._pos_host = None
+        self._init_geometry = None
         self._is_sorted = True
 
     def get_is_less_than_func(self, validate_kmers: bool = True, break_ties: bool = False) -> Callable:
@@ -1608,8 +1874,18 @@ class Kmers:
             kmer_len = len(queries[0])
         if kmer_len < 1:
             raise ValueError(f"kmer_len ({kmer_len}) must be > 0")
-        self._check_mesh(mesh)
         dc = self._dc()
+        if mesh is not None:
+            # the layout a sort(mesh=...) kept, or the index cut into equal
+            # shards: a per-shard bound search and one psum
+            cache = self._dist_cache
+            if cache is not None and cache.mesh == mesh:
+                pos, pad = cache.positions, cache.is_pad
+            else:
+                pos, pad = shard_evenly(self._device_positions(), mesh)
+            return distributed_count_queries(
+                dc.packed, pos, pad, dc.seg_starts, dc.seg_ends, queries, kmer_len, mesh
+            )
         positions = self._device_positions()
         cap = cap_lengths(compute_valid_len(positions, dc.seg_starts, dc.seg_ends), kmer_len)
         q_words = encode_query_words(queries, kmer_len)
@@ -1660,7 +1936,8 @@ class Kmers:
                 f"kmer_len ({kmer_len}) must be in [1, {limit}]"
                 + ("" if two_bit else " (4-bit IUPAC lanes)")
             )
-        self._check_mesh(mesh)
+        if mesh is not None:
+            raise _not_ported("get_canonical_kmer_group_counts(mesh=...)", _MESH_ITEM)
         packed = dc.packed2 if two_bit else dc.packed
         if len(self) == 0:
             return np.zeros(max_counts_bin + 1, dtype=np.int64), 0
@@ -1677,17 +1954,333 @@ class Kmers:
         return counts.cpu().numpy().astype(np.int64), total
 
     # ------------------------------------------------------------------ #
-    # not ported yet
+    # persistence: the JAX package's schema (its kmers.py:2099-2213), group
+    # "kmers" in hdf5, plain keys in shelve; positions as uint32
     # ------------------------------------------------------------------ #
 
-    def save(self, *args, **kwargs):
-        raise _not_ported("Kmers.save", "A10: persistence")
+    def save(
+        self,
+        save_file_path,
+        include_sequence_collection: bool = False,
+        format: str = "hdf5",
+        mode: str = "w",
+    ) -> None:
+        """Write the index (and, with ``include_sequence_collection``, its
+        collection) to ``save_file_path``: ``format`` "hdf5" (needs h5py)
+        or "shelve"."""
+        if format == "hdf5":
+            self._save_hdf5(save_file_path, include_sequence_collection, mode=mode)
+        elif format == "shelve":
+            self._save_shelve(save_file_path, include_sequence_collection)
+        else:
+            raise ValueError(f"format ({format}) not recognized")
 
-    def load(self, *args, **kwargs):
-        raise _not_ported("Kmers.load", "A10: persistence")
+    def load(self, load_file_path, seq_coll=None, format: str = "hdf5", device="cuda") -> None:
+        """Replace this index with the file's. With ``seq_coll`` None the
+        collection is loaded from the same file onto ``device`` (default
+        "cuda", as ``SequenceCollection(device=...)``); else the index
+        takes ``seq_coll`` and its device. A loaded sorted index serves
+        statistics and queries with no re-sort (its key lanes are rebuilt
+        once, as for any assigned sorted index)."""
+        if format == "hdf5":
+            self._load_hdf5(load_file_path, seq_coll, device)
+        elif format == "shelve":
+            self._load_shelve(load_file_path, seq_coll, device)
+        else:
+            raise ValueError(f"format ({format}) not recognized")
+        self.device = self.seq_coll.device
 
-    def get_kmers_full_arrays(self, *args, **kwargs):
-        raise _not_ported("Kmers.get_kmers_full_arrays", "A10: persistence")
+    _set_for_export = staticmethod(SequenceCollection._set_for_export)
+    _correct_import = staticmethod(SequenceCollection._correct_import)
 
-    def to_csv(self, *args, **kwargs):
-        raise _not_ported("Kmers.to_csv", "A10: persistence")
+    def _save_hdf5(self, save_file_path, include_sequence_collection=False, mode="w") -> None:
+        import h5py
+
+        with h5py.File(save_file_path, mode) as file:
+            grp = file.create_group("kmers")
+            empty_start_indices = np.array([], dtype=np.uint32)
+            grp["min_kmer_len"] = self.min_kmer_len
+            grp["max_kmer_len"] = self._set_for_export(self.max_kmer_len, 0)
+            grp["kmer_source_strand"] = self.kmer_source_strand
+            grp["track_strands_separately"] = self.track_strands_separately
+            grp["_is_initialized"] = self._is_initialized
+            grp["_is_set"] = self._is_set
+            grp["_is_sorted"] = self._is_sorted
+            grp["kmer_sba_start_indices"] = self._set_for_export(
+                self.kmer_sba_start_indices, empty_start_indices
+            )
+        if include_sequence_collection:
+            self.seq_coll.save(save_file_path, mode="a", format="hdf5")
+
+    def _load_collection(self, load_file_path, seq_coll, device, format: str) -> None:
+        if seq_coll is None:
+            seq_coll = SequenceCollection(device=device)
+            seq_coll.load(load_file_path, format=format)
+        self.seq_coll = seq_coll
+
+    def _load_hdf5(self, load_file_path, seq_coll, device) -> None:
+        import h5py
+
+        with h5py.File(load_file_path, "r") as file:
+            grp = file["kmers"]
+            empty_start_indices = np.array([], dtype=np.uint32)
+            self.min_kmer_len = int(grp["min_kmer_len"][()])
+            self.max_kmer_len = self._correct_import(grp["max_kmer_len"][()], 0)
+            if self.max_kmer_len is not None:
+                self.max_kmer_len = int(self.max_kmer_len)
+            self.kmer_source_strand = grp["kmer_source_strand"][()].decode("utf-8")
+            # a persisted non-forward index came from from_strand(): restore
+            # its working mode
+            self._strand_extension = self.kmer_source_strand != "forward"
+            self.track_strands_separately = bool(grp["track_strands_separately"][()])
+            self._is_initialized = bool(grp["_is_initialized"][()])
+            self._is_set = bool(grp["_is_set"][()])
+            self._is_sorted = bool(grp["_is_sorted"][()])
+            self.kmer_sba_start_indices = self._correct_import(
+                grp["kmer_sba_start_indices"][:], empty_start_indices
+            )
+        self._load_collection(load_file_path, seq_coll, device, "hdf5")
+
+    def _save_shelve(self, save_file_path, include_sequence_collection=False) -> None:
+        with shelve.open(save_file_path) as db:
+            db["min_kmer_len"] = self.min_kmer_len
+            db["max_kmer_len"] = self.max_kmer_len
+            db["kmer_source_strand"] = self.kmer_source_strand
+            db["track_strands_separately"] = self.track_strands_separately
+            db["_is_initialized"] = self._is_initialized
+            db["_is_set"] = self._is_set
+            db["_is_sorted"] = self._is_sorted
+            db["kmer_sba_start_indices"] = self.kmer_sba_start_indices
+        if include_sequence_collection:
+            self.seq_coll.save(save_file_path, format="shelve")
+
+    def _load_shelve(self, load_file_path, seq_coll, device) -> None:
+        with shelve.open(load_file_path) as db:
+            self.min_kmer_len = db["min_kmer_len"]
+            self.max_kmer_len = db["max_kmer_len"]
+            self.kmer_source_strand = db["kmer_source_strand"]
+            self._strand_extension = self.kmer_source_strand != "forward"
+            self.track_strands_separately = db["track_strands_separately"]
+            self._is_initialized = db["_is_initialized"]
+            self._is_set = db["_is_set"]
+            self._is_sorted = db["_is_sorted"]
+            self.kmer_sba_start_indices = db["kmer_sba_start_indices"]
+        self._load_collection(load_file_path, seq_coll, device, "shelve")
+
+    # ------------------------------------------------------------------ #
+    # export
+    # ------------------------------------------------------------------ #
+
+    def _record_columns(self, pos: np.ndarray, one_based_seq_index: bool):
+        """Record lookup for int64 positions, all rows at once: (record_num,
+        strand U1, seq_start_idx, seg_end). seq_start_idx counts along the
+        forward sequence on either strand; record_num indexes
+        ``forward_record_names`` (``revcomp_record_names`` for a
+        reverse-complement index)."""
+        seg_starts = self._host_seg_starts().astype(np.int64)
+        seg_ids = np.searchsorted(seg_starts, pos, side="right") - 1
+        seg_s = seg_starts[seg_ids]
+        sba_len = len(self._host_sba())
+        seg_e = np.where(
+            seg_ids == len(seg_starts) - 1,
+            sba_len - 1,
+            seg_starts[np.minimum(seg_ids + 1, len(seg_starts) - 1)] - 2,
+        )
+        base = 1 if one_based_seq_index else 0
+        if self.kmer_source_strand == "reverse_complement":
+            # count from the segment's right edge on the revcomp strand
+            strand = np.full(len(pos), "-", dtype="U1")
+            seq_idx = seg_e - pos + base
+            record_num = seg_ids
+        elif self.kmer_source_strand == "both":
+            n_rec = len(self.seq_coll.forward_record_names)
+            rc_row = seg_ids >= n_rec
+            strand = np.where(rc_row, "-", "+").astype("U1")
+            seq_idx = np.where(rc_row, seg_e - pos, pos - seg_s) + base
+            # revcomp segment k is record R-1-k, so concatenated segment
+            # R+k maps to forward record 2R-1-(R+k)
+            record_num = np.where(rc_row, 2 * n_rec - 1 - seg_ids, seg_ids)
+        else:
+            strand = np.full(len(pos), "+", dtype="U1")
+            seq_idx = pos - seg_s + base
+            record_num = seg_ids
+        return record_num, strand, seq_idx, seg_e
+
+    def get_kmers_full_arrays(
+        self,
+        kmer_len: Union[int, None],
+        one_based_seq_index: bool = False,
+        kmer_filter_func: Callable = kmer_filter_keep_all,
+        min_group_size: int = 1,
+        max_group_size: Union[int, None] = None,
+        yield_first_n: Union[int, None] = None,
+    ) -> dict:
+        """Bulk form of ``get_kmers(kmer_info_to_yield="full")``: a dict of
+        aligned arrays in yield order: kmer_num, record_num, strand
+        ("+"/"-"), seq_start_idx (forward-sequence convention), kmer_len,
+        group_size_yielded, group_size_total."""
+        self._check_forward_only()
+        if kmer_len is not None and kmer_len < 1:
+            raise ValueError(f"kmer_len ({kmer_len}) must be > 0")
+        self._check_group_params_unsorted(min_group_size, max_group_size, yield_first_n)
+        surv_nums, surv_pos, yielded, gsy, gst = self._group_arrays(
+            kmer_len, kmer_filter_func, min_group_size, max_group_size, yield_first_n
+        )
+        sel = np.flatnonzero(yielded)
+        pos = surv_pos[sel].astype(np.int64)
+        record_num, strand, seq_idx, seg_e = self._record_columns(pos, one_based_seq_index)
+        if kmer_len is None:
+            out_len = seg_e - pos + 1
+        else:
+            if (pos + kmer_len - 1 > seg_e).any():
+                bad = int(sel[np.flatnonzero(pos + kmer_len - 1 > seg_e)[0]])
+                raise ValueError(
+                    f"kmer_len ({kmer_len}) for kmer_num ({int(surv_nums[bad])}) extends beyond the end of the segment"
+                )
+            out_len = np.full(len(pos), kmer_len, dtype=np.int64)
+        return {
+            "kmer_num": surv_nums[sel].astype(np.int64),
+            "record_num": record_num.astype(np.int64),
+            "strand": strand,
+            "seq_start_idx": seq_idx,
+            "kmer_len": out_len,
+            "group_size_yielded": gsy[sel].astype(np.int64),
+            "group_size_total": gst[sel].astype(np.int64),
+        }
+
+    def to_csv(self, kmer_len, output_file_path, fields=("kmer",)):
+        """Write k-mers to CSV, one row a yielded k-mer in index order.
+        Fields: "kmer", "kmer_num", "chrom", "start", "strand",
+        "group_size". The bytes are those of ``_to_csv_row_loop`` (the
+        reference-shaped writer), raises included, written by a columnar
+        writer (``io/csv_out.py``: pyarrow, else pandas) over one bulk
+        record lookup and one native decode of the k-mer strings."""
+        fields = list(fields)
+        allowed = {"kmer", "kmer_num", "chrom", "start", "strand", "group_size"}
+        bad = set(fields) - allowed
+        if bad:
+            raise ValueError(f"unrecognized fields: {sorted(bad)}")
+        need_full = bool({"chrom", "start", "strand"} & set(fields))
+        names = (
+            self.seq_coll.revcomp_record_names
+            if self.kmer_source_strand == "reverse_complement"
+            else self.seq_coll.forward_record_names
+        )
+        seg_e = None
+        if "group_size" not in fields:
+            # with default group parameters every k-mer is yielded in index
+            # order: no group pass is needed
+            nums = np.arange(len(self), dtype=np.int64)
+            pos64 = self.kmer_sba_start_indices.astype(np.int64)
+            gst_arr = None
+            record_num, strand_col, seq_idx, seg_e = self._record_columns(pos64, False)
+            # the row loop reaches a per-row length check only when it
+            # decodes a k-mer or yields full info: a bare kmer_num run never
+            # raises, so neither does this
+            if (
+                kmer_len is not None
+                and (need_full or "kmer" in set(fields))
+                and (pos64 + kmer_len - 1 > seg_e).any()
+            ):
+                bad = int(nums[np.flatnonzero(pos64 + kmer_len - 1 > seg_e)[0]])
+                raise ValueError(
+                    f"kmer_len ({kmer_len}) for kmer_num ({bad}) extends beyond the end of the segment"
+                )
+            arrs = {"record_num": record_num, "strand": strand_col, "seq_start_idx": seq_idx}
+        else:
+            arrs = self.get_kmers_full_arrays(kmer_len) if need_full else None
+            if need_full:
+                nums = arrs["kmer_num"]
+                gst_arr = arrs["group_size_total"]
+            else:
+                nums, _, _, gst_arr = self.get_kmers_arrays(kmer_len)
+        var_kmer = None  # (data, offsets) when kmer_len is None
+        cols = {}
+        for field in dict.fromkeys(fields):
+            if field == "kmer":
+                cols[field], var_kmer = self._kmer_column(kmer_len, nums, seg_e, need_full)
+            elif field == "kmer_num":
+                cols[field] = nums
+            elif field == "chrom":
+                cols[field] = arrs["record_num"]  # ids; the writer maps them to names
+            elif field == "start":
+                cols[field] = arrs["seq_start_idx"]
+            elif field == "strand":
+                cols[field] = arrs["strand"]
+            elif field == "group_size":
+                cols[field] = gst_arr
+        write_csv_columnar(cols, fields, names, kmer_len, var_kmer, output_file_path)
+
+    def _kmer_column(self, kmer_len, nums, seg_e, need_full):
+        """(kmer column, (data, offsets) or None) of ``to_csv``: fixed-width
+        ``S{kmer_len}`` strings, or at ``kmer_len=None`` a variable-width
+        byte column, with the row loop's raises."""
+        sba = self._host_sba()
+        pos = self.kmer_sba_start_indices[nums].astype(np.int64)
+        if kmer_len is not None:
+            if seg_e is None:
+                # the group_size routes skipped the upfront check
+                bad_rows = np.flatnonzero(pos + kmer_len - 1 > self._segment_ends(pos))
+                if bad_rows.size:
+                    raise ValueError(
+                        f"kmer_len ({kmer_len}) for kmer_num ({int(nums[bad_rows[0]])}) extends beyond the end of the segment"
+                    )
+            return decode_rows_native(sba, pos, kmer_len).view(f"S{kmer_len}").ravel(), None
+        if seg_e is None:
+            seg_e = self._segment_ends(pos)
+        lens = seg_e - pos + 1
+        if need_full:
+            # the row loop hands the unclamped full-info length to
+            # get_kmer_str, which checks it against min and max per row
+            viol_min = lens < self.min_kmer_len
+            viol_max = (
+                (lens > self.max_kmer_len)
+                if self.max_kmer_len is not None
+                else np.zeros_like(viol_min)
+            )
+            viol = np.flatnonzero(viol_min | viol_max)
+            if viol.size:
+                r = int(viol[0])
+                if viol_min[r]:
+                    raise ValueError(
+                        f"kmer_len ({int(lens[r])}) is less than min_kmer_len ({self.min_kmer_len})"
+                    )
+                raise ValueError(
+                    f"kmer_len ({int(lens[r])}) is greater than max_kmer_len ({self.max_kmer_len})"
+                )
+        elif self.max_kmer_len is not None:
+            lens = np.minimum(lens, self.max_kmer_len)  # get_kmer_str(num, None) clamps
+        var_kmer = decode_rows_var_native(sba, pos, lens)
+        return var_kmer, var_kmer
+
+    def _to_csv_row_loop(self, kmer_len, output_file_path, fields=("kmer",)):
+        """The reference-shaped writer, one Python row at a time (the
+        generator walk and ``get_kmer_str`` per k-mer): the plain version of
+        ``to_csv``, which must write the same bytes."""
+        fields = list(fields)
+        need_full = bool({"chrom", "start", "strand"} & set(fields))
+        info_kind = "full" if need_full else "minimum"
+        with open(output_file_path, "w") as f:
+            f.write(",".join(fields) + "\n")
+            for info in self.get_kmers(kmer_len, kmer_info_to_yield=info_kind):
+                if need_full:
+                    kmer_num, strand, chrom, start, klen, gsy, gst = info
+                else:
+                    kmer_num, gsy, gst = info
+                    strand = chrom = start = None
+                    klen = kmer_len
+                row = []
+                for field in fields:
+                    if field == "kmer":
+                        row.append(self.get_kmer_str(kmer_num, klen))
+                    elif field == "kmer_num":
+                        row.append(str(kmer_num))
+                    elif field == "chrom":
+                        row.append(str(chrom))
+                    elif field == "start":
+                        row.append(str(start))
+                    elif field == "strand":
+                        row.append(str(strand))
+                    elif field == "group_size":
+                        row.append(str(gst))
+                f.write(",".join(row) + "\n")

@@ -65,14 +65,21 @@ _NO_AMB = (1 << 31) - 1
 class FilterContext:
     """Per-call context handed to ``batch_mask``: the SBA, the k-mer start
     positions and their valid lengths (int64 tensors on one device), and
-    the genome scans, computed lazily and shared between filters."""
+    the genome scans, computed lazily and shared between filters.
 
-    def __init__(self, sba_u8: np.ndarray, positions, valid_len, sba_dev=None, scans=None):
+    ``valid_rows`` (a bool tensor beside the positions, or None for all)
+    names the rows the raise checks consider: the mesh path's ragged
+    layouts carry pad rows, whose positions stand in for no k-mer. The mask
+    (``mask_pure``) is computed for every row regardless."""
+
+    def __init__(self, sba_u8: np.ndarray, positions, valid_len, sba_dev=None, scans=None,
+                 valid_rows=None):
         self.sba_np = sba_u8
         self.sba_len = int(len(sba_u8))
         self._sba_dev = sba_dev
         self.positions = positions
         self.valid_len = valid_len
+        self.valid_rows = valid_rows
         # scans: optional provider of gc_cumsum / run_len / next_amb /
         # filter_flags (the SequenceCollection device cache), so the genome
         # scans are computed once per strand and not once per query
@@ -80,6 +87,10 @@ class FilterContext:
         self._gc_cumsum = None
         self._run_len = None
         self._next_amb = None
+
+    def _rows(self, condition: torch.Tensor) -> torch.Tensor:
+        """A raise condition restricted to the valid rows."""
+        return condition if self.valid_rows is None else condition & self.valid_rows
 
     @property
     def sba(self) -> torch.Tensor:
@@ -644,8 +655,10 @@ def _first_row(cond: torch.Tensor) -> torch.Tensor:
 
 
 def _first_true_pos(ctx: FilterContext, cond):
-    """Position of the first row (in index order) satisfying ``cond``, or
-    None: one scalar read when no row does, one more when one does."""
+    """Position of the first valid row (in index order) satisfying
+    ``cond``, or None: one scalar read when no row does, one more when one
+    does."""
+    cond = ctx._rows(cond)
     if not bool(torch.any(cond)):
         return None
     return int(ctx.positions[_first_row(cond)])
@@ -657,6 +670,7 @@ def _first_offender(ctx: FilterContext, conds):
     earlier-listed condition, the scalar filter's check order: the
     reference's walk raises at the first offending row, not at the
     highest-priority condition over the batch."""
+    conds = [ctx._rows(cond) for cond in conds]
     combined = conds[0]
     for cond in conds[1:]:
         combined = combined | cond
@@ -1095,7 +1109,7 @@ class CrisprNggPamFilter(KmerFilter):
         ] == ord("G")
 
     def check_batch(self, ctx):
-        if ctx.positions.shape[0] and bool(torch.any(_overflow_cond(ctx, 22))):
+        if ctx.positions.shape[0] and bool(torch.any(ctx._rows(_overflow_cond(ctx, 22)))):
             raise ValueError(_GUIDE_BEYOND)
 
     def _plane_spec(self):

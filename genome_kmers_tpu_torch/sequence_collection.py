@@ -13,6 +13,8 @@ filters' genome scans and flag planes (ops/filters.py).
 
 from __future__ import annotations
 
+import pickle
+import shelve
 from collections import Counter
 from pathlib import Path
 from typing import Callable, List, Union
@@ -797,12 +799,112 @@ class SequenceCollection:
     # persistence
     # ------------------------------------------------------------------ #
 
+    # The JAX package's schema (its sequence_collection.py:930-1013): group
+    # "seq_coll" in hdf5, keys "seq_coll.<member>" in shelve, the same
+    # dataset names, dtypes and sentinels for None, so a file either package
+    # writes loads into the other. Loading replaces the host arrays and
+    # drops the device cache: the next device call uploads to this
+    # collection's own device.
+
+    @staticmethod
+    def _set_for_export(value, value_if_none):
+        return value_if_none if value is None else value
+
+    @staticmethod
+    def _correct_import(value, value_if_none):
+        if isinstance(value, np.ndarray):
+            if value.shape == (0,):
+                return None
+        elif value == value_if_none:
+            return None
+        return value
+
     def save(self, save_file_path, mode: str = "a", format: str = "hdf5") -> None:
-        raise NotImplementedError(
-            "SequenceCollection.save is not ported yet (ROADMAP.md A10: persistence)"
-        )
+        """Write the collection to ``save_file_path``: ``format`` "hdf5"
+        (needs h5py; ``mode`` is the file's open mode) or "shelve"."""
+        if format == "hdf5":
+            self._save_hdf5(save_file_path, mode=mode)
+        elif format == "shelve":
+            self._save_shelve(save_file_path)
+        else:
+            raise ValueError(f"format ({format}) not recognized")
 
     def load(self, load_file_path, format: str = "hdf5"):
-        raise NotImplementedError(
-            "SequenceCollection.load is not ported yet (ROADMAP.md A10: persistence)"
-        )
+        """Replace this collection's contents with the file's."""
+        if format == "hdf5":
+            self._load_h5py(load_file_path)
+        elif format == "shelve":
+            self._load_shelve(load_file_path)
+        else:
+            raise ValueError(f"format ({format}) not recognized")
+
+    def _save_hdf5(self, save_file_path, mode: str = "a") -> None:
+        import h5py
+
+        with h5py.File(save_file_path, mode) as file:
+            grp = file.create_group("seq_coll")
+            grp["forward_sba"] = self._set_for_export(
+                self.forward_sba, np.array([], dtype=np.uint8)
+            )
+            grp["_forward_sba_seg_starts"] = self._set_for_export(self._forward_sba_seg_starts, [])
+            grp["forward_record_names"] = self._set_for_export(self.forward_record_names, [])
+            grp["revcomp_sba"] = self._set_for_export(
+                self.revcomp_sba, np.array([], dtype=np.uint8)
+            )
+            grp["_revcomp_sba_seg_starts"] = self._set_for_export(self._revcomp_sba_seg_starts, [])
+            grp["revcomp_record_names"] = self._set_for_export(self.revcomp_record_names, [])
+            grp["_strands_loaded"] = self._set_for_export(self._strands_loaded, "")
+            grp["_fasta_file_path"] = str(self._set_for_export(self._fasta_file_path, ""))
+
+    def _load_h5py(self, load_file_path):
+        import h5py
+
+        with h5py.File(load_file_path, "r") as file:
+            grp = file["seq_coll"]
+            empty_sba = np.array([], dtype=np.uint8)
+            self.forward_sba = self._correct_import(grp["forward_sba"][:], empty_sba)
+            self._forward_sba_seg_starts = self._correct_import(
+                grp["_forward_sba_seg_starts"][:], []
+            )
+            self.forward_record_names = [v.decode("utf-8") for v in grp["forward_record_names"]]
+            self.forward_record_names = self._correct_import(self.forward_record_names, [])
+            self.revcomp_sba = self._correct_import(grp["revcomp_sba"][:], empty_sba)
+            self._revcomp_sba_seg_starts = self._correct_import(
+                grp["_revcomp_sba_seg_starts"][:], []
+            )
+            self.revcomp_record_names = [v.decode("utf-8") for v in grp["revcomp_record_names"]]
+            self.revcomp_record_names = self._correct_import(self.revcomp_record_names, [])
+            self._strands_loaded = self._correct_import(
+                grp["_strands_loaded"][()].decode("utf-8"), ""
+            )
+            self._fasta_file_path = self._correct_import(
+                grp["_fasta_file_path"][()].decode("utf-8"), ""
+            )
+            if self._fasta_file_path is not None:
+                self._fasta_file_path = Path(self._fasta_file_path)
+            self._initialize_mapping_arrays()
+            self._invalidate_device_cache()
+
+    def _save_shelve(self, save_file_path) -> None:
+        with shelve.open(save_file_path, protocol=pickle.DEFAULT_PROTOCOL) as db:
+            db["seq_coll.forward_sba"] = self.forward_sba
+            db["seq_coll._forward_sba_seg_starts"] = self._forward_sba_seg_starts
+            db["seq_coll.forward_record_names"] = self.forward_record_names
+            db["seq_coll.revcomp_sba"] = self.revcomp_sba
+            db["seq_coll._revcomp_sba_seg_starts"] = self._revcomp_sba_seg_starts
+            db["seq_coll.revcomp_record_names"] = self.revcomp_record_names
+            db["seq_coll._strands_loaded"] = self._strands_loaded
+            db["seq_coll._fasta_file_path"] = self._fasta_file_path
+
+    def _load_shelve(self, load_file_path):
+        with shelve.open(load_file_path) as db:
+            self.forward_sba = db["seq_coll.forward_sba"]
+            self._forward_sba_seg_starts = db["seq_coll._forward_sba_seg_starts"]
+            self.forward_record_names = db["seq_coll.forward_record_names"]
+            self.revcomp_sba = db["seq_coll.revcomp_sba"]
+            self._revcomp_sba_seg_starts = db["seq_coll._revcomp_sba_seg_starts"]
+            self.revcomp_record_names = db["seq_coll.revcomp_record_names"]
+            self._strands_loaded = db["seq_coll._strands_loaded"]
+            self._fasta_file_path = db["seq_coll._fasta_file_path"]
+            self._initialize_mapping_arrays()
+            self._invalidate_device_cache()

@@ -3,7 +3,8 @@
 ``Kmers.__eq__`` / ``__ne__``, ``get_kmer_str_no_checks``,
 ``get_is_less_than_func``, ``generate_get_kmer_info_func``, the
 ``__getitem__`` stub, the reference documentation's goldens through them,
-the A10 methods that still raise, and the collection-side module functions
+the A10 export methods (ported since; held against the JAX package), and
+the collection-side module functions
 and attributes (``bisect_right``, ``reverse_complement_sba``, the mapping
 arrays). Modelled on the JAX package's own tests of these methods
 (``tests/test_kmers.py``, ``tests/test_strand.py``,
@@ -193,10 +194,22 @@ def test_reference_goldens_through_get_kmer_str_no_checks():
 
 
 @pytest.mark.parametrize("method", ["get_kmers_full_arrays", "to_csv"])
-def test_persistence_and_export_raise_naming_a10(method):
+def test_persistence_and_export_raise_naming_a10(method, tmp_path):
+    """The A10 export methods once raised naming A10; ported, they give the
+    JAX package's output on the reference's golden genome."""
     km = gt.Kmers(gt.SequenceCollection(sequence_list=SEQ_LIST_2, device="cpu"), 3, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10: persistence"):
-        getattr(km, method)(3, "x.csv")
+    jk = gj.Kmers(gj.SequenceCollection(sequence_list=SEQ_LIST_2), 3, 3)
+    km.sort()
+    jk.sort()
+    if method == "to_csv":
+        fields = ["kmer", "chrom", "start", "strand", "group_size"]
+        km.to_csv(3, str(tmp_path / "port.csv"), fields)
+        jk.to_csv(3, str(tmp_path / "jax.csv"), fields)
+        assert (tmp_path / "port.csv").read_bytes() == (tmp_path / "jax.csv").read_bytes()
+        return
+    got, want = km.get_kmers_full_arrays(3, True), jk.get_kmers_full_arrays(3, True)
+    assert list(got) == list(want)
+    assert all(np.array_equal(got[k], want[k]) and got[k].dtype == want[k].dtype for k in want)
 
 
 # --------------------------------------------------------------------------- #

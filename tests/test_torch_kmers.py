@@ -513,19 +513,41 @@ def test_filter_calls_once_out_of_slice_now_match_jax(call):
     assert got == want and want[0] is NotImplementedError
 
 
+def _cpu_mesh():
+    from genome_kmers_tpu_torch.parallel import make_mesh
+
+    return make_mesh(devices=["cpu"] * 2)
+
+
+def _large_sort_sweep():
+    from genome_kmers_tpu_torch.profiling import profile_large_sort
+
+    return profile_large_sort([100])
+
+
+def _mesh2():
+    from genome_kmers_tpu_torch.parallel import make_mesh2
+
+    return make_mesh2(1, 2)
+
+
+# Persistence, export and the bounded mesh calls were out of the slice once
+# and are ported (tests/test_torch_persistence.py, test_torch_mesh.py); the
+# calls below are what still lies outside it.
 @pytest.mark.parametrize(
     "call",
     [
-        lambda sc, km: km.sort(mesh=object()),
+        lambda sc, km: gt.Kmers(sc, 3, None).sort(mesh=_cpu_mesh()),
         lambda sc, km: gt.LargeKmers(sc, 3, 3),
-        lambda sc, km: sc.save("x.h5"),
-        lambda sc, km: sc.load("x.h5"),
-        lambda sc, km: km.save("x.h5"),
-        lambda sc, km: km.load("x.h5"),
-        lambda sc, km: km.get_kmers_full_arrays(3),
-        lambda sc, km: (km.sort(), km.count_queries(["ACG"], 3, mesh=object())),
+        lambda sc, km: gt.Kmers(sc, 3, 70).sort(mesh=_cpu_mesh()),
+        lambda sc, km: (km.sort(mesh=_cpu_mesh()), km.get_kmer_count(None, mesh=_cpu_mesh())),
+        lambda sc, km: (km.sort(), km.get_kmer_group_counts(None, mesh=_cpu_mesh())),
+        lambda sc, km: (km.sort(), km.get_kmer_count(70, mesh=_cpu_mesh())),
+        lambda sc, km: _mesh2(),
+        lambda sc, km: _large_sort_sweep(),
         lambda sc, km: km.get_canonical_kmer_group_counts(3, mesh=object()),
-        lambda sc, km: (km.sort(), km.get_kmer_group_counts(3, mesh=object())),
+        lambda sc, km: (km.sort(mesh=_cpu_mesh()),
+                        km.get_canonical_kmer_group_counts(3, mesh=_cpu_mesh())),
     ],
 )
 def test_out_of_slice_calls_raise_not_implemented(call):

@@ -222,12 +222,17 @@ def test_count_query_errors_match_jax(call):
 
 
 def test_count_queries_over_a_mesh_are_not_ported():
+    """Once refused naming A11, the mesh queries are ported: over a mesh of
+    the CPU they count as the single device does (tests/test_torch_mesh.py
+    holds them against the JAX package's)."""
+    from genome_kmers_tpu_torch.parallel import make_mesh
+
     tk = gt.Kmers(gt.SequenceCollection(sequence_list=[("a", "ACGTACGTTTGA")], device="cpu"), 3, 3)
     tk.sort()
-    with pytest.raises(NotImplementedError, match="A11"):
-        tk.count_queries(["ACG"], mesh=object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        tk.count_queries_canonical(["ACG"], mesh=object())
+    mesh = make_mesh(devices=["cpu"] * 3)
+    qs = ["ACG", "CGT", "TTG", "GGG"]
+    assert np.array_equal(tk.count_queries(qs, mesh=mesh), tk.count_queries(qs))
+    assert np.array_equal(tk.count_queries_canonical(qs, mesh=mesh), tk.count_queries_canonical(qs))
 
 
 def test_count_queries_on_an_assigned_sorted_index_match_jax():
