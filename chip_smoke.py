@@ -148,6 +148,28 @@ Phases, each of which raises (exit code 1) on failure:
     against a NumPy oracle, and at 2^18 bp to_csv against its row loop;
     the profiling sweep of the index build at 2^20 bp, where pandas imports.
 
+17. The mesh beyond one compare window, on the mesh of phase 15 and
+    collections of its own rebuilt from phase 4's and phase 5's host arrays:
+    ACGT suffix mode Kmers(sc, 1, None).sort(mesh=m) at 2^27 bp, timed round
+    by round and step by step, cold and warm: its real rows must be phase
+    9's sorted suffixes; get_kmer_group_counts(None, mesh=m) from the kept
+    run ids (no refinement round, no sort) must be phase 9's histogram, and
+    at 31 phase 9's too. Kmers(sc, 100, 100) on the ACGT genome and (48, 48)
+    on the IUPAC genome at 2^27 SBA bytes against phase 10's sorts and
+    histograms, at the built length and at 80 / 40 (the run structure over
+    the kept layout, no sort). IUPAC suffix mode against one card's sort at
+    2^20 bp and larger sizes while a mesh sort stays within about 30 s (the
+    rounds number the longest N stretch / 32; the sizes and rounds are
+    printed). get_canonical_kmer_group_counts(31, mesh=m) on the fresh
+    (dense route) and the sorted index (gather route) of both genomes
+    against phase 14's counts. make_mesh2(2, 2) on one card: the (31, 31)
+    layout at 2^27 bp and the suffix layout at 2^24 bp byte for byte the
+    1-D mesh's. The refinement retry (4 samples a shard, capacity factor
+    0.05) on a repeat-heavy genome of 2^16 bp, 2-bit and 4-bit keys, against
+    one card's sort. Both kernels must launch (the pack on the ACGT
+    collections; the lane sort in every round's local sort, splitter sort
+    and merge, and in every canonical sort).
+
 ``--profile DIR`` adds a warm second run of phase 5's calls and of phase 9's,
 and a canonical dense-route call and a count_queries call of phase 14 on
 each genome, under torch.profiler and writes the device time by kernel to
@@ -203,6 +225,8 @@ from genome_kmers_tpu_torch.ops.sort import sort_lanes
 from genome_kmers_tpu_torch.parallel import (
     load_kmers_sharded,
     make_mesh,
+    make_mesh2,
+    sample_sort_positions_unbounded,
     save_kmers_sharded,
 )
 
@@ -224,6 +248,10 @@ QUERY_WITH_N = 1024  # k-mers with an N, on the IUPAC genome
 MESH_SHARDS = 4  # phase 15: shards of one card
 MESH_QUERIES = 1 << 14
 RETRY_BP = 1 << 16
+# phase 17: IUPAC suffix mode on the mesh, sizes tried in turn while a sort
+# stays within about 30 s (its rounds number the longest N stretch / 32)
+MESH_SUFFIX4_BPS = (1 << 20, 1 << 22, 1 << 24, 1 << 26)
+MESH2_SUFFIX_BP = 1 << 24  # phase 17: suffix mode on the 2-D mesh against the 1-D one
 EXPORT_BP = 1 << 20  # phase 16: full arrays and to_csv against a NumPy oracle
 ROW_LOOP_BP = 1 << 18  # phase 16: to_csv against its row loop (17 us a row on a host core)
 # end to end of phases 4 and 5 when the FASTA went through the NumPy parser
@@ -653,21 +681,23 @@ def tied_lanes(rng, n_lanes: int, n: int, dev):
     return tuple(torch.from_numpy(lane.view(np.int32)).to(dev) for lane in lanes)
 
 
-def round_lanes(seed: int, n_lanes: int, n: int, dev):
+def round_lanes(seed: int, n_lanes: int, n: int, dev, payload: bool = True):
     """The lanes of a refinement round, made on the card: heavily tied
-    leading lanes (run id or invalid flag, then key words; a quarter of the
-    values mirrored to the top of the uint32 range), a permutation (the
-    position) and behind it a tied lane (the cap), as int32 bit patterns."""
+    leading lanes (run id or invalid flag, then key words and, without a
+    payload, the cap; a quarter of the values mirrored to the top of the
+    uint32 range), a permutation (the position) and, with ``payload``,
+    behind it a tied lane (the cap), as int32 bit patterns."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     lanes = []
-    for lane in range(n_lanes - 2):
+    for lane in range(n_lanes - (2 if payload else 1)):
         vals = torch.randint(0, 40 if lane == 0 else 3, (n,), dtype=torch.int32, device=dev,
                              generator=gen)
         high = torch.rand(n, device=dev, generator=gen) < 0.25
         lanes.append(torch.where(high, -1 - vals, vals))  # -1 - v is 0xFFFFFFFF - v
     lanes.append(torch.randperm(n, device=dev, generator=gen).to(torch.int32))
-    lanes.append(torch.randint(0, 3, (n,), dtype=torch.int32, device=dev, generator=gen))
+    if payload:
+        lanes.append(torch.randint(0, 3, (n,), dtype=torch.int32, device=dev, generator=gen))
     return tuple(lanes)
 
 
@@ -738,12 +768,18 @@ def phase_lane_sort_kernel(rng) -> dict:
     # the same at the shapes the full-width rounds give the kernel: 2^27
     # rows of 7 lanes (the 4-bit rounds: invalid flag or run id, four words,
     # position, cap) and of 6 lanes (the 2-bit window rounds: run id, two
-    # words, in-window cap, position, cap)
-    for n_lanes in (7, 6):
-        lanes = round_lanes(SEED + n_lanes, n_lanes, MAIN_BP, dev)
-        (_, seconds) = sync_time(lambda: check_lane_sort(lanes, f"2^27 rows x {n_lanes} lanes with a payload"))
-        log(f"lane sort, 2^27 rows x {n_lanes} lanes, tied keys, position, tied payload behind it: "
-            f"bitwise equal to the plain version (checked in {seconds:.2f} s)")
+    # words, in-window cap, position, cap); and the mesh's: 2^27 rows of 5
+    # lanes (a 2-bit refinement round once every row sits on shard 0: run
+    # id, two words, cap, position) and 2^25 rows of 4 lanes (a shard of
+    # the ACGT canonical mesh sort: invalid flag, two words, position)
+    for n_lanes, n, payload in ((7, MAIN_BP, True), (6, MAIN_BP, True),
+                                (5, MAIN_BP, False), (4, MAIN_BP // MESH_SHARDS, False)):
+        lanes = round_lanes(SEED + n_lanes, n_lanes, n, dev, payload)
+        what = f"2^{n.bit_length() - 1} rows x {n_lanes} lanes"
+        behind = ", tied payload behind it" if payload else " last"
+        (_, seconds) = sync_time(lambda: check_lane_sort(lanes, what))
+        log(f"lane sort, {what}, tied keys, position{behind}: bitwise equal to the plain version "
+            f"(checked in {seconds:.2f} s)")
         del lanes
         torch.cuda.empty_cache()
     # the main path's shape: 2^27 rows of (invalid, four words, position)
@@ -1114,9 +1150,11 @@ def run_suffix_calls(host_sc):
     return sc, km, rounds, times, counts, counts31
 
 
-def phase_suffix_main(host_sc, main_counts31, rng, profile_dir) -> dict:
+def phase_suffix_main(host_sc, main_counts31, rng, profile_dir):
     """Suffix mode at full width on a main path's genome; returns the
-    launches of both kernels in it. The ACGT genome's rounds all have
+    launches of both kernels in it, and the sorted positions, the
+    histograms at None and at 31 and the seconds of the sort (phase 17's
+    reference). The ACGT genome's rounds all have
     64-bit keys (a folded first round, then prefix doubling) and take
     torch.sort, so of the two kernels that path launches the pack alone;
     the IUPAC genome's first round is seven lanes through the multi-lane
@@ -1154,6 +1192,8 @@ def phase_suffix_main(host_sc, main_counts31, rng, profile_dir) -> dict:
     log(f"{label}: get_kmer_group_counts(31) over gathered keys equals the (31, 31) main "
         "path's histogram plus the 30 shorter k-mers at each record's end")
     check_refined_index(km, sc, rng, label)
+    reference = {"positions": km.kmer_sba_start_indices.copy(), "counts": counts,
+                 "counts31": counts31, "seconds": times["sort"]}
     if two_bit:  # what every round pays for its run ids
         mask = km.suffix_run_ids > 1
         ms = cuda_ms(lambda: torch.cumsum(mask, dim=0), reps=5, warmup=1)
@@ -1177,23 +1217,26 @@ def phase_suffix_main(host_sc, main_counts31, rng, profile_dir) -> dict:
             + ", ".join(f"{name} {t:.4f}" for name, t in times.items()))
         log(f"{label}, profiled warm run: {rounds.summary()}")
         write_profile(prof, Path(profile_dir) / "suffix_main_path_kernels.txt")
-    return launches
+    return launches, reference
 
 
-def phase_beyond_window(sc_acgt, sc_iupac, rng) -> dict:
+def phase_beyond_window(sc_acgt, sc_iupac, rng):
     """Bounded k-mers longer than one compare window at full width: window
-    rounds through the multi-lane sort kernel. Returns its launches."""
-    launches = {}
-    for sc, k, first, later, max_rounds in (
-        (sc_acgt, 100, "_first_round_dense2", "_sort_round2", 4),
-        (sc_iupac, 48, "_first_round_dense", "_sort_round", 2),
+    rounds through the multi-lane sort kernel. Returns its launches, and
+    for each genome the sorted positions and the histograms at the built
+    length and at a second length beyond one window (phase 17's
+    reference)."""
+    launches, reference = {}, {}
+    for sc, k, second, first, later, max_rounds in (
+        (sc_acgt, 100, 80, "_first_round_dense2", "_sort_round2", 4),
+        (sc_iupac, 48, 40, "_first_round_dense", "_sort_round", 2),
     ):
         label = f"beyond one window ({k}, {k}), {'2' if later[-1] == '2' else '4'}-bit keys"
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
         km = gkt.Kmers(sc, k, k)
         rounds, t_sort = timed_sort(km)
-        (_, total), t_hist = sync_time(lambda: km.get_kmer_group_counts(k))
+        (counts, total), t_hist = sync_time(lambda: km.get_kmer_group_counts(k))
         launches[label] = sort_lanes_cuda.launches
         peak = torch.cuda.max_memory_allocated()
         log(f"{label}: sort {t_sort:.4f} s ({len(km) / t_sort / 1e6:.1f} M k-mers/s), group counts "
@@ -1209,9 +1252,13 @@ def phase_beyond_window(sc_acgt, sc_iupac, rng) -> dict:
         if total != len(km):
             raise AssertionError(f"{label}: histogram total {total}, index length {len(km)}")
         check_refined_index(km, sc, rng, label)
+        reference["IUPAC" if later == "_sort_round" else "ACGT"] = {
+            "k": k, "second": second, "positions": km.kmer_sba_start_indices.copy(),
+            "counts": counts, "counts_second": km.get_kmer_group_counts(second)[0],
+        }
         del km
         torch.cuda.empty_cache()
-    return launches
+    return launches, reference
 
 
 def phase_window_rounds(rng) -> int:
@@ -1719,9 +1766,10 @@ def phase_queries_canonical(host_acgt, host_iupac, profile_dir) -> dict:
     """Phase 14: on collections of their own rebuilt from the main paths'
     host arrays (own upload and pack), canonical statistics at k = 31 on the
     fresh (31, 31) index (dense route) and on the sorted one (gather route),
-    then the queries. Returns the launches of the path's kernel by path."""
+    then the queries. Returns the launches of the path's kernel by path and
+    each genome's canonical histogram and total (phase 17's reference)."""
     rng = np.random.default_rng(SEED + 14)
-    launches = {}
+    launches, canonical = {}, {}
     for host_sc in (host_acgt, host_iupac):
         two_bit = host_sc.device_cache("forward").is_acgt_only
         label = f"queries and canonical statistics, {'ACGT' if two_bit else 'IUPAC'} 2^27 (31, 31)"
@@ -1752,6 +1800,7 @@ def phase_queries_canonical(host_acgt, host_iupac, profile_dir) -> dict:
             f"in {int(dense.sum())} canonical groups ({int(dense[2:].sum())} of size > 1, "
             f"sum(s * counts[s]) {int((sizes * dense).sum())}); {kernel.__name__} launches: dense "
             f"{dense_launches}, gather {gather_launches}")
+        canonical["ACGT" if two_bit else "IUPAC"] = (dense, total)
         queries_on(km, sc, two_bit, label, rng, profile_dir)
         launches[label] = kernel.launches
         log_peak(label, held_before)
@@ -1767,7 +1816,7 @@ def phase_queries_canonical(host_acgt, host_iupac, profile_dir) -> dict:
             del fresh
         del sc, km
         torch.cuda.empty_cache()
-    return launches
+    return launches, canonical
 
 
 # --------------------------------------------------------------------------- #
@@ -2095,6 +2144,315 @@ def export_checks(rng, tmp: Path, writer) -> None:
             f"{t_loop:.4f} s, equal bytes")
 
 
+# --------------------------------------------------------------------------- #
+# phase 17: the mesh beyond one compare window, canonical statistics on a
+# mesh, the 2-D mesh
+# --------------------------------------------------------------------------- #
+
+
+class CallCount:
+    """Wraps a function of a module and counts its calls (``calls``)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.real = module, name, getattr(module, name)
+        self.calls = 0
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        return self.real(*args, **kwargs)
+
+    def restore(self) -> None:
+        setattr(self.module, self.name, self.real)
+
+
+def step_summary(steps: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in steps.items())
+
+
+def mesh_refined_sort(km, mesh):
+    """``km.sort(mesh=mesh)`` to its end on the card, timed round by round
+    and step by step: (its rounds, seconds, seconds by step, info)."""
+    rounds, steps, info = RoundLog(), StepLog(), {}
+    steps.start()
+    (_, seconds) = sync_time(lambda: km.sort(mesh=mesh, on_round=rounds, on_step=steps,
+                                             mesh_info=info))
+    return rounds, seconds, steps.steps, info
+
+
+def check_layouts_equal(a, b, label: str) -> None:
+    """Two kept mesh layouts, byte for byte: positions, pads, lanes, run ids."""
+    for name in ("positions", "is_pad", "lanes", "gid_full"):
+        x, y = getattr(a, name), getattr(b, name)
+        if (x is None) != (y is None):
+            raise AssertionError(f"{label}: only one layout keeps {name}")
+        if x is None:
+            continue
+        if name == "lanes":
+            x, y = [w for sh in x for w in sh], [w for sh in y for w in sh]
+        if len(x) != len(y) or not all(torch.equal(p, q) for p, q in zip(x, y)):
+            raise AssertionError(f"{label}: the 2-D layout's {name} differ from the 1-D layout's")
+
+
+def mesh_suffix_acgt(host_sc, reference, m4, adjacent) -> dict:
+    """ACGT suffix mode (1, None) at 2^27 bp on the 4-shard mesh against
+    phase 9's single-card sort and histograms; returns the launches."""
+    label = f"mesh of {MESH_SHARDS} beyond one window: ACGT suffix mode (1, None) 2^27"
+    sba, seg_starts = index_sba(host_sc)
+    held_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    sc, km = from_numpy_state(sba, seg_starts, host_sc.forward_record_names, 1, None, device=DEVICE)
+    rounds, t_sort, steps, info = mesh_refined_sort(km, m4)
+    if not np.array_equal(km.kmer_sba_start_indices, reference["positions"]):
+        raise AssertionError(f"{label}: the real rows are not phase 9's sorted suffixes")
+    if km._dist_cache.gid_full is None or any(p.device.type != DEVICE for p in km._dist_cache.positions):
+        raise AssertionError(f"{label}: the layout keeps no run ids, or is not on the card")
+    launches = {"pack_rank2_words_cuda": pack_rank2_words_cuda.launches,
+                "sort_lanes_cuda": sort_lanes_cuda.launches}
+    peak = torch.cuda.max_memory_allocated()
+    before, adjacent.calls = sort_lanes_cuda.launches, 0
+    (counts, total), t_none = sync_time(lambda: km.get_kmer_group_counts(None, mesh=m4))
+    if adjacent.calls or sort_lanes_cuda.launches != before:
+        raise AssertionError(f"{label}: the statistics at None ran a refinement round or a sort")
+    if not (np.array_equal(counts, reference["counts"]) and total == len(km)):
+        raise AssertionError(f"{label}: the histogram at None differs from phase 9's")
+    (counts31, _), t_31 = sync_time(lambda: km.get_kmer_group_counts(31, mesh=m4))
+    if not np.array_equal(counts31, reference["counts31"]):
+        raise AssertionError(f"{label}: the histogram at 31 differs from phase 9's (phase 4's "
+                             "plus the records' short tails)")
+    names = [r[0] for r in rounds.rounds]
+    if names[0] != "sample_sort_positions_ragged" or set(names[1:]) != {"_refine_round"}:
+        raise AssertionError(f"{label}: unexpected rounds {names[:4]}...")
+    if launches["pack_rank2_words_cuda"] < 1 or any(n < 1 for _, _, n in rounds.rounds):
+        raise AssertionError(f"{label}: a kernel did not launch ({launches}; lane sort launches "
+                             f"by round {[n for _, _, n in rounds.rounds][:8]}...)")
+    later = [t for _, t, _ in rounds.rounds[1:]]
+    log(f"{label}: sort(mesh) {t_sort:.4f} s = {len(km) / t_sort / 1e6:.1f} M suffixes/s "
+        f"(one card, phase 9: {reference['seconds']:.4f} s = "
+        f"{len(km) / reference['seconds'] / 1e6:.1f} M suffixes/s; {t_sort / reference['seconds']:.1f}x); "
+        f"{rounds.summary()}")
+    log(f"{label}: {len(names)} rounds, {np.mean(later):.4f} s a round after the first (median "
+        f"{np.median(later):.4f}); seconds by step over all rounds: {step_summary(steps)}; "
+        f"capacity factors {sorted(set(info['capacity_factors']))}, {info['retries']} retries; real "
+        f"rows by shard at the end {info['rows']} (JAX layout {info['shard_rows']} rows a shard)")
+    log(f"{label}: get_kmer_group_counts(None, mesh) {t_none:.4f} s from the kept run ids (no "
+        f"round, no sort), equal to phase 9's; get_kmer_group_counts(31, mesh) {t_31:.4f} s, equal "
+        f"to phase 9's; launches: pack {launches['pack_rank2_words_cuda']}, lane sort "
+        f"{launches['sort_lanes_cuda']}; peak device memory {peak} bytes ({peak / 2**30:.3f} GiB), "
+        f"{held_before} held before: its own {(peak - held_before) / 2**30:.3f} GiB")
+    del km
+    km = gkt.Kmers(sc)
+    rounds, t_warm, steps, _ = mesh_refined_sort(km, m4)
+    log(f"{label}, a second sort (allocator warm): {t_warm:.4f} s = "
+        f"{len(km) / t_warm / 1e6:.1f} M suffixes/s; {rounds.summary()}; seconds by step: "
+        f"{step_summary(steps)}")
+    del km, sc
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_beyond_bounded(host_sc, reference, m4, adjacent) -> int:
+    """(100, 100) or (48, 48) at 2^27 SBA bytes on the 4-shard mesh
+    against phase 10's single-card sort and histograms, at the built length
+    (kept run ids) and at a second length beyond one window (run structure
+    over the kept layout, no re-sort); returns the lane sort launches."""
+    two_bit = host_sc.device_cache("forward").is_acgt_only
+    k, second = reference["k"], reference["second"]
+    label = f"mesh of {MESH_SHARDS} beyond one window: ({k}, {k}), {'2' if two_bit else '4'}-bit keys"
+    sba, seg_starts = index_sba(host_sc)
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    reset_launches()
+    sc, km = from_numpy_state(sba, seg_starts, host_sc.forward_record_names, k, k, device=DEVICE)
+    rounds, t_sort, steps, info = mesh_refined_sort(km, m4)
+    if not np.array_equal(km.kmer_sba_start_indices, reference["positions"]):
+        raise AssertionError(f"{label}: the real rows are not phase 10's sorted positions")
+    launches = sort_lanes_cuda.launches
+    adjacent.calls = 0
+    (counts, _), t_k = sync_time(lambda: km.get_kmer_group_counts(k, mesh=m4))
+    calls_k = adjacent.calls
+    (counts2, _), t_2 = sync_time(lambda: km.get_kmer_group_counts(second, mesh=m4))
+    if sort_lanes_cuda.launches != launches or calls_k != 0 or adjacent.calls != 1:
+        raise AssertionError(f"{label}: the statistics re-sorted, or took the wrong run ids")
+    if not (np.array_equal(counts, reference["counts"])
+            and np.array_equal(counts2, reference["counts_second"])):
+        raise AssertionError(f"{label}: a histogram differs from phase 10's")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{label}: sort(mesh) {t_sort:.4f} s = {len(km) / t_sort / 1e6:.1f} M k-mers/s; "
+        f"{rounds.summary()}; seconds by step: {step_summary(steps)}; capacity factors "
+        f"{info['capacity_factors']}, {info['retries']} retries; histograms at {k} (kept run ids) "
+        f"{t_k:.4f} s and at {second} (run structure over the layout, no sort) {t_2:.4f} s, equal "
+        f"to phase 10's; {launches} lane sort launches; own peak "
+        f"{(peak - held_before) / 2**30:.3f} GiB")
+    del km, sc
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_suffix_iupac(rng, m4) -> dict:
+    """IUPAC suffix mode on the mesh against one card at growing sizes, up
+    to the largest that stays within about 30 s: window rounds advance 32
+    bases a round, and an N stretch between two IUPAC codes ties its
+    suffixes for as many bases. Returns the lane sort launches by size."""
+    launches = {}
+    for bp in MESH_SUFFIX4_BPS:
+        label = f"mesh of {MESH_SHARDS} beyond one window: IUPAC suffix mode (1, None) at {bp} bp"
+        sc = collection_of(synthetic_records(rng, bp, 12, iupac=True))
+        single = gkt.Kmers(sc)
+        single_rounds, t_single = timed_sort(single)
+        reset_launches()
+        km = gkt.Kmers(sc)
+        rounds, t_sort, steps, info = mesh_refined_sort(km, m4)
+        launches[f"mesh of {MESH_SHARDS}, IUPAC suffix mode at {bp} bp"] = sort_lanes_cuda.launches
+        if not np.array_equal(km.kmer_sba_start_indices, single.kmer_sba_start_indices):
+            raise AssertionError(f"{label}: the mesh sort differs from one card's")
+        got, want = km.get_kmer_group_counts(None, mesh=m4), single.get_kmer_group_counts(None)
+        if not (np.array_equal(got[0], want[0]) and got[1] == want[1]):
+            raise AssertionError(f"{label}: the histogram at None differs from one card's")
+        log(f"{label}: {len(rounds.rounds)} rounds, sort(mesh) {t_sort:.4f} s = "
+            f"{len(km) / t_sort / 1e6:.1f} M suffixes/s; one card {t_single:.4f} s in "
+            f"{len(single_rounds.rounds)} rounds (prefix doubling); {rounds.summary()}; seconds by "
+            f"step: {step_summary(steps)}; {info['retries']} retries; equal sorts and histograms")
+        del km, single, sc
+        torch.cuda.empty_cache()
+        if t_sort * 4.5 > 30:  # the next size (4x the rows, more rounds) would pass 30 s
+            break
+    return launches
+
+
+def mesh_canonical(host_sc, reference, m4) -> dict:
+    """Canonical statistics at k = 31 on the 4-shard mesh, dense and gather
+    route, against phase 14's single-card counts; returns the lane sort
+    launches of each route."""
+    two_bit = host_sc.device_cache("forward").is_acgt_only
+    label = f"mesh of {MESH_SHARDS}: canonical statistics (31), {'ACGT' if two_bit else 'IUPAC'} 2^27"
+    sba, seg_starts = index_sba(host_sc)
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    reset_launches()
+    sc, km = from_numpy_state(sba, seg_starts, host_sc.forward_record_names, 31, 31, device=DEVICE)
+    sc.device_cache("forward")  # the upload and the pack, outside the counted window
+    reset_launches()
+    (dense, total), t_dense = sync_time(lambda: km.get_canonical_kmer_group_counts(31, mesh=m4))
+    launches = {"dense": sort_lanes_cuda.launches}
+    km.sort()
+    reset_launches()
+    (gather, total_g), t_gather = sync_time(lambda: km.get_canonical_kmer_group_counts(31, mesh=m4))
+    launches["gather"] = sort_lanes_cuda.launches
+    want, want_total = reference
+    if not (np.array_equal(dense, want) and np.array_equal(gather, want)
+            and total == total_g == want_total):
+        raise AssertionError(f"{label}: a route differs from phase 14's single-card counts")
+    if min(launches.values()) < 3 * MESH_SHARDS:
+        raise AssertionError(f"{label}: the lane sort did not launch on every shard: {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{label}: dense route {t_dense:.4f} s (cold), gather route {t_gather:.4f} s, both equal to "
+        f"phase 14's; lane sort launches: dense {launches['dense']}, gather {launches['gather']}; "
+        f"own peak {(peak - held_before) / 2**30:.3f} GiB")
+    del km, sc
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_2d(host_sc, expected: np.ndarray, m4, m22, rng) -> dict:
+    """make_mesh2(2, 2) on one card: (31, 31) at 2^27 bp and suffix mode at
+    MESH2_SUFFIX_BP, each layout byte for byte the 1-D mesh's; returns the
+    lane sort launches of the 2-D sorts."""
+    label = "2-D mesh (2, 2) on one card"
+    sba, seg_starts = index_sba(host_sc)
+    sc, km1 = from_numpy_state(sba, seg_starts, host_sc.forward_record_names, 31, 31, device=DEVICE)
+    mesh_sort(km1, m4, expected, f"{label}: the 1-D reference")  # cold: the allocator grows
+    km2 = gkt.Kmers(sc, 31, 31)
+    reset_launches()
+    t_2d, steps, _ = mesh_sort(km2, m22, expected, label)
+    launches = {"2-D mesh (2, 2), ACGT 2^27 (31, 31)": sort_lanes_cuda.launches}
+    check_layouts_equal(km1._dist_cache, km2._dist_cache, f"{label}, (31, 31) 2^27")
+    counts = km2.get_kmer_group_counts(31, mesh=m22)
+    if not np.array_equal(counts[0], km1.get_kmer_group_counts(31, mesh=m4)[0]):
+        raise AssertionError(f"{label}: the histograms differ")
+    del km1  # its memory stays with the allocator: the next 1-D sort finds it, as the 2-D sort did
+    t_flat, _, _ = mesh_sort(gkt.Kmers(sc, 31, 31), m4, expected, f"{label}: the 1-D mesh, warm")
+    del km2, sc
+    torch.cuda.empty_cache()
+    sc = collection_of(synthetic_records(rng, MESH2_SUFFIX_BP, 12))
+    flat, two = gkt.Kmers(sc), gkt.Kmers(sc)
+    _, t_flat_sfx, _, _ = mesh_refined_sort(flat, m4)
+    reset_launches()
+    rounds, t_2d_sfx, _, _ = mesh_refined_sort(two, m22)
+    launches[f"2-D mesh (2, 2), ACGT suffix mode at {MESH2_SUFFIX_BP} bp"] = sort_lanes_cuda.launches
+    check_layouts_equal(flat._dist_cache, two._dist_cache, f"{label}, suffix mode {MESH2_SUFFIX_BP} bp")
+    log(f"{label}: (31, 31) at 2^27 bp sort(mesh2) {t_2d:.4f} s against {t_flat:.4f} s on the 1-D "
+        f"mesh (both warm), the same layout byte for byte (positions, pads, lanes); seconds by step: "
+        f"{step_summary(steps)}; suffix mode at {MESH2_SUFFIX_BP} bp {t_2d_sfx:.4f} s against "
+        f"{t_flat_sfx:.4f} s in {len(rounds.rounds)} rounds, the same layout and run ids")
+    del flat, two, sc
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_retry(rng, m4) -> int:
+    """The refinement rounds' overflow retry on a repeat-heavy genome:
+    n_samples=4 and capacity_factor=0.05, on 2-bit and 4-bit keys, against
+    one card's suffix sort. Returns the lane sort launches."""
+    unit = ACGT[rng.integers(0, 4, 80)]
+    sba = np.concatenate([np.tile(unit, 25), ACGT[rng.integers(0, 4, RETRY_BP - 2000)]])
+    sc = collection_of([("repeats", sba)])
+    single = gkt.Kmers(sc)
+    single.sort()
+    dc = sc.device_cache("forward")
+    positions = torch.arange(len(sba), dtype=torch.int64, device=DEVICE)
+    reset_launches()
+    for two_bit in (True, False):
+        info = {}
+        got, t = sync_time(lambda: sample_sort_positions_unbounded(
+            None if two_bit else dc.packed, positions, dc.seg_starts, dc.seg_ends, m4,
+            packed2=dc.packed2 if two_bit else None, n_samples=4, capacity_factor=0.05, info=info))
+        if not np.array_equal(got.cpu().numpy().astype(np.uint32), single.kmer_sba_start_indices):
+            raise AssertionError(f"mesh refinement retry ({two_bit=}): differs from one card's sort")
+        if info["retries"] < 1:
+            raise AssertionError(f"mesh refinement retry: no retry in {info['rounds']} rounds")
+        log(f"mesh refinement retry at {len(sba)} bp, {'2' if two_bit else '4'}-bit keys, 4 samples "
+            f"a shard, capacity factor 0.05: {info['rounds']} rounds, {info['retries']} retries, "
+            f"factors up to {max(info['capacity_factors'])}, {t:.4f} s; equal to one card's sort")
+    return sort_lanes_cuda.launches
+
+
+def phase_mesh_beyond_window(host_acgt, host_iupac, pos_acgt, suffix_ref, beyond_ref,
+                             canonical_ref, rng_seed: int) -> dict:
+    """Phase 17: on the mesh of phase 15, suffix mode and beyond one window
+    on both genomes, canonical statistics, the 2-D mesh and the refinement
+    retry. Returns the launches of both kernels by path."""
+    rng = np.random.default_rng(rng_seed)
+    t0 = time.perf_counter()
+    m4 = make_mesh(MESH_SHARDS, devices=[f"{DEVICE}:0"] * MESH_SHARDS)
+    m22 = make_mesh2(2, 2, devices=[f"{DEVICE}:0"] * 4)
+    adjacent = CallCount(gkt.kmers, "distributed_adjacent_gids")
+    out = {"pack_rank2_words_cuda": {}, "sort_lanes_cuda": {}}
+    try:
+        got = mesh_suffix_acgt(host_acgt, suffix_ref, m4, adjacent)
+        key = f"mesh of {MESH_SHARDS}, ACGT suffix mode 2^27"
+        out["pack_rank2_words_cuda"][key] = got["pack_rank2_words_cuda"]
+        out["sort_lanes_cuda"][key] = got["sort_lanes_cuda"]
+        for host_sc, name in ((host_acgt, "ACGT"), (host_iupac, "IUPAC")):
+            ref = beyond_ref[name]
+            out["sort_lanes_cuda"][f"mesh of {MESH_SHARDS}, {name} ({ref['k']}, {ref['k']})"] = (
+                mesh_beyond_bounded(host_sc, ref, m4, adjacent))
+    finally:
+        adjacent.restore()
+    out["sort_lanes_cuda"].update(mesh_suffix_iupac(rng, m4))
+    for host_sc, name in ((host_acgt, "ACGT"), (host_iupac, "IUPAC")):
+        by_route = mesh_canonical(host_sc, canonical_ref[name], m4)
+        for route, n in by_route.items():
+            out["sort_lanes_cuda"][f"mesh of {MESH_SHARDS}, canonical (31) {route} route, {name} 2^27"] = n
+    out["sort_lanes_cuda"].update(mesh_2d(host_acgt, pos_acgt, m4, m22, rng))
+    out["sort_lanes_cuda"][f"mesh refinement retry at {RETRY_BP} bp"] = mesh_retry(rng, m4)
+    if any(n < 1 for launches in out.values() for n in launches.values()):
+        raise AssertionError(f"phase 17: a kernel did not launch on a path: {out}")
+    log(f"mesh beyond one window phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -2114,16 +2472,18 @@ def main() -> None:
     phase_general(rng)
     phase_gather_path(rng)
     phase_oracle(rng)
-    suffix_launches = phase_suffix_main(sc_acgt, counts31, rng, args.profile)
-    suffix4_launches = phase_suffix_main(sc_iupac, counts31_iupac, rng, None)
-    beyond_launches = phase_beyond_window(sc_acgt, sc_iupac, rng)
+    suffix_launches, suffix_ref = phase_suffix_main(sc_acgt, counts31, rng, args.profile)
+    suffix4_launches, _ = phase_suffix_main(sc_iupac, counts31_iupac, rng, None)
+    beyond_launches, beyond_ref = phase_beyond_window(sc_acgt, sc_iupac, rng)
     filter_launches = phase_filters(sc_acgt, sc_iupac, counts31)
-    query_launches = phase_queries_canonical(sc_acgt, sc_iupac, args.profile)
+    query_launches, canonical_ref = phase_queries_canonical(sc_acgt, sc_iupac, args.profile)
     mesh_launches = phase_mesh(sc_acgt, sc_iupac, {"ACGT": pos_acgt, "IUPAC": pos_iupac},
                                {"ACGT": counts31, "IUPAC": counts31_iupac}, SEED + 15)
     with tempfile.TemporaryDirectory() as tmp:
         persistence_launches = phase_persistence(sc_acgt, pos_acgt, counts31, Path(tmp), SEED + 16)
-    del sc_acgt, sc_iupac, pos_acgt, pos_iupac
+    mesh17_launches = phase_mesh_beyond_window(
+        sc_acgt, sc_iupac, pos_acgt, suffix_ref, beyond_ref, canonical_ref, SEED + 17)
+    del sc_acgt, sc_iupac, pos_acgt, pos_iupac, suffix_ref, beyond_ref
     torch.cuda.empty_cache()
     window_launches = phase_window_rounds(rng)
     strand_launches = phase_strands(rng)
@@ -2144,7 +2504,8 @@ def main() -> None:
                                  **filter_launches["pack_rank2_words_cuda"],
                                  **{k: v for k, v in query_launches.items() if "ACGT" in k},
                                  **mesh_launches["pack_rank2_words_cuda"],
-                                 **persistence_launches},
+                                 **persistence_launches,
+                                 **mesh17_launches["pack_rank2_words_cuda"]},
             **pack_timing,
         },
         {
@@ -2160,7 +2521,8 @@ def main() -> None:
                                  "unbounded window rounds (20, None)": window_launches,
                                  **filter_launches["sort_lanes_cuda"],
                                  **{k: v for k, v in query_launches.items() if "IUPAC" in k},
-                                 **mesh_launches["sort_lanes_cuda"]},
+                                 **mesh_launches["sort_lanes_cuda"],
+                                 **mesh17_launches["sort_lanes_cuda"]},
             **sort_timing,
         },
     ]}))

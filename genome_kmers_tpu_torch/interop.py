@@ -6,9 +6,11 @@ names, the index's strand mode and, optionally, an index: a sorted one
 (sorted positions and, where the sort was within one compare window, the
 retained sorted key lanes ``words``/``cap``, 2-bit or 4-bit, as the JAX
 package keeps them; for a suffix-mode or beyond-window sort the converged
-run ids ``suffix_gid`` instead, or neither) or an assigned, unsorted one
-(positions alone). The port then computes over exactly the state the JAX
-package built.
+run ids ``suffix_gid`` instead, or neither), an assigned, unsorted one
+(positions alone), or an index sorted on a mesh: its ragged layout (per
+shard the sorted positions with their pads, and for a sort beyond one
+compare window the converged run ids) on a mesh of the port. The port then
+computes over exactly the state the JAX package built.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .kmers import Kmers
+from .kmers import Kmers, _DistIndexCache
 from .ops.encoding import reverse_complement_bytes
 from .ops.keys import u32_bits_as_int32
 from .ops.sort import WINDOW2_BASES, WINDOW_BASES
@@ -62,6 +64,10 @@ def from_numpy_state(
     source_strand: str = "forward",
     track_strands_separately: bool = False,
     suffix_gid=None,
+    mesh=None,
+    mesh_positions=None,
+    mesh_pad=None,
+    mesh_gid=None,
 ):
     """(SequenceCollection, Kmers) on ``device`` holding the given state.
 
@@ -81,7 +87,15 @@ def from_numpy_state(
     (``max_kmer_len`` None included) there are no such lanes, and
     ``suffix_gid`` may carry the converged run ids of the sort. With
     ``is_sorted=False`` the positions are an assigned index in the given
-    order and there are no lanes."""
+    order and there are no lanes.
+
+    With ``mesh`` (a mesh of the port) the index is one sorted on a mesh
+    of as many shards: ``mesh_positions`` and ``mesh_pad`` hold each
+    shard's rows of the ragged layout (uint32 positions; pad flags, nonzero
+    on a pad), and ``mesh_gid``, for a sort beyond one compare window
+    (``max_kmer_len`` None included), each shard's converged run ids, the
+    group identity at ``max_kmer_len``. The mesh statistics and queries
+    then read that layout with no sort."""
     sc = _collection(sba, seg_starts, record_names, source_strand, device)
     if source_strand == "forward":
         km = Kmers(sc, min_kmer_len=min_kmer_len, max_kmer_len=max_kmer_len)
@@ -90,6 +104,22 @@ def from_numpy_state(
             sc, min_kmer_len, max_kmer_len, source_strand=source_strand,
             track_strands_separately=track_strands_separately,
         )
+    if mesh is not None:
+        if positions is not None or words is not None or cap is not None or suffix_gid is not None:
+            raise ValueError("a mesh index is given by its layout alone (mesh_positions, mesh_pad)")
+        if len(mesh_positions) != len(mesh.devices) or len(mesh_pad) != len(mesh.devices):
+            raise ValueError(f"the layout has {len(mesh_positions)} shards, the mesh "
+                             f"{len(mesh.devices)}")
+        pos = [_lane(p, dev) for p, dev in zip(mesh_positions, mesh.devices)]
+        pad = [torch.from_numpy(np.asarray(p) != 0).to(dev) for p, dev in zip(mesh_pad, mesh.devices)]
+        gid = None if mesh_gid is None else [_lane(g, dev) for g, dev in zip(mesh_gid, mesh.devices)]
+        km._dist_cache = _DistIndexCache(
+            mesh, pos, pad, int(sum(int((~p).sum()) for p in pad)), gid_full=gid,
+            gid_full_k=max_kmer_len if gid is not None else None,
+        )
+        km._pos_dev = km._pos_host = km._init_geometry = None
+        km._is_sorted = True
+        return sc, km
     if positions is None:
         return sc, km
     if not is_sorted:

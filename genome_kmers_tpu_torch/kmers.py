@@ -34,20 +34,22 @@ strand, the reverse complement or both (``Kmers.from_strand``):
   package's schema: a file either package writes loads into the other),
   ``get_kmers_full_arrays`` and ``to_csv`` (byte for byte the JAX
   package's output, through the native row decoders);
-* a one-dimensional mesh (parallel/) at a bounded ``max_kmer_len``:
-  ``sort(mesh=)`` by the sample sort, whose ragged layout the index keeps
-  (``_DistIndexCache``), and ``get_kmer_count`` / ``get_kmer_group_counts``
-  / ``count_queries`` / ``count_queries_canonical`` with ``mesh=``.
+* a single-process mesh (parallel/; 1-D, or 2-D ``(node, local)``) at any
+  ``max_kmer_len``: ``sort(mesh=)`` by the sample sort, or beyond one
+  compare window by its refinement rounds, whose ragged layout (and run
+  ids) the index keeps (``_DistIndexCache``); ``get_kmer_count`` /
+  ``get_kmer_group_counts`` at any ``kmer_len``, ``count_queries`` /
+  ``count_queries_canonical`` and ``get_canonical_kmer_group_counts`` with
+  ``mesh=``.
 
 The module-level functions (``compare_sba_kmers_lexicographically``,
 ``kmer_info_by_group_generator``, ``get_kmer_group_size_hist``, ...) are the
 reference's host walk API, NumPy only.
 
 Construction checks and their messages are the JAX package's. The index
-inherits its collection's device. What the port does not have yet (the
-unbounded or beyond-window mesh sort, mesh statistics that need run ids,
-canonical statistics on a mesh; ``LargeKmers``) raises NotImplementedError
-naming the ROADMAP.md item that will port it.
+inherits its collection's device. What the port does not have yet
+(``LargeKmers``) raises NotImplementedError naming the ROADMAP.md item that
+will port it.
 """
 
 from __future__ import annotations
@@ -110,12 +112,16 @@ from .ops.sort import (
 )
 from .parallel import (
     compact_ragged,
+    distributed_adjacent_gids,
     distributed_count_queries,
     distributed_group_size_histogram_ragged,
     distributed_hist_from_sizes,
     mesh_lanes_filter_flags,
+    sample_sort_canonical_dense_ragged,
+    sample_sort_canonical_ragged,
     sample_sort_positions_dense_ragged,
     sample_sort_positions_ragged,
+    sample_sort_positions_unbounded,
 )
 from .parallel.collectives import replicate
 from .parallel.distributed import shard_evenly
@@ -395,24 +401,17 @@ def get_kmer_group_size_hist(
     return counts_by_group_size, total_kmer_count
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to genome_kmers_tpu_torch yet (ROADMAP.md {item})"
-    )
-
-
-_MESH_ITEM = "A11: the rest of the mesh"
-
-
 class _DistIndexCache:
     """The sorted index a ``sort(mesh=...)`` keeps: the sample sort's ragged
     layout (per shard: positions, pad flags, and the sorted key words built
     at ``built_k``, ``lanes_two_bit`` their encoding), so that a following
     mesh statistics or query call on the same mesh needs no re-sort and no
-    key gather. ``n_real`` is the index length."""
+    key gather. ``n_real`` is the index length. A sort beyond one compare
+    window keeps no key words but its converged run ids ``gid_full`` (per
+    shard), the group identity at ``gid_full_k`` (None: suffix mode)."""
 
     def __init__(self, mesh, positions, is_pad, n_real: int, lanes=None,
-                 lanes_two_bit=None, built_k=None):
+                 lanes_two_bit=None, built_k=None, gid_full=None, gid_full_k=None):
         self.mesh = mesh
         self.positions = positions
         self.is_pad = is_pad
@@ -420,6 +419,8 @@ class _DistIndexCache:
         self.lanes = lanes
         self.lanes_two_bit = lanes_two_bit
         self.built_k = built_k
+        self.gid_full = gid_full
+        self.gid_full_k = gid_full_k
 
 
 class _ShardScans:
@@ -1510,31 +1511,34 @@ class Kmers:
         each shard's tail (``compact_ragged``). Otherwise (no kept layout,
         another mesh, or a filter that is a plain callable) the survivors
         are sample-sorted over the mesh afresh. Identity at ``kmer_len`` is
-        the key words of one compare window; beyond it (or None) it needs
-        the run ids of the unbounded mesh sort, not ported yet."""
+        the key words of one compare window; beyond it (or None) it is run
+        ids: the kept ones of an unbounded sort at its own length (no
+        round), those of an unbounded sort of the survivors, or the run
+        structure of ``distributed_adjacent_gids`` over the layout (no
+        re-sort)."""
         dc = self._dc()
-        if kmer_len is None or kmer_len > (WINDOW2_BASES if dc.packed2 is not None else WINDOW_BASES):
-            raise _not_ported(
-                "mesh statistics at kmer_len None or beyond one compare window (run ids)",
-                _MESH_ITEM,
-            )
         strand_split = self._revcomp_offset() if self.track_strands_separately else None
         use2 = dc.packed2 is not None
         packed2 = dc.packed2 if use2 else None
         packed = None if use2 else dc.packed
+        need_gid = kmer_len is None or kmer_len > (WINDOW2_BASES if use2 else WINDOW_BASES)
         keep_all = isinstance(kmer_filter_func, KeepAllFilter)
         cache = self._dist_cache
         sorted_words = None
         mask = None
+        ext_gid = None
         if cache is not None and cache.mesh == mesh and isinstance(kmer_filter_func, KmerFilter):
             rag_pos, rag_pad = cache.positions, cache.is_pad
             lanes_fit = (
                 cache.lanes is not None
                 and cache.lanes_two_bit == use2
+                and not need_gid
                 and kmer_len <= cache.built_k
             )
             if keep_all and lanes_fit:
                 sorted_words = cache.lanes
+            elif keep_all and need_gid and cache.gid_full is not None and kmer_len == cache.gid_full_k:
+                ext_gid = cache.gid_full
             elif not keep_all:
                 spec = None
                 if lanes_fit:
@@ -1566,15 +1570,28 @@ class Kmers:
                     rag_pos, rag_pad = compact_ragged(rag_pos, new_pad, mesh)
         else:
             _, surv_pos, _ = self._survivors(kmer_filter_func)
-            rag_pos, rag_pad, sorted_words = sample_sort_positions_ragged(
-                packed, surv_pos, dc.seg_starts, dc.seg_ends, kmer_len, mesh,
-                packed2=packed2, return_lanes=True,
+            if need_gid:
+                # the survivors sorted at exactly kmer_len: their converged
+                # run ids are the identity
+                rag_pos, rag_pad, ext_gid = sample_sort_positions_unbounded(
+                    packed, surv_pos, dc.seg_starts, dc.seg_ends, mesh, packed2=packed2,
+                    max_kmer_len=kmer_len, return_ragged=True,
+                )
+            else:
+                rag_pos, rag_pad, sorted_words = sample_sort_positions_ragged(
+                    packed, surv_pos, dc.seg_starts, dc.seg_ends, kmer_len, mesh,
+                    packed2=packed2, return_lanes=True,
+                )
+        if need_gid and ext_gid is None:
+            ext_gid = distributed_adjacent_gids(
+                packed, rag_pos, rag_pad, dc.seg_starts, dc.seg_ends, kmer_len, mesh,
+                packed2=packed2,
             )
         size, qualifies, total = distributed_group_size_histogram_ragged(
             packed, rag_pos, rag_pad, dc.seg_starts, dc.seg_ends, kmer_len, mesh,
             min_group_size=min_group_size, max_group_size=max_group_size, packed2=packed2,
             strand_split=strand_split, sorted_words=sorted_words, mask=mask,
-            return_sizes=True,
+            return_sizes=True, ext_gid=ext_gid,
         )
         counts = distributed_hist_from_sizes(size, qualifies, max_counts_bin, mesh)
         return counts.cpu().numpy().astype(np.int64), total
@@ -1698,12 +1715,14 @@ class Kmers:
         """Sort the index lexicographically by the k-mers it defines, on the
         collection's device. Equal k-mers end up ordered by start index.
 
-        ``mesh`` (parallel.make_mesh) runs the sample sort over the mesh
-        instead (parallel/sample_sort.py), at a bounded ``max_kmer_len``
-        within one compare window: gather-free over every SBA position for
-        the fresh index, by gathered keys otherwise. The index keeps the
-        ragged layout for the mesh statistics and queries; ``on_step`` and
-        ``mesh_info`` see ``sample_sort_positions_ragged``.
+        ``mesh`` (parallel.make_mesh or make_mesh2) runs the sample sort
+        over the mesh instead (parallel/sample_sort.py): within one compare
+        window gather-free over every SBA position for the fresh index, by
+        gathered keys otherwise; beyond it by refinement rounds
+        (``sample_sort_positions_unbounded``, which calls ``on_round``).
+        The index keeps the ragged layout for the mesh statistics and
+        queries; ``on_step`` and ``mesh_info`` see
+        ``sample_sort_positions_ragged``.
 
         The fresh index sorts gather-free over every SBA position: 2-bit
         keys at max_kmer_len <= 64 on an ACGT genome, else 4-bit keys at
@@ -1718,7 +1737,7 @@ class Kmers:
         module doc); a sort within one window has no rounds."""
         self._check_forward_only()
         if mesh is not None:
-            self._sort_mesh(mesh, on_step, mesh_info)
+            self._sort_mesh(mesh, on_round, on_step, mesh_info)
             return
         self._lanes_cache = None  # every branch below re-establishes or clears
         self._suffix_gid_cache = None
@@ -1769,25 +1788,26 @@ class Kmers:
         self._init_geometry = None  # no longer describes the (sorted) order
         self._is_sorted = True
 
-    def _sort_mesh(self, mesh, on_step, info) -> None:
-        """``sort(mesh=...)``: the dense sample sort of the fresh index, or
-        the gather sample sort of any other, within one compare window (2-bit
-        keys on an ACGT genome: k <= 64; else 4-bit: k <= 32)."""
+    def _sort_mesh(self, mesh, on_round, on_step, info) -> None:
+        """``sort(mesh=...)``: within one compare window (2-bit keys on an
+        ACGT genome: k <= 64; else 4-bit: k <= 32) the dense sample sort of
+        the fresh index or the gather sample sort of any other, which keep
+        their sorted key words; beyond it (or None) the refinement rounds
+        of ``sample_sort_positions_unbounded`` on the 2-bit keys where the
+        alphabet allows, which keep their converged run ids. The kept
+        layout of the rounds has one pad row a shard: the JAX pad tail grows
+        1.5x a round (parallel/sample_sort.py)."""
         self._lanes_cache = None
         self._suffix_gid_cache = None
         self._dist_cache = None
         dc = self._dc()
         max_k = self.max_kmer_len
         uniform = max_k is not None and self.min_kmer_len == max_k
-        beyond = _not_ported(
-            "Kmers.sort(mesh=...) with max_kmer_len None or beyond one compare window",
-            _MESH_ITEM,
-        )
-        if self._init_geometry is not None and int(self._init_geometry[2]) > 1:
+        use2 = max_k is not None and max_k <= WINDOW2_BASES and dc.packed2 is not None
+        in_window = max_k is not None and max_k <= (WINDOW2_BASES if use2 else WINDOW_BASES)
+        gid = None
+        if in_window and self._init_geometry is not None and int(self._init_geometry[2]) > 1:
             n = int(self._init_geometry[2])
-            use2 = max_k is not None and max_k <= WINDOW2_BASES and dc.packed2 is not None
-            if max_k is None or max_k > (WINDOW2_BASES if use2 else WINDOW_BASES):
-                raise beyond
             pos, pad, lanes = sample_sort_positions_dense_ragged(
                 dc.packed2 if use2 else dc.packed, dc.seg_starts, dc.seg_ends, n,
                 self.min_kmer_len, max_k, mesh, two_bit=use2, uniform_cap=uniform,
@@ -1806,15 +1826,23 @@ class Kmers:
             # then never built
             packed2 = dc.packed2
             use2 = packed2 is not None
-            if max_k is None or max_k > (WINDOW2_BASES if use2 else WINDOW_BASES):
-                raise beyond
-            pos, pad, lanes = sample_sort_positions_ragged(
-                None if use2 else dc.packed, positions, dc.seg_starts, dc.seg_ends, max_k,
-                mesh, packed2=packed2, uniform_cap=uniform, return_lanes=True,
-                on_step=on_step, info=info,
-            )
+            packed = None if use2 else dc.packed
+            if max_k is not None and max_k <= (WINDOW2_BASES if use2 else WINDOW_BASES):
+                pos, pad, lanes = sample_sort_positions_ragged(
+                    packed, positions, dc.seg_starts, dc.seg_ends, max_k, mesh, packed2=packed2,
+                    uniform_cap=uniform, return_lanes=True, on_step=on_step, info=info,
+                )
+            else:
+                pos, pad, gid = sample_sort_positions_unbounded(
+                    packed, positions, dc.seg_starts, dc.seg_ends, mesh, packed2=packed2,
+                    max_kmer_len=max_k, return_ragged=True,
+                    on_round=on_round, on_step=on_step, info=info,
+                )
+                lanes = None
         self._dist_cache = _DistIndexCache(
-            mesh, pos, pad, n, lanes=lanes, lanes_two_bit=use2, built_k=max_k
+            mesh, pos, pad, n, lanes=lanes, lanes_two_bit=use2,
+            built_k=None if gid is not None else max_k, gid_full=gid,
+            gid_full_k=max_k if gid is not None else None,
         )
         self._pos_dev = None
         self._pos_host = None
@@ -1918,7 +1946,8 @@ class Kmers:
         identified with min(kmer, revcomp(kmer)) (ops/canonical.py); only
         full-length k-mers take part. 2-bit keys on an ACGT genome (kmer_len
         <= 64), 4-bit keys otherwise (kmer_len <= 32). Gather-free over the
-        fresh index (dense route), else over gathered keys."""
+        fresh index (dense route), else over gathered keys; ``mesh``
+        computes them over the mesh (``_mesh_canonical_hist``)."""
         self._check_forward_only()
         if self.kmer_source_strand == "both":
             raise NotImplementedError(
@@ -1936,11 +1965,11 @@ class Kmers:
                 f"kmer_len ({kmer_len}) must be in [1, {limit}]"
                 + ("" if two_bit else " (4-bit IUPAC lanes)")
             )
-        if mesh is not None:
-            raise _not_ported("get_canonical_kmer_group_counts(mesh=...)", _MESH_ITEM)
         packed = dc.packed2 if two_bit else dc.packed
         if len(self) == 0:
             return np.zeros(max_counts_bin + 1, dtype=np.int64), 0
+        if mesh is not None:
+            return self._mesh_canonical_hist(packed, kmer_len, max_counts_bin, mesh)
         if self._init_geometry is not None:
             size, qualifies, total = canonical_sizes_digest_dense(
                 packed, dc.seg_starts, dc.seg_ends, self.min_kmer_len, kmer_len, two_bit=two_bit
@@ -1951,6 +1980,30 @@ class Kmers:
             digest = canonical_sizes_digest if two_bit else canonical_sizes_digest4
             size, qualifies, total = digest(packed, positions, valid_len, kmer_len)
         counts = hist_from_sizes(size, qualifies, max_counts_bin)
+        return counts.cpu().numpy().astype(np.int64), total
+
+    def _mesh_canonical_hist(self, packed, kmer_len: int, max_counts_bin: int, mesh):
+        """Canonical statistics over the mesh: the canonical sample sort,
+        gather-free over the fresh index (dense route), else of the index's
+        positions (gather route), then the stitched histogram over its
+        canonical word lanes."""
+        dc = self._dc()
+        two_bit = dc.packed2 is not None
+        if self._init_geometry is not None:
+            pos, pad, words = sample_sort_canonical_dense_ragged(
+                packed, dc.seg_starts, dc.seg_ends, self.min_kmer_len, kmer_len, mesh,
+                two_bit=two_bit,
+            )
+        else:
+            pos, pad, words = sample_sort_canonical_ragged(
+                packed, self._device_positions(), dc.seg_starts, dc.seg_ends, kmer_len, mesh,
+                two_bit=two_bit,
+            )
+        size, qualifies, total = distributed_group_size_histogram_ragged(
+            None if two_bit else packed, pos, pad, dc.seg_starts, dc.seg_ends, kmer_len, mesh,
+            packed2=dc.packed2, sorted_words=words, return_sizes=True,
+        )
+        counts = distributed_hist_from_sizes(size, qualifies, max_counts_bin, mesh)
         return counts.cpu().numpy().astype(np.int64), total
 
     # ------------------------------------------------------------------ #

@@ -128,13 +128,19 @@ def _min_words(a: tuple, b: tuple) -> tuple:
     return tuple(torch.where(lt, wa, wb) for wa, wb in zip(a, b))
 
 
+def canonical_words(fwd: tuple, k: int, two_bit: bool) -> tuple:
+    """min(forward, reverse complement) of full-length k-mer key words
+    (int64 lanes of uint32 values, 2-bit or 4-bit)."""
+    return _min_words(revcomp_words_any(fwd, k, two_bit), fwd)
+
+
 def canonical_key_words(packed2, positions, k: int) -> tuple:
     """min(forward key, revcomp key) of each position as 2-bit words (int64
     lanes of uint32 values). Positions must have at least k bases left."""
     n_words = -(-k // BASES_PER_WORD2)
     cap = torch.full_like(positions, k)
     fwd = tuple(widen_u32(w) for w in build_key2_words(packed2, positions, cap, n_words))
-    return _min_words(revcomp_key_words(fwd, k), fwd)
+    return canonical_words(fwd, k, True)
 
 
 def _adjacent_boundary(lanes) -> torch.Tensor:
@@ -153,7 +159,7 @@ def _canonical_sizes_tail(lead, fwd, k: int, two_bit: bool = True):
     0): they sort after every real row and never qualify. Only sizes leave,
     so the order within a group does not matter; on 4-bit lanes the row
     number rides as the last lane, the unique lane the lane sort needs."""
-    words = _min_words(revcomp_words_any(fwd, k, two_bit), fwd)
+    words = canonical_words(fwd, k, two_bit)
     if two_bit:
         per_word = BASES_PER_WORD2
         last_bits = 2 * (k - per_word * (len(words) - 1))

@@ -15,6 +15,18 @@ from __future__ import annotations
 import torch
 
 
+def hier_shape(mesh):
+    """(n_nodes, n_local) of a 2-D ``(node, local)`` mesh, None for a 1-D
+    one; a mesh of more axes is rejected here, the one place that decides
+    which mesh shapes the port takes."""
+    names = mesh.axis_names
+    if len(names) == 1:
+        return None
+    if len(names) != 2:
+        raise NotImplementedError(f"meshes must be 1-D (flat) or 2-D (node, local); got {names}")
+    return (mesh.shape[names[0]], mesh.shape[names[1]])
+
+
 def replicate(tensor: torch.Tensor, mesh) -> list:
     """``tensor`` on every shard (one copy per distinct device)."""
     copies = {}
@@ -44,13 +56,48 @@ def all_gather(values: list, mesh) -> list:
 
 def all_to_all(blocks: list, mesh) -> list:
     """Transpose of a list of per-shard block lists: shard ``b`` receives
-    block ``b`` of every shard in shard order, ``out[b][p] =
-    blocks[p][b]`` moved to ``mesh.devices[b]``. Blocks may differ in
-    length."""
+    block ``b`` of every shard, moved to ``mesh.devices[b]``. Blocks may
+    differ in length.
+
+    On a one-dimensional mesh one hop: ``out[b][p] = blocks[p][b]``, in
+    shard order. On a 2-D ``(node, local)`` mesh (``hier.make_mesh2``,
+    shards in row-major order, shard ``(n, l)`` = ``n * n_local + l``) the
+    JAX package's two stages: stage A moves, over the ``node`` axis, one
+    node-aggregated group of ``n_local`` blocks from each shard to the shard
+    of the same local index on each destination node; stage B fans the
+    blocks out over the ``local`` axis to their final shard. Shard ``(d,
+    j)`` then holds the blocks of sources ``(n, l)`` in the order ``l``
+    major, ``n`` minor, as the JAX package's stage B concatenates them; the
+    same blocks as the one hop, in another order. Within one process the
+    two stages move nothing the one hop does not; they matter where nodes
+    are processes (ROADMAP.md A14)."""
     n_dev = len(mesh.devices)
     if len(blocks) != n_dev or any(len(row) != n_dev for row in blocks):
         raise ValueError(f"all_to_all expects {n_dev} lists of {n_dev} blocks")
-    return [[blocks[p][b].to(dev) for p in range(n_dev)] for b, dev in enumerate(mesh.devices)]
+    shape = hier_shape(mesh)
+    if shape is None:
+        return [[blocks[p][b].to(dev) for p in range(n_dev)] for b, dev in enumerate(mesh.devices)]
+    n_nodes, n_local = shape
+    # stage A: shard (n, l) -> shard (d, l), the blocks for node d's shards
+    stage_a = [
+        [
+            [blocks[n * n_local + l][d * n_local + j].to(mesh.devices[d * n_local + l])
+             for j in range(n_local)]
+            for n in range(n_nodes)
+        ]
+        for d in range(n_nodes)
+        for l in range(n_local)
+    ]  # stage_a[(d, l)][n][j]: from (n, l), for (d, j)
+    # stage B: shard (d, l) -> shard (d, j)
+    return [
+        [
+            stage_a[d * n_local + l][n][j].to(mesh.devices[d * n_local + j])
+            for l in range(n_local)
+            for n in range(n_nodes)
+        ]
+        for d in range(n_nodes)
+        for j in range(n_local)
+    ]
 
 
 def psum(values: list, mesh) -> list:

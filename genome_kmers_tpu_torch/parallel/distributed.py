@@ -1,4 +1,4 @@
-"""The one-dimensional mesh, and group statistics over a sharded sorted index.
+"""The single-process mesh, and group statistics over a sharded sorted index.
 
 Counterpart of ``genome_kmers_tpu/parallel/distributed.py``. The JAX package
 runs one controller over a ``jax.sharding.Mesh`` of ``shard_map`` bodies;
@@ -19,11 +19,17 @@ compaction. The next-boundary search that the JAX package does with a
 reverse ``cummin`` is the boundary indices (``nonzero``) read in order, as
 ``ops/groups.group_sizes_at_boundaries`` does.
 
-Not ported here: the odd-even merge sort (``distributed_sort_positions``)
-and meshes of more than one axis.
+A mesh may also have two axes, ``("node", "local")`` (``hier.make_mesh2``):
+its shards are taken in row-major order, so everything here is the same on
+both shapes; only the exchange of the sample sort differs
+(``collectives.all_to_all``).
+
+Not ported here: the odd-even merge sort (``distributed_sort_positions``).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -39,56 +45,62 @@ _BIG = 0xFFFFFFF0  # "no boundary here": above every counted-row index
 
 
 class Mesh:
-    """A one-dimensional, single-process mesh: ``devices[p]`` holds shard
-    ``p`` (several shards may share one device). Two meshes are equal when
-    they list the same devices in the same order."""
+    """A single-process mesh: ``devices[p]`` holds shard ``p`` (several
+    shards may share one device). One axis by default; ``axis_names`` and
+    ``axis_sizes`` name more, the shards then in row-major order over them
+    (``hier.make_mesh2``: ``("node", "local")``). Two meshes are equal when
+    they list the same devices in the same order over the same axes."""
 
-    def __init__(self, devices):
+    def __init__(self, devices, axis_names=(AXIS,), axis_sizes=None):
         self.devices = tuple(resolve_device(d) for d in devices)
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
-        self.axis_names = (AXIS,)
-
-    @property
-    def shape(self) -> dict:
-        return {AXIS: len(self.devices)}
+        self.axis_names = tuple(axis_names)
+        sizes = (len(self.devices),) if axis_sizes is None else tuple(int(a) for a in axis_sizes)
+        if len(sizes) != len(self.axis_names) or math.prod(sizes) != len(self.devices):
+            raise ValueError(
+                f"axes {self.axis_names} of sizes {sizes} do not hold {len(self.devices)} devices"
+            )
+        self.shape = dict(zip(self.axis_names, sizes))
 
     def __eq__(self, other):
-        return isinstance(other, Mesh) and self.devices == other.devices
+        return (
+            isinstance(other, Mesh)
+            and self.devices == other.devices
+            and self.shape == other.shape
+        )
 
     def __hash__(self):
-        return hash(self.devices)
+        return hash((self.devices, self.axis_names))
 
     def __repr__(self):
-        return f"Mesh({[str(d) for d in self.devices]})"
+        return f"Mesh({[str(d) for d in self.devices]}, {self.shape})"
+
+
+def visible_cards(n: int | None, caller: str) -> list:
+    """The first ``n`` visible CUDA cards (all where ``n`` is None); raises
+    without CUDA or with fewer cards: the CPU is used only when the caller
+    names it."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{caller}: CUDA is not available; pass devices=['cpu'] * n for a mesh on the CPU"
+        )
+    devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    if n is not None:
+        if n > len(devices):
+            raise ValueError(f"{caller}: {n} devices asked for, {len(devices)} visible")
+        devices = devices[:n]
+    return devices
 
 
 def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
     """1-D mesh over the position-sharding axis. ``devices`` (any
     ``torch.device`` specs, repeats allowed) are taken as given; without
     them the mesh takes the visible CUDA cards, the first ``n_devices`` of
-    them where it is given, and raises without CUDA: the CPU is used only
-    when the caller names it."""
+    them where it is given, and raises without CUDA."""
     if devices is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "make_mesh: CUDA is not available; pass devices=['cpu'] * n for a mesh on the CPU"
-            )
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-        if n_devices is not None:
-            if n_devices > len(devices):
-                raise ValueError(f"make_mesh: {n_devices} devices asked for, {len(devices)} visible")
-            devices = devices[:n_devices]
+        devices = visible_cards(n_devices, "make_mesh")
     return Mesh(devices)
-
-
-def make_mesh2(*args, **kwargs):
-    """The 2-D hierarchical ``(node, local)`` mesh of the JAX package's
-    ``parallel/hier.py``: not ported yet."""
-    raise NotImplementedError(
-        "make_mesh2 (the 2-D hierarchical mesh of parallel/hier.py) is not ported to "
-        "genome_kmers_tpu_torch yet (ROADMAP.md A11: 2-D mesh)"
-    )
 
 
 def mesh_size(mesh: Mesh) -> int:
@@ -132,13 +144,34 @@ def compact_ragged(positions: list, is_pad: list, mesh: Mesh):
     return out_pos, out_pad
 
 
-def _words_for(packed, positions, cap_len, n_words, two_bit):
-    """Key words at offset 0 (int32 bit patterns): 2-bit (16 bases a word,
-    the cap an extra identity lane) or 4-bit (8 a word, truncation in the
-    words)."""
+def _words_for(packed, positions, cap_len, n_words, two_bit, offset: int = 0):
+    """Key words from ``offset`` bases on (int32 bit patterns): 2-bit (16
+    bases a word, the cap an extra identity lane) or 4-bit (8 a word,
+    truncation in the words)."""
     if two_bit:
-        return build_key2_words(packed, positions, cap_len, n_words)
-    return build_key_words(packed, positions, cap_len, n_words)
+        return build_key2_words(packed, positions, cap_len, n_words, offset)
+    return build_key_words(packed, positions, cap_len, n_words, offset)
+
+
+def _last_rows(shard: tuple, n_valid: torch.Tensor) -> torch.Tensor:
+    """The shard's last valid row as one int64 value a lane (row 0 where
+    it has none; zeros for a shard of no rows)."""
+    if shard[0].shape[0] == 0:
+        return torch.zeros(len(shard), dtype=torch.int64, device=shard[0].device)
+    return torch.stack([lane[torch.clamp_min(n_valid - 1, 0)].to(torch.int64) for lane in shard])
+
+
+def _halo_preds(valid: list, mesh: Mesh) -> list:
+    """For each shard p, the nearest q < p whose shard has a valid row, as
+    a 0-dim tensor on shard p's device (-1 if none), and the valid-row
+    counts of all shards on every shard."""
+    all_n_valid = all_gather([v.sum() for v in valid], mesh)
+    preds = []
+    for p in range(mesh_size(mesh)):
+        dev = all_n_valid[p].device
+        cand = torch.where(all_n_valid[p][:p] > 0, torch.arange(p, device=dev), -1)
+        preds.append(cand.max() if p else torch.tensor(-1, device=dev))
+    return preds
 
 
 def _halo_adjacent_eq(lanes: list, valid: list, mesh: Mesh) -> list:
@@ -147,37 +180,44 @@ def _halo_adjacent_eq(lanes: list, valid: list, mesh: Mesh) -> list:
     shard's prefix, so row i - 1 of a valid row is its true predecessor),
     and row 0 compares with the last valid row of the nearest previous
     shard that has one (False where there is none). ``lanes[p]`` is shard
-    p's tuple of lanes, any integer or bool dtypes."""
-    n_dev = mesh_size(mesh)
+    p's tuple of lanes, any integer or bool dtypes; a shard may have no
+    rows."""
     n_valid = [v.sum() for v in valid]
-    all_n_valid = all_gather(n_valid, mesh)
-    my_last = [
-        torch.stack([lane[torch.clamp_min(nv - 1, 0)].to(torch.int64) for lane in shard])
-        for shard, nv in zip(lanes, n_valid)
-    ]
-    all_last = all_gather(my_last, mesh)  # (n_dev, n_lanes) on every shard
+    all_last = all_gather([_last_rows(shard, nv) for shard, nv in zip(lanes, n_valid)], mesh)
+    preds = _halo_preds(valid, mesh)
     out = []
-    for p in range(n_dev):
-        shard = lanes[p]
-        dev = shard[0].device
-        eq = torch.ones(shard[0].shape[0], dtype=torch.bool, device=dev)
+    for p, shard in enumerate(lanes):
+        eq = torch.ones(shard[0].shape[0], dtype=torch.bool, device=shard[0].device)
         for lane in shard:
             eq[1:] &= lane[1:] == lane[:-1]
-        if p == 0:
-            eq[:1] = False
-        else:
-            # nearest q < p whose shard has a valid row, -1 if none
-            cand = torch.where(all_n_valid[p][:p] > 0, torch.arange(p, device=dev), -1)
-            pred = cand.max()
+        if eq.shape[0]:
+            pred = preds[p]
             first = torch.stack([lane[0].to(torch.int64) for lane in shard])
-            eq0 = (first == all_last[p][torch.clamp_min(pred, 0)]).all() & (pred >= 0)
-            eq[:1] = eq0
+            eq[:1] = (first == all_last[p][torch.clamp_min(pred, 0)]).all() & (pred >= 0)
         out.append(eq)
     return out
 
 
+def _halo_prev_flag(flag: list, valid: list, mesh: Mesh) -> list:
+    """The previous row's value of a sharded bool flag under the same halo
+    stitch: row 0 reads the last valid row of the nearest previous shard
+    that has one (False where there is none)."""
+    n_valid = [v.sum() for v in valid]
+    all_last = all_gather([_last_rows((f,), nv)[0] for f, nv in zip(flag, n_valid)], mesh)
+    preds = _halo_preds(valid, mesh)
+    out = []
+    for p, f in enumerate(flag):
+        prev = torch.zeros_like(f)
+        prev[1:] = f[:-1]
+        if f.shape[0]:
+            pred = preds[p]
+            prev[:1] = (all_last[p][torch.clamp_min(pred, 0)] != 0) & (pred >= 0)
+        out.append(prev)
+    return out
+
+
 def _dist_sizes_digest(genome, positions, cap_len, is_pad, min_gs, max_gs, strand_split,
-                       sorted_words, mask, n_words, two_bit, keep_bits, mesh):
+                       sorted_words, mask, ext_gid, n_words, two_bit, keep_bits, mesh):
     """Group sizes over sharded sorted rows: (size, qualifies, total).
 
     ``size[p][i]`` is, at the first valid row of a group, the number of its
@@ -185,23 +225,28 @@ def _dist_sizes_digest(genome, positions, cap_len, is_pad, min_gs, max_gs, stran
     group identity stays that of all valid rows, the reference's
     previous-survivor walk), else 0; ``qualifies`` marks sizes in [max(min,
     1), max]; ``total`` sums the qualifying sizes over all shards. Identity
-    lanes: the key words (gathered from ``genome[p]``, or the retained
-    ``sorted_words`` masked to ``keep_bits`` bits of the last word), the
-    cap on 2-bit keys, and the strand where ``strand_split`` is given."""
+    lanes: the run ids ``ext_gid`` where given (they encode the ends of
+    the k-mers too), else the key words (gathered from ``genome[p]``, or
+    the retained ``sorted_words`` masked to ``keep_bits`` bits of the last
+    word) and the cap on 2-bit keys; and the strand where ``strand_split``
+    is given."""
     n_dev = mesh_size(mesh)
     valid = [~pad for pad in is_pad]
     counted = valid if mask is None else [m & v for m, v in zip(mask, valid)]
     all_counted = all_gather([c.sum() for c in counted], mesh)
     lanes = []
     for p in range(n_dev):
-        cap = torch.where(valid[p], cap_len[p], 0)
-        if sorted_words is None:
-            words = _words_for(genome[p], positions[p], cap, n_words, two_bit)
+        if ext_gid is not None:
+            shard = (ext_gid[p],)
         else:
-            words = list(sorted_words[p][:n_words])
-            if keep_bits < 32:
-                words[-1] = _masked(words[-1], (0xFFFFFFFF << (32 - keep_bits)) & 0xFFFFFFFF)
-        shard = tuple(words) + ((cap,) if two_bit else ())
+            cap = torch.where(valid[p], cap_len[p], 0)
+            if sorted_words is None:
+                words = _words_for(genome[p], positions[p], cap, n_words, two_bit)
+            else:
+                words = list(sorted_words[p][:n_words])
+                if keep_bits < 32:
+                    words[-1] = _masked(words[-1], (0xFFFFFFFF << (32 - keep_bits)) & 0xFFFFFFFF)
+            shard = tuple(words) + ((cap,) if two_bit else ())
         if strand_split is not None:
             shard += (positions[p] >= strand_split,)
         lanes.append(shard)
@@ -294,6 +339,7 @@ def distributed_group_size_histogram_ragged(
     sorted_words=None,
     mask=None,
     return_sizes: bool = False,
+    ext_gid=None,
 ):
     """Group-size histogram and total over the ragged per-shard-padded
     layout of ``sample_sort_positions_ragged`` (or an evenly padded one):
@@ -304,14 +350,26 @@ def distributed_group_size_histogram_ragged(
     (``kmer_len`` at most their built length); ``mask``, a sharded
     survivor mask, makes the sizes count survivors in unfiltered group
     identity; ``strand_split`` keeps the two strands of a both-strand index
-    apart (positions at or past it are "-" k-mers)."""
+    apart (positions at or past it are "-" k-mers). ``ext_gid``, sharded
+    run ids (``sample_sort.distributed_adjacent_gids`` or the converged ids
+    of ``sample_sort_positions_unbounded``), are the group identity alone:
+    then ``kmer_len`` may be None or beyond one compare window and the
+    genome is not read."""
     limit = 64 if packed2 is not None else 32
-    if kmer_len is None or kmer_len > limit:
+    if ext_gid is None and (kmer_len is None or kmer_len > limit):
         raise NotImplementedError(
             f"distributed stats require kmer_len <= {limit} "
-            "(unbounded and beyond-window group identity is not ported: ROADMAP.md A11)"
+            "(pass ext_gid for unbounded/beyond-window group identity)"
         )
     two_bit = packed2 is not None
+    if ext_gid is not None:
+        size, qualifies, total = _dist_sizes_digest(
+            None, sorted_positions, None, is_pad, min_group_size, max_group_size,
+            strand_split, None, mask, ext_gid, 0, two_bit, 32, mesh,
+        )
+        if return_sizes:
+            return size, qualifies, total
+        return distributed_hist_from_sizes(size, qualifies, max_counts_bin, mesh), total
     genome = replicate(packed2 if two_bit else packed, mesh)
     ss, se = replicate(seg_starts, mesh), replicate(seg_ends, mesh)
     cap_len = [
@@ -326,7 +384,7 @@ def distributed_group_size_histogram_ragged(
         keep_bits = (2 if two_bit else 4) * kmer_len - 32 * (n_words - 1)
     size, qualifies, total = _dist_sizes_digest(
         genome, sorted_positions, cap_len, is_pad, min_group_size, max_group_size,
-        strand_split, sorted_words, mask, n_words, two_bit, keep_bits, mesh,
+        strand_split, sorted_words, mask, None, n_words, two_bit, keep_bits, mesh,
     )
     if return_sizes:
         return size, qualifies, total

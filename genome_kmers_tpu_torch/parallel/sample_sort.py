@@ -1,8 +1,7 @@
 """Splitter-based sample sort of k-mer start positions over the mesh.
 
-Counterpart of ``genome_kmers_tpu/parallel/sample_sort.py`` at a bounded
-k-mer length (one compare window: k <= 64 on 2-bit keys, k <= 32 on 4-bit
-keys). The pipeline of the JAX package, shard by shard:
+Counterpart of ``genome_kmers_tpu/parallel/sample_sort.py``. The pipeline of
+the JAX package, shard by shard:
 
   1. local sort of the key lanes (key words, the cap where caps differ, the
      position last, a key: input may come in any order);
@@ -11,7 +10,9 @@ keys). The pipeline of the JAX package, shard by shard:
      shard and sorted; the ``P - 1`` splitters are its rows at stride ``s``;
   3. each shard's rows split into ``P`` contiguous buckets at the splitters
      (bucket b: the rows with b splitters at or below them);
-  4. the exchange: bucket b of every shard goes to shard b;
+  4. the exchange: bucket b of every shard goes to shard b
+     (``collectives.all_to_all``: one hop on a 1-D mesh, the two stages of
+     ``hier.py`` on a 2-D one);
   5. each shard sorts what it received: shard b holds the b-th key range.
 
 The result is globally sorted but ragged: shard b holds its ``n_b`` real
@@ -21,23 +22,43 @@ the JAX package: ``factor`` starts at 1.5 and doubles while a bucket is
 larger than ``C``. Each shard's layout is the JAX package's at the same mesh
 size.
 
-What differs from the JAX package, for the card: the bucket bounds are
-found on the host side (a lane-by-lane ``torch.searchsorted`` of each
-splitter in each shard's sorted rows; the JAX package reads an overflow flag
-once a try), so the capacity is chosen before anything moves and a retry
-re-runs no sort; the
-exchange moves each bucket's real rows and no padding; and no sort is given
-rows that are identical in every lane, which the multi-lane sort kernel
-(``kernels/lane_sort.py``) does not promise to order: the folded pad rows
-that end the last shard of an evenly padded index are cut off before the
-local sort and the splitter sort and put back behind the sorted rows, and
-step 5 sorts only real rows, the pads added after it. Every multi-lane sort
-here is ``sort_lanes_cuda``: the kernel on a CUDA tensor, its plain version
-on the CPU.
+Beyond one compare window (``max_kmer_len`` None, or above 64 bases on
+2-bit keys / 32 on 4-bit keys) the sort refines, as the JAX package's
+``sample_sort_positions_unbounded``: round 0 is the sample sort capped at
+the first 32-base window; after each round the run structure (a run id a
+row, stitched across shard edges, and the count of tied rows that still
+extend past the window) is computed over the new layout, and while rows are
+unresolved the next round sample-sorts by (run id, the next 32 bases, cap,
+position). ``distributed_adjacent_gids`` runs the run structure alone over
+a layout that is already sorted. The canonical sorts order rows by
+min(key, reverse complement).
 
-Not ported yet (ROADMAP.md A11): the unbounded and beyond-window refinement
-(``sample_sort_positions_unbounded``, ``distributed_adjacent_gids``), the
-canonical sorts, the 64-bit (strided) positions and the 2-D mesh.
+What differs from the JAX package, for the card:
+
+* a shard holds its real rows only, and its row count ``m`` in the JAX
+  layout as a number: the pads that sort behind the real rows in the JAX
+  package's local sort (the padding of an uneven index, the rows a
+  canonical sort leaves out, and every shard's pad tail in a refinement
+  round) are not built, and a sample that falls on one of them is an
+  all-ones row. So no sort is given rows that are identical in every lane,
+  which the multi-lane sort kernel (``kernels/lane_sort.py``) does not
+  promise to order. The JAX capacity series grows a refinement layout's
+  ``m`` 1.5x a round, and its samples then fall on pads more and more, so
+  the real rows gather on the first shards; the port keeps that series, so
+  its layout is the JAX package's, and holds the real rows alone between
+  rounds. The bounded sorts return the JAX layout, pads included; the
+  refinement rounds return the real rows and one pad row a shard.
+* the bucket bounds are found on the host side (a lane-by-lane
+  ``torch.searchsorted`` of each splitter in each shard's sorted rows; the
+  JAX package reads an overflow flag once a try), so the capacity is chosen
+  before anything moves and a retry re-runs no sort; the exchange moves
+  each bucket's real rows and no padding.
+
+Every multi-lane sort here is ``sort_lanes_cuda``: the kernel on a CUDA
+tensor, its plain version on the CPU.
+
+Not ported yet (ROADMAP.md A12): the 64-bit (strided) positions of the
+``*_large*`` sorts.
 """
 
 from __future__ import annotations
@@ -46,11 +67,20 @@ import numpy as np
 import torch
 
 from ..kernels.lane_sort import sort_lanes_cuda
+from ..ops.canonical import canonical_words
 from ..ops.keys import _mask_table, cap_lengths, compute_valid_len, u32_bits_as_int32, widen_u32
-from .collectives import all_gather, all_to_all, put_sharded, replicate
-from .distributed import _PAD_POS, _cdiv, _pad_to_multiple, _words_for, mesh_size
+from ..ops.sort import WINDOW_BASES, _round_done
+from .collectives import all_gather, all_to_all, psum, replicate
+from .distributed import (
+    _cdiv,
+    _halo_adjacent_eq,
+    _halo_prev_flag,
+    _words_for,
+    mesh_size,
+)
 
 _ONES = -1  # 0xFFFFFFFF as an int32 bit pattern
+_PAD_U32 = 0xFFFFFFFF  # a pad row's position and run id, as int64 values
 _INT32_MIN = -(1 << 31)
 N_SAMPLES = 256
 CAPACITY_FACTOR = 1.5
@@ -82,21 +112,10 @@ def _searchsorted_rows(rows: tuple, queries: np.ndarray) -> list:
     return out
 
 
-def _sort_unpadded(lanes: tuple, n_sort: int) -> tuple:
-    """The rows sorted, where rows ``n_sort:`` are folded pads (all-ones in
-    every lane, sorting last): only the first ``n_sort`` rows go through
-    the sort, the pads stay behind them."""
-    n = lanes[0].shape[0]
-    if n_sort == n:
-        return sort_lanes_cuda(lanes)
-    head = sort_lanes_cuda(tuple(lane[:n_sort] for lane in lanes))
-    return tuple(torch.cat([h, lane[n_sort:]]) for h, lane in zip(head, lanes))
-
-
 def _sort_samples(samples: tuple) -> tuple:
-    """The gathered samples sorted. Samples of folded pad rows (position
-    lane all-ones: no real position is 0xFFFFFFFF) are identical rows; they
-    sort last and are put there without going through the sort."""
+    """The gathered samples sorted. Samples of pad rows (position lane
+    all-ones: no real position is 0xFFFFFFFF) are identical rows; they sort
+    last and are put there without going through the sort."""
     real = samples[-1] != _ONES
     if bool(real.all()):
         return sort_lanes_cuda(samples)
@@ -119,36 +138,45 @@ def _capacity(m: int, n_dev: int, largest: int, capacity_factor: float):
         retries += 1
 
 
-def _exchange_merge(lanes: list, n_sort: list, padm: list, mesh, n_samples: int,
-                    capacity_factor: float, on_step=None):
+def _exchange_merge(lanes: list, padm, rows: int, mesh, capacity_factor: float,
+                    n_samples: int = N_SAMPLES, on_step=None):
     """Steps 1-5 over prepared per-shard lanes (key lanes, then the
-    position, int32 bit patterns, ``m`` rows a shard; the list is
-    consumed). Rows ``n_sort[p]:`` of shard p are folded pads (all-ones);
-    ``padm[p]`` marks every row that is not to be exchanged (folded pads,
-    and the invalid rows of the dense path, which sort behind the real rows
-    by their leading lanes).
+    position, int32 bit patterns; the list is consumed). Shard p holds the
+    first ``lanes[p][0].shape[0]`` of its ``rows`` rows in the JAX layout;
+    the rest are pads, all-ones in every lane, which are not built.
+    ``padm[p]`` (or None: none) marks the rows built but not exchanged: the
+    invalid rows of the dense sorts, which sort behind the real rows by
+    their leading lanes.
 
-    Returns (positions, is_pad, key lanes) per shard, ``P * C`` rows each,
-    and ``{"capacity_factor", "capacity", "retries", "rows"}``.
-    ``on_step(name)`` is called after each step ("local sort", "splitters",
-    "bucket bounds", "exchange", "merge") once its work is queued, so a
-    caller that synchronises in it times the steps."""
+    Returns (lanes, info): each shard's received rows sorted (its real rows
+    in the JAX layout), every lane, and ``{"capacity_factor", "capacity",
+    "retries", "rows", "shard_rows"}``: ``rows`` the real rows of each
+    shard, ``shard_rows`` (``P * C``) the rows of each shard in the JAX
+    layout. ``on_step(name)`` is called after each step ("local sort",
+    "splitters", "bucket bounds", "exchange", "merge") once its work is
+    queued, so a caller that synchronises in it times the steps."""
     n_dev = mesh_size(mesh)
-    m = lanes[0][0].shape[0]
+    n_samples = min(n_samples, rows)
     step = on_step if on_step is not None else (lambda name: None)
 
     # 1. local sort; ``lanes`` is emptied as it goes, so that each shard's
     # unsorted lanes are freed once sorted
     sorted_lanes = []
-    for k in n_sort:
-        sorted_lanes.append(_sort_unpadded(lanes.pop(0), k))
+    while lanes:
+        sorted_lanes.append(sort_lanes_cuda(lanes.pop(0)))
     lanes = sorted_lanes
     step("local sort")
 
-    # 2. regular-stride samples -> all shards -> sorted -> splitters
-    stride = max(m // n_samples, 1)
-    samp_idx = (torch.arange(n_samples, dtype=torch.int64) * stride + stride // 2) % m
-    local = [tuple(lane[samp_idx.to(lane.device)] for lane in shard) for shard in lanes]
+    # 2. regular-stride samples -> all shards -> sorted -> splitters; a
+    # sample past a shard's built rows is a pad row
+    stride = max(rows // n_samples, 1)
+    samp = [(i * stride + stride // 2) % rows for i in range(n_samples)]
+    local = []
+    for shard in lanes:
+        built = [i for i in samp if i < shard[0].shape[0]]
+        idx = torch.tensor(built, dtype=torch.int64, device=shard[0].device)
+        n_pad = n_samples - len(built)
+        local.append(tuple(torch.cat([lane[idx], lane.new_full((n_pad,), _ONES)]) for lane in shard))
     gathered = [all_gather([s[li] for s in local], mesh) for li in range(len(local[0]))]
     split_idx = (torch.arange(n_dev - 1, dtype=torch.int64) + 1) * n_samples
     splitters = []
@@ -160,13 +188,13 @@ def _exchange_merge(lanes: list, n_sort: list, padm: list, mesh, n_samples: int,
     # 3. bucket bounds: rows below each splitter, clamped to the real rows
     bounds = []
     for p in range(n_dev):
-        n_real = m - int(padm[p].sum())
+        n_real = lanes[p][0].shape[0] - (0 if padm is None else int(padm[p].sum()))
         split_host = np.stack([lane.cpu().numpy() for lane in splitters[p]])  # (lanes, P - 1)
         below = [min(b, n_real) for b in _searchsorted_rows(lanes[p], split_host)]
         bounds.append([0] + below + [n_real])
     bounds = np.asarray(bounds, dtype=np.int64)  # (P, P + 1)
     counts = np.diff(bounds, axis=1)
-    capacity, factor, retries = _capacity(m, n_dev, int(counts.max()), capacity_factor)
+    capacity, factor, retries = _capacity(rows, n_dev, int(counts.max()), capacity_factor)
     step("bucket bounds")
 
     # 4. exchange: bucket b of shard p -> shard b (its real rows only)
@@ -181,21 +209,59 @@ def _exchange_merge(lanes: list, n_sort: list, padm: list, mesh, n_samples: int,
     del lanes
     step("exchange")
 
-    # 5. merge: sort the received real rows, then pad to P * C rows
-    out_pos, out_pad, out_lanes = [], [], []
-    rows = capacity * n_dev
-    for b in range(n_dev):
-        got = tuple(torch.cat(recv[li][b]) for li in range(len(recv)))
-        n_b = got[0].shape[0]
-        merged = sort_lanes_cuda(got)
-        merged = tuple(torch.cat([w, w.new_full((rows - n_b,), _ONES)]) for w in merged)
-        out_pos.append(widen_u32(merged[-1]))
-        out_pad.append(torch.arange(rows, device=merged[0].device) >= n_b)
-        out_lanes.append(merged[:-1])
+    # 5. merge: sort the received real rows
+    merged = [sort_lanes_cuda(tuple(torch.cat(recv[li][b]) for li in range(len(recv))))
+              for b in range(n_dev)]
     step("merge")
     info = {"capacity_factor": factor, "capacity": capacity, "retries": retries,
-            "rows": [int(c) for c in counts.sum(axis=0)]}
-    return out_pos, out_pad, out_lanes, info
+            "rows": [int(c) for c in counts.sum(axis=0)], "shard_rows": capacity * n_dev}
+    return merged, info
+
+
+def _pad_tail(lane: torch.Tensor, rows: int, fill) -> torch.Tensor:
+    return torch.cat([lane, lane.new_full((rows - lane.shape[0],), fill)])
+
+
+def _padded(merged: list, rows: int):
+    """The JAX layout of per-shard real rows (``_exchange_merge``'s lanes):
+    (positions, is_pad, key lanes) per shard, ``rows`` rows each, int64
+    positions (pads 0xFFFFFFFF), bool pad flags and int32 key lanes (pads
+    all-ones)."""
+    out_pos, out_pad, out_lanes = [], [], []
+    for shard in merged:
+        n_b = shard[0].shape[0]
+        out_pos.append(widen_u32(_pad_tail(shard[-1], rows, _ONES)))
+        out_pad.append(torch.arange(rows, device=shard[0].device) >= n_b)
+        out_lanes.append(tuple(_pad_tail(w, rows, _ONES) for w in shard[:-1]))
+    return out_pos, out_pad, out_lanes
+
+
+def _shard_slices(positions: torch.Tensor, mesh):
+    """(rows, slices): the index cut into equal shards of ``rows`` rows
+    (the JAX layout pads it to a multiple of the shard count), each shard's
+    real positions on its device."""
+    n = positions.shape[0]
+    m = _cdiv(max(n, 1), mesh_size(mesh))
+    return m, [positions[p * m : min((p + 1) * m, n)].to(dev) for p, dev in enumerate(mesh.devices)]
+
+
+def _gather_sort(packed, positions, seg_starts, seg_ends, max_kmer_len, mesh, packed2,
+                 n_samples, capacity_factor, uniform_cap, on_step):
+    """The gather sample sort at a bounded length: (per-shard sorted real
+    rows, every lane, and ``_exchange_merge``'s info)."""
+    two_bit = packed2 is not None
+    n_words = _cdiv(max_kmer_len, 16 if two_bit else 8)
+    m, pos_s = _shard_slices(positions, mesh)
+    genome = replicate(packed2 if two_bit else packed, mesh)
+    ss, se = replicate(seg_starts, mesh), replicate(seg_ends, mesh)
+    lanes = []
+    for p, pos in enumerate(pos_s):
+        cap = cap_lengths(compute_valid_len(pos, ss[p], se[p]), max_kmer_len)
+        words = _words_for(genome[p], pos, cap, n_words, two_bit)
+        caps = () if uniform_cap else (cap.to(torch.int32),)
+        lanes.append(words + caps + (u32_bits_as_int32(pos),))
+    del pos_s
+    return _exchange_merge(lanes, None, m, mesh, capacity_factor, n_samples, on_step)
 
 
 def sample_sort_positions_ragged(
@@ -225,35 +291,15 @@ def sample_sort_positions_ragged(
     limit = 64 if packed2 is not None else 32
     if max_kmer_len is None or max_kmer_len > limit:
         raise NotImplementedError(f"sample sort requires max_kmer_len <= {limit} bases")
-    cap_len = cap_lengths(compute_valid_len(positions, seg_starts, seg_ends), max_kmer_len)
-    two_bit = packed2 is not None
-    n = positions.shape[0]
-    n_dev = mesh_size(mesh)
-    n_words = _cdiv(max_kmer_len, 16 if two_bit else 8)
-    pos_p = _pad_to_multiple(positions, n_dev, _PAD_POS)
-    cap_p = _pad_to_multiple(cap_len, n_dev, 0)
-    m = pos_p.shape[0] // n_dev
-    pos_s, cap_s = put_sharded(pos_p, mesh), put_sharded(cap_p, mesh)
-    del pos_p, cap_p, cap_len
-    genome = replicate(packed2 if two_bit else packed, mesh)
-    lanes, n_sort, padm = [], [], []
-    for p in range(n_dev):
-        n_real = min(max(n - p * m, 0), m)
-        pad = torch.arange(m, device=pos_s[p].device) >= n_real
-        words = _words_for(genome[p], pos_s[p], cap_s[p], n_words, two_bit)
-        words = tuple(torch.where(pad, _ONES, w) for w in words)  # pads sort last
-        caps = () if uniform_cap else (torch.where(pad, _ONES, cap_s[p].to(torch.int32)),)
-        pos_k = torch.where(pad, _ONES, u32_bits_as_int32(pos_s[p]))
-        lanes.append(words + caps + (pos_k,))
-        n_sort.append(n_real)
-        padm.append(pad)
-    del pos_s, cap_s
-    out_pos, out_pad, out_lanes, got = _exchange_merge(
-        lanes, n_sort, padm, mesh, min(n_samples, m), capacity_factor, on_step
+    merged, got = _gather_sort(
+        packed, positions, seg_starts, seg_ends, max_kmer_len, mesh, packed2, n_samples,
+        capacity_factor, uniform_cap, on_step,
     )
+    out_pos, out_pad, out_lanes = _padded(merged, got["shard_rows"])
     if info is not None:
         info.update(got)
     if return_lanes:
+        n_words = _cdiv(max_kmer_len, 16 if packed2 is not None else 8)
         return out_pos, out_pad, [w[:n_words] for w in out_lanes]
     return out_pos, out_pad
 
@@ -263,7 +309,7 @@ def sample_sort_positions(
     positions: torch.Tensor,
     seg_starts,
     seg_ends,
-    max_kmer_len: int,
+    max_kmer_len,
     mesh,
     packed2=None,
     n_samples: int = N_SAMPLES,
@@ -271,12 +317,14 @@ def sample_sort_positions(
     uniform_cap: bool = False,
 ) -> torch.Tensor:
     """The globally sorted positions, compacted on the host and returned on
-    the input's device; see ``sample_sort_positions_ragged``."""
+    the input's device; see ``sample_sort_positions_ragged``. A
+    ``max_kmer_len`` of None or beyond one compare window takes the
+    refinement rounds (``sample_sort_positions_unbounded``)."""
     limit = 64 if packed2 is not None else 32
     if max_kmer_len is None or max_kmer_len > limit:
-        raise NotImplementedError(
-            "sample sort beyond one compare window (max_kmer_len None or above "
-            f"{limit}) is not ported yet (ROADMAP.md A11)"
+        return sample_sort_positions_unbounded(
+            packed, positions, seg_starts, seg_ends, mesh, packed2=packed2,
+            n_samples=n_samples, capacity_factor=capacity_factor, max_kmer_len=max_kmer_len,
         )
     out_pos, out_pad = sample_sort_positions_ragged(
         packed, positions, seg_starts, seg_ends, max_kmer_len, mesh, packed2=packed2,
@@ -287,36 +335,211 @@ def sample_sort_positions(
 
 
 # --------------------------------------------------------------------------- #
+# refinement rounds: compare lengths beyond one window
+# --------------------------------------------------------------------------- #
+
+
+def _run_structure(genome, positions, valid, gid, ss, se, offset: int, max_cap, two_bit, mesh):
+    """The global run structure of a sorted layout after the window at
+    ``offset`` (32 bases): (run ids, unresolved). Rows are equal when their
+    previous run ids (``gid``; None on the first window) and the window's
+    key words agree and, on 2-bit keys, their caps clamped to the window
+    end (rows that both extend past it stay in one run); row 0 of a shard
+    compares with the last valid row of the nearest earlier shard that has
+    one. Run ids (int64) count the runs of all shards before a row, from
+    0; pads get 0xFFFFFFFF. ``unresolved`` (a 0-dim tensor) counts the
+    valid rows equal to their predecessor where either extends past the
+    window. ``max_cap`` None compares to the end of the record."""
+    n_words = WINDOW_BASES // (16 if two_bit else 8)
+    end = offset + WINDOW_BASES
+    lanes, beyond = [], []
+    for p, pos in enumerate(positions):
+        cap = torch.where(valid[p], cap_lengths(compute_valid_len(pos, ss[p], se[p]), max_cap), 0)
+        shard = _words_for(genome[p], pos, cap, n_words, two_bit, offset)
+        if two_bit:
+            shard += (torch.clamp_max(cap, end),)
+        if gid is not None:
+            shard = (gid[p],) + shard
+        lanes.append(shard)
+        beyond.append(cap > end)
+    eqs = _halo_adjacent_eq(lanes, valid, mesh)
+    del lanes
+    prev_beyond = _halo_prev_flag(beyond, valid, mesh)
+    boundary = [~eq & v for eq, v in zip(eqs, valid)]
+    unresolved = psum(
+        [(eq & v & (b | pb)).sum() for eq, v, b, pb in zip(eqs, valid, beyond, prev_beyond)], mesh
+    )[0]
+    counts = all_gather([b.sum() for b in boundary], mesh)
+    new_gid = [
+        torch.where(valid[p], counts[p][:p].sum() + torch.cumsum(b, dim=0) - 1, _PAD_U32)
+        for p, b in enumerate(boundary)
+    ]
+    return new_gid, unresolved
+
+
+def _refine_lanes(genome, pos, gid, ss, se, offset: int, max_cap, two_bit):
+    """One shard's lanes of a refinement round: (run id, the 32-base window
+    at ``offset``, cap, position), the JAX package's ``gid=`` lane layout."""
+    n_words = WINDOW_BASES // (16 if two_bit else 8)
+    cap = cap_lengths(compute_valid_len(pos, ss, se), max_cap)
+    words = _words_for(genome, pos, cap, n_words, two_bit, offset)
+    return (u32_bits_as_int32(gid),) + words + (u32_bits_as_int32(cap), u32_bits_as_int32(pos))
+
+
+def sample_sort_positions_unbounded(
+    packed,
+    positions: torch.Tensor,
+    seg_starts,
+    seg_ends,
+    mesh,
+    packed2=None,
+    n_samples: int = N_SAMPLES,
+    capacity_factor: float = CAPACITY_FACTOR,
+    max_kmer_len: int | None = None,
+    return_ragged: bool = False,
+    on_round=None,
+    on_step=None,
+    info: dict | None = None,
+):
+    """Sort k-mer start positions over the mesh by refinement rounds: the
+    mesh counterpart of the single-device refinement (ops/sort.py), for
+    ``max_kmer_len`` None (suffix mode: compare to each record's end) and
+    any bounded length beyond one compare window. Returns the sorted
+    positions (int64, on the input's device), or with ``return_ragged``
+    the layout ``(positions, is_pad, run ids)`` per shard: each shard's
+    real rows and one pad row, int64 positions and run ids (pads
+    0xFFFFFFFF), bool pad flags. Rows share a run id iff their k-mers are
+    equal under the sort's full comparison: the group identity of the
+    statistics at ``kmer_len = max_kmer_len``.
+
+    The real rows are the JAX package's layout; its shards hold
+    ``info["shard_rows"]`` rows each, the rest pads (a pad tail that the
+    capacity series grows 1.5x a round, too large to build after many
+    rounds: ROADMAP.md §C5). ``on_round(name)`` is
+    called once a round's unresolved count has been read (round 0:
+    "sample_sort_positions_ragged", then "_refine_round"); ``on_step`` see
+    ``_exchange_merge``, and also hears "round lanes" (a round's key lanes
+    built) and "run structure"; ``info`` receives "rounds", "retries",
+    "capacity_factors" (one a round), "rows" and "shard_rows" (of the last
+    layout)."""
+    two_bit = packed2 is not None
+    genome = replicate(packed2 if two_bit else packed, mesh)
+    ss, se = replicate(seg_starts, mesh), replicate(seg_ends, mesh)
+    n_dev = mesh_size(mesh)
+    step = on_step if on_step is not None else (lambda name: None)
+
+    # round 0: the sample sort capped at the first window
+    merged, got = _gather_sort(
+        packed, positions, seg_starts, seg_ends, WINDOW_BASES, mesh, packed2, n_samples,
+        capacity_factor, False, on_step,
+    )
+    rounds = [got]
+    pos = [widen_u32(shard[-1]) for shard in merged]
+    del merged
+    valid = [torch.ones(x.shape[0], dtype=torch.bool, device=x.device) for x in pos]
+    gid, unresolved = _run_structure(genome, pos, valid, None, ss, se, 0, max_kmer_len, two_bit, mesh)
+    step("run structure")
+    offset, name = 0, "sample_sort_positions_ragged"
+    while _round_done(unresolved, name, on_round):
+        offset += WINDOW_BASES
+        name = "_refine_round"
+        lanes = [
+            _refine_lanes(genome[p], pos[p], gid[p], ss[p], se[p], offset, max_kmer_len, two_bit)
+            for p in range(n_dev)
+        ]
+        del pos, gid
+        step("round lanes")
+        merged, got = _exchange_merge(
+            lanes, None, rounds[-1]["shard_rows"], mesh, capacity_factor, n_samples, on_step
+        )
+        rounds.append(got)
+        pos = [widen_u32(shard[-1]) for shard in merged]
+        old_gid = [widen_u32(shard[0]) for shard in merged]
+        del merged
+        valid = [torch.ones(x.shape[0], dtype=torch.bool, device=x.device) for x in pos]
+        gid, unresolved = _run_structure(
+            genome, pos, valid, old_gid, ss, se, offset, max_kmer_len, two_bit, mesh
+        )
+        del old_gid
+        step("run structure")
+    if info is not None:
+        info.update(
+            rounds=len(rounds), retries=sum(r["retries"] for r in rounds),
+            capacity_factors=[r["capacity_factor"] for r in rounds],
+            rows=rounds[-1]["rows"], shard_rows=rounds[-1]["shard_rows"],
+        )
+    if return_ragged:
+        pads = [torch.arange(x.shape[0] + 1, device=x.device) == x.shape[0] for x in pos]
+        return ([_pad_tail(x, x.shape[0] + 1, _PAD_U32) for x in pos], pads,
+                [_pad_tail(g, g.shape[0] + 1, _PAD_U32) for g in gid])
+    return torch.cat([x.cpu() for x in pos]).to(positions.device)
+
+
+def distributed_adjacent_gids(
+    packed,
+    rag_pos: list,
+    rag_pad: list,
+    seg_starts,
+    seg_ends,
+    kmer_len: int | None,
+    mesh,
+    packed2=None,
+) -> list:
+    """Run ids at ``kmer_len``-base identity (None: to each record's end)
+    over a layout that is already globally sorted (ragged, valid rows a
+    prefix of each shard): the run structure window by window, no re-sort,
+    until no tied pair can extend. Rows share an id iff their k-mers are
+    equal at ``kmer_len`` (int64 per shard, pads 0xFFFFFFFF)."""
+    two_bit = packed2 is not None
+    genome = replicate(packed2 if two_bit else packed, mesh)
+    ss, se = replicate(seg_starts, mesh), replicate(seg_ends, mesh)
+    valid = [~pad for pad in rag_pad]
+    gid, unresolved = _run_structure(genome, rag_pos, valid, None, ss, se, 0, kmer_len, two_bit, mesh)
+    offset = 0
+    while bool(unresolved):
+        offset += WINDOW_BASES
+        gid, unresolved = _run_structure(
+            genome, rag_pos, valid, gid, ss, se, offset, kmer_len, two_bit, mesh
+        )
+    return gid
+
+
+# --------------------------------------------------------------------------- #
 # dense fresh path: the key lanes of every SBA position, built shard by
 # shard from slices of the replicated pack (no per-row gather). Valid only
 # while the index is the canonical dense start set (a fresh Kmers sort).
 # --------------------------------------------------------------------------- #
 
 
-def _dense_key_lanes(packed, seg_starts, seg_ends, lo: int, hi: int, min_len: int,
-                     n_words: int, k: int, two_bit: bool, uniform_cap: bool):
-    """(key lanes, positions, invalid) of positions ``lo..hi-1``, int32 bit
-    patterns. Word w of a position p is the pack at ``p + per_word * w``
-    (zero past its end), masked to the cap. Rows that are not k-mer starts
-    (separators, tails shorter than ``min_len``, positions past the SBA)
-    are invalid and fold as the JAX package folds them: all-ones words
-    (and cap, when the cap lane is kept) on 2-bit keys, a leading invalid
-    lane on 4-bit keys, where a real word can be all-ones."""
-    dev = packed.device
-    per_word = 16 if two_bit else 8
-    iota = torch.arange(lo, hi, dtype=torch.int64, device=dev)
-    cap = torch.clamp_max(compute_valid_len(iota, seg_starts, seg_ends), k)
-    invalid = cap < min_len
-    masks = _mask_table(per_word, dev)
+def _dense_words(packed, lo: int, hi: int, cap: torch.Tensor, n_words: int, per_word: int):
+    """Key words (int32 bit patterns) of positions ``lo..hi-1``: word w of
+    position p is the pack at ``p + per_word * w`` (zero past its end),
+    masked to the cap."""
+    masks = _mask_table(per_word, packed.device)
     length = packed.shape[0]
     words = []
     for w in range(n_words):
         off = per_word * w
-        word = torch.zeros(hi - lo, dtype=torch.int32, device=dev)
+        word = torch.zeros(hi - lo, dtype=torch.int32, device=packed.device)
         a, b = min(lo + off, length), min(hi + off, length)
         word[: b - a] = packed[a:b]
         word &= masks[torch.clamp(cap - off, 0, per_word)]
         words.append(word)
+    return tuple(words)
+
+
+def _dense_key_lanes(packed, seg_starts, seg_ends, lo: int, hi: int, min_len: int,
+                     n_words: int, k: int, two_bit: bool, uniform_cap: bool):
+    """(key lanes, positions, invalid) of positions ``lo..hi-1``, int32 bit
+    patterns. Rows that are not k-mer starts (separators, tails shorter
+    than ``min_len``, positions past the SBA) are invalid and fold as the
+    JAX package folds them: all-ones words (and cap, when the cap lane is
+    kept) on 2-bit keys, a leading invalid lane on 4-bit keys, where a real
+    word can be all-ones."""
+    iota = torch.arange(lo, hi, dtype=torch.int64, device=packed.device)
+    cap = torch.clamp_max(compute_valid_len(iota, seg_starts, seg_ends), k)
+    invalid = cap < min_len
+    words = _dense_words(packed, lo, hi, cap, n_words, 16 if two_bit else 8)
     if two_bit:
         key = tuple(torch.where(invalid, _ONES, w) for w in words)
         if not (uniform_cap and k % 16 != 0):
@@ -326,6 +549,12 @@ def _dense_key_lanes(packed, seg_starts, seg_ends, lo: int, hi: int, min_len: in
     else:
         key = (invalid.to(torch.int32),) + tuple(words)
     return key, u32_bits_as_int32(iota), invalid
+
+
+def _dense_shards(packed, mesh):
+    """(rows a shard, the replicated pack): the SBA padded to a multiple of
+    the shard count, shard p holding positions ``p * rows ..``."""
+    return _cdiv(max(packed.shape[0], 1), mesh_size(mesh)), replicate(packed, mesh)
 
 
 def sample_sort_positions_dense_ragged(
@@ -355,30 +584,116 @@ def sample_sort_positions_dense_ragged(
     limit = 64 if two_bit else 32
     if max_kmer_len is None or max_kmer_len > limit:
         raise NotImplementedError(f"dense sample sort requires max_kmer_len <= {limit} bases")
-    n_dev = mesh_size(mesh)
     n_words = _cdiv(max_kmer_len, 16 if two_bit else 8)
-    m = _cdiv(max(packed.shape[0], 1), n_dev)
-    genome = replicate(packed, mesh)
+    m, genome = _dense_shards(packed, mesh)
     ss, se = replicate(seg_starts, mesh), replicate(seg_ends, mesh)
     lanes, padm = [], []
-    for p in range(n_dev):
+    for p in range(mesh_size(mesh)):
         key, iota, invalid = _dense_key_lanes(
             genome[p], ss[p], se[p], p * m, (p + 1) * m, min_kmer_len, n_words,
             max_kmer_len, two_bit, uniform_cap,
         )
         lanes.append(key + (iota,))
         padm.append(invalid)
-    out_pos, out_pad, out_lanes, got = _exchange_merge(
-        lanes, [m] * n_dev, padm, mesh, min(n_samples, m), capacity_factor, on_step
-    )
+    merged, got = _exchange_merge(lanes, padm, m, mesh, capacity_factor, n_samples, on_step)
     if sum(got["rows"]) != n:
         raise AssertionError(f"dense sample sort kept {sum(got['rows'])} rows, expected {n}")
     if info is not None:
         info.update(got)
+    out_pos, out_pad, out_lanes = _padded(merged, got["shard_rows"])
     if return_lanes:
         words = out_lanes if two_bit else [w[1:] for w in out_lanes]
         return out_pos, out_pad, [w[:n_words] for w in words]
     return out_pos, out_pad
+
+
+# --------------------------------------------------------------------------- #
+# canonical (strand-collapsed) sorts: rows ordered by min(key, revcomp(key)),
+# full-length k-mers only
+# --------------------------------------------------------------------------- #
+
+
+def _canonical(words: tuple, k: int, two_bit: bool) -> tuple:
+    """Canonical words of full-length rows, int32 bit patterns in and out."""
+    fwd = tuple(widen_u32(w) for w in words)
+    return tuple(u32_bits_as_int32(w) for w in canonical_words(fwd, k, two_bit))
+
+
+def sample_sort_canonical_dense_ragged(
+    packed_e,
+    seg_starts,
+    seg_ends,
+    min_kmer_len: int,
+    k: int,
+    mesh,
+    n_samples: int = N_SAMPLES,
+    capacity_factor: float = CAPACITY_FACTOR,
+    two_bit: bool = True,
+    on_step=None,
+):
+    """Sample sort of the fresh index's full-length k-mer starts by
+    canonical key over the mesh, gather-free as the dense sort: the forward
+    words of SBA positions ``p*m ..`` are slices of the pack (``packed_e``:
+    2-bit when ``two_bit``, else 4-bit), the reverse complement is bit
+    arithmetic on them (ops/canonical.py). Rows that are not full-length
+    starts of the index (valid_len < max(k, min_kmer_len)) carry a leading
+    invalid lane and are not exchanged. Returns (positions, is_pad,
+    canonical word lanes) per shard, the lanes the group identity of
+    ``distributed_group_size_histogram_ragged(sorted_words=...)``."""
+    limit = 64 if two_bit else 32
+    if k > limit:
+        raise NotImplementedError(f"canonical keys require k <= {limit}")
+    n_words = _cdiv(k, 16 if two_bit else 8)
+    m, genome = _dense_shards(packed_e, mesh)
+    ss, se = replicate(seg_starts, mesh), replicate(seg_ends, mesh)
+    lanes, padm = [], []
+    for p in range(mesh_size(mesh)):
+        iota = torch.arange(p * m, (p + 1) * m, dtype=torch.int64, device=genome[p].device)
+        valid = compute_valid_len(iota, ss[p], se[p]) >= max(k, min_kmer_len)
+        cap = torch.where(valid, k, 0)
+        words = _canonical(_dense_words(genome[p], p * m, (p + 1) * m, cap, n_words,
+                                        16 if two_bit else 8), k, two_bit)
+        lanes.append(((~valid).to(torch.int32),) + words + (u32_bits_as_int32(iota),))
+        padm.append(~valid)
+    merged, got = _exchange_merge(lanes, padm, m, mesh, capacity_factor, n_samples, on_step)
+    out_pos, out_pad, out_lanes = _padded(merged, got["shard_rows"])
+    return out_pos, out_pad, [w[1 : 1 + n_words] for w in out_lanes]
+
+
+def sample_sort_canonical_ragged(
+    packed_e,
+    positions: torch.Tensor,
+    seg_starts,
+    seg_ends,
+    kmer_len: int,
+    mesh,
+    n_samples: int = N_SAMPLES,
+    capacity_factor: float = CAPACITY_FACTOR,
+    two_bit: bool = True,
+    on_step=None,
+):
+    """Canonical sample sort of any position set (int64, any order): rows
+    ordered by min(key, revcomp(key)), the position the tie-break; rows
+    with fewer than ``kmer_len`` bases left have no canonical form and are
+    pads. Returns ``(positions, is_pad, canonical word lanes)`` per shard,
+    as ``sample_sort_canonical_dense_ragged``."""
+    limit = 64 if two_bit else 32
+    if kmer_len is None or kmer_len < 1 or kmer_len > limit:
+        raise ValueError(f"kmer_len ({kmer_len}) must be in [1, {limit}]")
+    n_words = _cdiv(kmer_len, 16 if two_bit else 8)
+    m, pos_s = _shard_slices(positions, mesh)
+    genome = replicate(packed_e, mesh)
+    ss, se = replicate(seg_starts, mesh), replicate(seg_ends, mesh)
+    lanes = []
+    for p, pos in enumerate(pos_s):
+        pos = pos[compute_valid_len(pos, ss[p], se[p]) >= kmer_len]
+        cap = torch.full_like(pos, kmer_len)
+        words = _canonical(_words_for(genome[p], pos, cap, n_words, two_bit), kmer_len, two_bit)
+        lanes.append(words + (u32_bits_as_int32(pos),))
+    del pos_s
+    merged, got = _exchange_merge(lanes, None, m, mesh, capacity_factor, n_samples, on_step)
+    out_pos, out_pad, out_lanes = _padded(merged, got["shard_rows"])
+    return out_pos, out_pad, out_lanes
 
 
 def ragged_rows(positions: list, is_pad: list) -> np.ndarray:

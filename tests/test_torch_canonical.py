@@ -230,6 +230,18 @@ def test_canonical_count_errors_match_jax(seqs, strands, call):
 
 
 def test_canonical_counts_over_a_mesh_are_not_ported():
-    tk = _both([("a", "ACGTACGTTTGA")], 3, 5)[1]
-    with pytest.raises(NotImplementedError, match="A11"):
-        tk.get_canonical_kmer_group_counts(3, mesh=object())
+    """Once refused naming A11, canonical statistics on a mesh are ported:
+    on the dense and the gather route, over a 1-D and a 2-D mesh of CPU
+    shards, they equal the JAX package's single-device counts (more in
+    tests/test_torch_mesh_unbounded.py)."""
+    from genome_kmers_tpu_torch import parallel as tp
+
+    seqs = [("a", "ACGTACGTTTGACGTACGT"), ("b", "TTGACGTANNACGTCAAC")]
+    for mesh in (tp.make_mesh(devices=["cpu"] * 3), tp.make_mesh2(2, 2, devices=["cpu"] * 4)):
+        jk, tk = _both(seqs, 3, 5)
+        for _ in range(2):  # the fresh index (dense route), then the sorted one
+            want = jk.get_canonical_kmer_group_counts(3)
+            got = tk.get_canonical_kmer_group_counts(3, mesh=mesh)
+            assert np.array_equal(got[0], want[0]) and got[1] == want[1]
+            jk.sort()
+            tk.sort()

@@ -513,41 +513,36 @@ def test_filter_calls_once_out_of_slice_now_match_jax(call):
     assert got == want and want[0] is NotImplementedError
 
 
-def _cpu_mesh():
-    from genome_kmers_tpu_torch.parallel import make_mesh
-
-    return make_mesh(devices=["cpu"] * 2)
-
-
-def _large_sort_sweep():
+def _large_sort_sweep(**kwargs):
     from genome_kmers_tpu_torch.profiling import profile_large_sort
 
-    return profile_large_sort([100])
+    return profile_large_sort([100], **kwargs)
 
 
-def _mesh2():
-    from genome_kmers_tpu_torch.parallel import make_mesh2
+def _strided_pack():
+    """A one-record genome in the arguments of the JAX package's
+    ``LargeKmers(packed_words, seg_starts_u64, seg_ends_u64, ...)``."""
+    return np.zeros(4, dtype=np.uint32), np.array([0], np.uint64), np.array([20], np.uint64)
 
-    return make_mesh2(1, 2)
 
-
-# Persistence, export and the bounded mesh calls were out of the slice once
-# and are ported (tests/test_torch_persistence.py, test_torch_mesh.py); the
-# calls below are what still lies outside it.
+# Persistence, export and the mesh calls were out of the slice once and are
+# ported (tests/test_torch_persistence.py, test_torch_mesh.py,
+# test_torch_mesh_unbounded.py, test_torch_hier.py; the mesh calls that
+# stood here are cases of test_calls_once_out_of_slice_now_match_jax); the
+# calls below are what still lies outside it: the 64-bit regime (A12).
 @pytest.mark.parametrize(
     "call",
     [
-        lambda sc, km: gt.Kmers(sc, 3, None).sort(mesh=_cpu_mesh()),
+        lambda sc, km: gt.LargeKmers(*_strided_pack(), 1, None),
         lambda sc, km: gt.LargeKmers(sc, 3, 3),
-        lambda sc, km: gt.Kmers(sc, 3, 70).sort(mesh=_cpu_mesh()),
-        lambda sc, km: (km.sort(mesh=_cpu_mesh()), km.get_kmer_count(None, mesh=_cpu_mesh())),
-        lambda sc, km: (km.sort(), km.get_kmer_group_counts(None, mesh=_cpu_mesh())),
-        lambda sc, km: (km.sort(), km.get_kmer_count(70, mesh=_cpu_mesh())),
-        lambda sc, km: _mesh2(),
+        lambda sc, km: gt.LargeKmers(*_strided_pack(), 3, 70),
+        lambda sc, km: gt.LargeKmers(*_strided_pack(), 3, 8, two_bit=False),
+        lambda sc, km: gt.LargeKmers(),
         lambda sc, km: _large_sort_sweep(),
-        lambda sc, km: km.get_canonical_kmer_group_counts(3, mesh=object()),
-        lambda sc, km: (km.sort(mesh=_cpu_mesh()),
-                        km.get_canonical_kmer_group_counts(3, mesh=_cpu_mesh())),
+        lambda sc, km: _large_sort_sweep(kmer_lens=[None]),
+        lambda sc, km: _large_sort_sweep(n_devices=2),
+        lambda sc, km: _large_sort_sweep(kmer_lens=[31, 70], num_iterations=1),
+        lambda sc, km: (km.sort(), gt.LargeKmers(sc, 3, 8)),
     ],
 )
 def test_out_of_slice_calls_raise_not_implemented(call):
@@ -555,6 +550,25 @@ def test_out_of_slice_calls_raise_not_implemented(call):
     km = gt.Kmers(sc, 3, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         call(sc, km)
+
+
+def _mesh(g, n: int = 2):
+    if g is gj:
+        return gj.parallel.make_mesh(n)
+    return gt.parallel.make_mesh(devices=["cpu"] * n)
+
+
+def _mesh2(g):
+    if g is gj:
+        m = gj.parallel.make_mesh2(1, 2)
+    else:
+        m = gt.parallel.make_mesh2(1, 2, devices=["cpu"] * 2)
+    return tuple(m.axis_names), dict(m.shape)
+
+
+def _mesh_sorted(g, km, n: int = 2):
+    km.sort(mesh=_mesh(g, n))
+    return km
 
 
 def _sorted(km):
@@ -586,6 +600,26 @@ def _sorted(km):
          lambda g, sc: _sorted(g.Kmers(sc, 3, 8)).count_queries_canonical(["ATC", "CAA"], 3).tolist()),
         (SEQ_LIST_2, "forward",
          lambda g, sc: g.Kmers(sc, 3, 8).get_canonical_kmer_group_counts(3)[0][:4].tolist()),
+        # the mesh beyond one compare window, canonical statistics on a mesh
+        # and the 2-D mesh, once refused
+        (SEQ_LIST_2, "forward",
+         lambda g, sc: _mesh_sorted(g, g.Kmers(sc, 3, None)).kmer_sba_start_indices.tolist()),
+        (SEQ_LIST_2, "forward",
+         lambda g, sc: _mesh_sorted(g, g.Kmers(sc, 3, 70)).kmer_sba_start_indices.tolist()),
+        (SEQ_LIST_2, "forward",
+         lambda g, sc: _mesh_sorted(g, g.Kmers(sc, 3, 8)).get_kmer_count(None, mesh=_mesh(g))),
+        (SEQ_LIST_2, "forward",
+         lambda g, sc: _sorted(g.Kmers(sc, 3, 8))
+         .get_kmer_group_counts(None, mesh=_mesh(g))[0][:4].tolist()),
+        (SEQ_LIST_2, "forward",
+         lambda g, sc: _sorted(g.Kmers(sc, 3, 8)).get_kmer_count(70, mesh=_mesh(g))),
+        (SEQ_LIST_2, "forward", lambda g, sc: _mesh2(g)),
+        (SEQ_LIST_2, "forward",
+         lambda g, sc: g.Kmers(sc, 3, 8)
+         .get_canonical_kmer_group_counts(3, mesh=_mesh(g))[0][:4].tolist()),
+        (SEQ_LIST_2, "forward",
+         lambda g, sc: _mesh_sorted(g, g.Kmers(sc, 3, 8))
+         .get_canonical_kmer_group_counts(3, mesh=_mesh(g))[0][:4].tolist()),
     ],
 )
 def test_calls_once_out_of_slice_now_match_jax(seq_list, strands, call):

@@ -21,7 +21,10 @@ all-'A' record, ACGT or with N and IUPAC codes):
   package's mesh statistics and the port's single-device ones, raises
   included;
 * ``count_queries`` / ``count_queries_canonical`` with ``mesh=``;
-* the calls that still raise, naming ROADMAP.md A11.
+* the calls that once raised naming ROADMAP.md A11, against the JAX
+  package (the mesh beyond one window, canonical statistics on a mesh and
+  the 2-D mesh are held further in test_torch_mesh_unbounded.py and
+  test_torch_hier.py).
 
 Tolerance: exact equality (integer outputs); the JAX side is computed once
 per module and shape where it can be.
@@ -505,30 +508,51 @@ def test_make_mesh_on_the_cpu_and_without_cuda(monkeypatch):
         tp.make_mesh(devices=["cuda:0"])
 
 
-def _raises_a11(fn):
-    with pytest.raises(NotImplementedError, match="A11"):
-        fn()
-
-
 def test_deferred_mesh_calls_raise_naming_a11():
+    """The mesh calls this test once held to a NotImplementedError naming
+    A11 are ported: each now equals the JAX package's single-device answer
+    (tests/test_torch_mesh_unbounded.py and test_torch_hier.py hold them
+    further); the 64-bit regime still raises, naming A12."""
     sl = _seq_list(2, False)
     tm = tp.make_mesh(devices=["cpu"] * 2)
     sc = gt.SequenceCollection(sequence_list=sl, device="cpu")
+    scj = gj.SequenceCollection(sequence_list=sl)
+
+    def single(sc_j, mn, mx, descending=False):
+        km = gj.Kmers(sc_j, mn, mx)
+        if descending:
+            km.kmer_sba_start_indices = km.kmer_sba_start_indices[::-1].copy()
+        km.sort()
+        return km
+
     # unbounded and beyond-window mesh sorts (fresh and assigned indexes)
-    _raises_a11(lambda: gt.Kmers(sc, 20, None).sort(mesh=tm))
-    _raises_a11(lambda: gt.Kmers(sc, 20, 70).sort(mesh=tm))
+    for mn, mx in ((20, None), (20, 70)):
+        km = gt.Kmers(sc, mn, mx)
+        km.sort(mesh=tm)
+        assert np.array_equal(km.kmer_sba_start_indices, single(scj, mn, mx).kmer_sba_start_indices)
     km = gt.Kmers(sc, 20, None)
     km.kmer_sba_start_indices = km.kmer_sba_start_indices[::-1].copy()
-    _raises_a11(lambda: km.sort(mesh=tm))
-    sc4 = gt.SequenceCollection(sequence_list=_seq_list(2, True), device="cpu")
-    _raises_a11(lambda: gt.Kmers(sc4, 20, 48).sort(mesh=tm))
+    km.sort(mesh=tm)
+    assert np.array_equal(km.kmer_sba_start_indices,
+                          single(scj, 20, None, descending=True).kmer_sba_start_indices)
+    sl4 = _seq_list(2, True)
+    km = gt.Kmers(gt.SequenceCollection(sequence_list=sl4, device="cpu"), 20, 48)
+    km.sort(mesh=tm)
+    assert np.array_equal(km.kmer_sba_start_indices,
+                          single(gj.SequenceCollection(sequence_list=sl4), 20, 48)
+                          .kmer_sba_start_indices)
     # statistics that need run ids, canonical statistics, a 2-D mesh
     km = gt.Kmers(sc, 20, 31)
     km.sort(mesh=tm)
-    _raises_a11(lambda: km.get_kmer_group_counts(None, mesh=tm))
-    _raises_a11(lambda: km.get_kmer_count(70, mesh=tm))
-    _raises_a11(lambda: gt.Kmers(sc, 20, 31).get_canonical_kmer_group_counts(20, mesh=tm))
-    _raises_a11(lambda: tp.make_mesh2(2, 2))
+    kj = single(scj, 20, 31)
+    got, want = km.get_kmer_group_counts(None, mesh=tm), kj.get_kmer_group_counts(None)
+    assert np.array_equal(got[0], want[0]) and got[1] == want[1]
+    assert km.get_kmer_count(70, mesh=tm) == kj.get_kmer_count(70)
+    got = gt.Kmers(sc, 20, 31).get_canonical_kmer_group_counts(20, mesh=tm)
+    want = gj.Kmers(scj, 20, 31).get_canonical_kmer_group_counts(20)
+    assert np.array_equal(got[0], want[0]) and got[1] == want[1]
+    m2 = tp.make_mesh2(2, 2, devices=["cpu"] * 4)
+    assert m2.shape == dict(jp.make_mesh2(2, 2).shape)
     with pytest.raises(NotImplementedError, match="A12"):
         gt.LargeKmers()
 

@@ -22,7 +22,8 @@ REPO = Path(__file__).resolve().parents[1]
      "genome_kmers_tpu_torch.ops.canonical", "genome_kmers_tpu_torch.parallel",
      "genome_kmers_tpu_torch.parallel.collectives", "genome_kmers_tpu_torch.parallel.distributed",
      "genome_kmers_tpu_torch.parallel.sample_sort", "genome_kmers_tpu_torch.parallel.query",
-     "genome_kmers_tpu_torch.parallel.checkpoint", "genome_kmers_tpu_torch.profiling",
+     "genome_kmers_tpu_torch.parallel.checkpoint", "genome_kmers_tpu_torch.parallel.hier",
+     "genome_kmers_tpu_torch.profiling",
      "genome_kmers_tpu_torch.io.csv_out"],
 )
 def test_import_loads_no_jax(module):
