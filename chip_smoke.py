@@ -19,7 +19,9 @@ Phases, each of which raises (exit code 1) on failure:
    4, 5, 6 and 7 lanes also with a tied payload lane behind the permutation,
    the shape of a refinement round: run id, words, position, cap; at 6 and
    7 such lanes also at 2^27 rows, the shapes the full-width rounds of
-   phases 9 and 10 give the kernel), and on inputs already sorted, reverse-sorted, with every key lane constant,
+   phases 9 and 10 give the kernel; and 2^27 rows of 5 lanes whose position
+   is two lanes, hi then lo, the lo lane repeating and holding values >=
+   2^31, the shape of LargeKmers' sort), and on inputs already sorted, reverse-sorted, with every key lane constant,
    and with a run that lies wholly before its left partner. Time each kernel
    and its plain version at the main path's shape (2^27 bytes; 2^27 rows x
    6 lanes) beside the least time the card could take and, for the sort,
@@ -170,6 +172,27 @@ Phases, each of which raises (exit code 1) on failure:
     collections; the lane sort in every round's local sort, splitter sort
     and merge, and in every canonical sort).
 
+18. LargeKmers, the 64-bit regime. 18a: LargeKmers.from_sequence_collection
+    on phase 4's and phase 5's collections at (31, 31), sorted on
+    make_mesh(1) and on the mesh of phase 15 (cold and warm, beside a warm
+    Kmers sort of the same genome on one card and on that mesh): the sorted
+    positions, get_kmer_group_counts(31) and get_kmer_count(31) must be
+    phases 4's and 5's, get_canonical_kmer_group_counts(31) phase 14's; and
+    suffix mode (1, None) at 2^24 bp against the Kmers suffix sort of the
+    same collection (positions and histogram). 18b: a genome of two
+    segments and 2^32 + 2^27 bases made from the seed as a strided 2-bit
+    pack (1.1 GB, never an SBA), with 4096 word ranges of 1024 bases copied
+    to 1-7 places each, half of them past 2^32; 2^27 distinct 31-mer starts,
+    30% at or past 2^32, sorted on one shard and on four and held to a host
+    oracle (np.lexsort of each position's 62-bit key and the position):
+    sorted positions, histogram, totals, and count_queries of 2^16 strings
+    against the oracle's counts. Then suffix mode (1, None) at 2^22
+    positions of a second such genome whose segments end in the same 256
+    bases, 120 mirrored pairs in them, against 320-base prefixes capped at
+    each segment's end, with its rounds and the seconds of each. Every path
+    must launch the multi-lane sort; each prints its times and its peak
+    device memory.
+
 ``--profile DIR`` adds a warm second run of phase 5's calls and of phase 9's,
 and a canonical dense-route call and a count_queries call of phase 14 on
 each genome, under torch.profiler and writes the device time by kernel to
@@ -220,6 +243,7 @@ from genome_kmers_tpu_torch.ops.filters import (
     flag_plane,
 )
 from genome_kmers_tpu_torch.ops.keys import compute_valid_len, pack_rank2_words, widen_u32
+from genome_kmers_tpu_torch.ops.large import decode_strided_np, split64
 from genome_kmers_tpu_torch.ops.query import encode_query_words
 from genome_kmers_tpu_torch.ops.sort import sort_lanes
 from genome_kmers_tpu_torch.parallel import (
@@ -253,6 +277,14 @@ RETRY_BP = 1 << 16
 MESH_SUFFIX4_BPS = (1 << 20, 1 << 22, 1 << 24, 1 << 26)
 MESH2_SUFFIX_BP = 1 << 24  # phase 17: suffix mode on the 2-D mesh against the 1-D one
 EXPORT_BP = 1 << 20  # phase 16: full arrays and to_csv against a NumPy oracle
+LARGE_SUFFIX_BP = 1 << 24  # phase 18a: LargeKmers suffix mode against the Kmers suffix sort
+LARGE_BP = (1 << 32) + (1 << 27)  # phase 18b: two segments past 2^32, as a strided pack
+LARGE_SEG_A = (1 << 31) + (1 << 26)  # the first segment's bases; then '$' and the second
+LARGE_POSITIONS = 1 << 27  # phase 18b: 31-mer starts sorted, 30% past 2^32
+LARGE_SUFFIX_POSITIONS = 1 << 22  # phase 18b: suffixes sorted
+LARGE_TAIL = 256  # phase 18b: bases the two segments share at their ends
+LARGE_QUERIES = 1 << 16
+LARGE_PLANTS = 4096  # phase 18b: word ranges copied to 1-7 places each
 ROW_LOOP_BP = 1 << 18  # phase 16: to_csv against its row loop (17 us a row on a host core)
 # end to end of phases 4 and 5 when the FASTA went through the NumPy parser
 # (H100 80GB HBM3 at 700 W)
@@ -782,6 +814,25 @@ def phase_lane_sort_kernel(rng) -> dict:
             f"(checked in {seconds:.2f} s)")
         del lanes
         torch.cuda.empty_cache()
+    # the large regime's one-window sort (LargeKmers, phase 18): two key
+    # words, the cap, then the position as two lanes, hi then lo; the lo
+    # lane repeats (rows differ in the pair) and holds values >= 2^31
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 18)
+    n = MAIN_BP
+    pos = torch.randperm(n, device=dev, generator=gen).to(torch.int64) * 64 + 7
+    lanes = tuple(torch.randint(0, 3, (n,), dtype=torch.int32, device=dev, generator=gen) - 1
+                  for _ in range(2))
+    lanes += (torch.randint(29, 32, (n,), dtype=torch.int32, device=dev, generator=gen),)
+    lanes += split64(pos)
+    del pos
+    if int(torch.unique(lanes[-1]).numel()) == n or not bool((lanes[-1] < 0).any()):
+        raise AssertionError("the large-position lanes do not repeat their lo lane")
+    (_, seconds) = sync_time(lambda: check_lane_sort(lanes, "2^27 rows x 5 lanes, 64-bit positions"))
+    log(f"lane sort, 2^27 rows x 5 lanes (two words, cap, position hi and lo; the lo lane repeats "
+        f"and holds values >= 2^31): bitwise equal to the plain version (checked in {seconds:.2f} s)")
+    del lanes
+    torch.cuda.empty_cache()
     # the main path's shape: 2^27 rows of (invalid, four words, position)
     n = MAIN_BP
     lanes = (torch.randint(0, 2, (n,), dtype=torch.int32, device=dev),)
@@ -2453,6 +2504,344 @@ def phase_mesh_beyond_window(host_acgt, host_iupac, pos_acgt, suffix_ref, beyond
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 18: LargeKmers, the 64-bit regime
+# --------------------------------------------------------------------------- #
+
+
+def large_sort(lk, mesh, label: str, **kwargs):
+    """``lk.sort(mesh)`` to its end on the card, its lane sort launches
+    counted from 0: (seconds, launches, the sort's info)."""
+    info = {}
+    reset_launches()
+    rounds = RoundLog()
+    (_, seconds) = sync_time(lambda: lk.sort(mesh, on_round=rounds, info=info, **kwargs))
+    if sort_lanes_cuda.launches < 1:
+        raise AssertionError(f"{label}: the lane sort did not launch")
+    if any(p.device.type != DEVICE for p in lk._sorted[0]):
+        raise AssertionError(f"{label}: the sorted layout does not live on the card")
+    info["rounds_log"] = rounds
+    return seconds, sort_lanes_cuda.launches, info
+
+
+def large_main(host_sc, name: str, expected: np.ndarray, counts31: np.ndarray, canonical, m1, m4):
+    """18a on one genome at 2^27 bp: LargeKmers (31, 31) from the collection,
+    sorted on one shard and on four, held to the main path's positions,
+    histogram and total and to phase 14's canonical counts; Kmers on the same
+    genome timed beside it. Returns the lane sort's launches by path."""
+    label = f"LargeKmers, {name} 2^27 (31, 31)"
+    launches = {}
+    lk, t_build = sync_time(lambda: gkt.LargeKmers.from_sequence_collection(host_sc, 31, 31))
+    log(f"{label}: from_sequence_collection {t_build:.3f} s (strided {'2' if lk.two_bit else '4'}-bit "
+        f"pack of {lk.packed_words.nbytes} bytes, {len(lk)} k-mers)")
+    sba, seg_starts = index_sba(host_sc)
+    sc, km = from_numpy_state(sba, seg_starts, host_sc.forward_record_names, 31, 31, device=DEVICE)
+    km.sort()  # cold; the timed sorts below are warm, as the large ones
+    _, t_kmers = sync_time(gkt.Kmers(sc, 31, 31).sort)
+    gkt.Kmers(sc, 31, 31).sort(mesh=m4)
+    _, t_kmers4 = sync_time(lambda: gkt.Kmers(sc, 31, 31).sort(mesh=m4))
+    del sc, km
+    for mesh, shards in ((m1, 1), (m4, MESH_SHARDS)):
+        where = f"{label}, {shards} shard{'s' if shards > 1 else ''}"
+        held_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t_cold, _, _ = large_sort(lk, mesh, where)
+        t_sort, n_launch, info = large_sort(lk, mesh, where)
+        launches[where] = n_launch
+        if not np.array_equal(lk.sorted_positions(), expected.astype(np.uint64)):
+            raise AssertionError(f"{where}: the sorted positions are not the main path's")
+        (got, total), t_counts = sync_time(lambda: lk.get_kmer_group_counts(31))
+        count, t_count = sync_time(lambda: lk.get_kmer_count(31))
+        if not (np.array_equal(got.astype(np.int64), counts31) and total == count == len(lk)):
+            raise AssertionError(f"{where}: the histogram or the total is not the main path's")
+        kmers_t = t_kmers if shards == 1 else t_kmers4
+        log(f"{where}: sort {t_cold:.4f} s cold, {t_sort:.4f} s warm = {len(lk) / t_sort / 1e6:.1f} M "
+            f"k-mers/s, {t_sort / kmers_t:.2f}x Kmers on the same genome ({kmers_t:.4f} s, "
+            f"{'one card' if shards == 1 else f'mesh of {MESH_SHARDS}'}); rows by shard "
+            f"{info['rows']}; get_kmer_group_counts(31) {t_counts:.4f} s, get_kmer_count(31) "
+            f"{t_count:.4f} s; equal to the main path's positions, histogram and total; lane sort "
+            f"launches {n_launch}")
+        log_peak(where, held_before)
+    reset_launches()
+    (got, total), t_can = sync_time(lambda: lk.get_canonical_kmer_group_counts(31, mesh=m1))
+    if not (np.array_equal(got.astype(np.int64), canonical[0]) and total == canonical[1]):
+        raise AssertionError(f"{label}: canonical counts differ from phase 14's")
+    if sort_lanes_cuda.launches < 1:
+        raise AssertionError(f"{label}: the canonical sort did not launch the lane sort")
+    launches[f"{label}, canonical (31), one shard"] = sort_lanes_cuda.launches
+    log(f"{label}: get_canonical_kmer_group_counts(31) {t_can:.4f} s, equal to phase 14's; lane "
+        f"sort launches {sort_lanes_cuda.launches}")
+    return launches
+
+
+def large_suffix_small(rng, m1) -> dict:
+    """18a, suffix mode at 2^24 bp: LargeKmers (1, None) against the Kmers
+    suffix sort of the same collection."""
+    label = f"LargeKmers suffix mode (1, None), ACGT {LARGE_SUFFIX_BP} bp"
+    sc = collection_of(synthetic_records(rng, LARGE_SUFFIX_BP, 12, short_lens=(40,)))
+    km = gkt.Kmers(sc)
+    _, t_kmers = sync_time(km.sort)
+    want = km.get_kmer_group_counts(None)
+    lk = gkt.LargeKmers.from_sequence_collection(sc, 1, None)
+    t_sort, n_launch, info = large_sort(lk, m1, label)
+    if not np.array_equal(lk.sorted_positions(), km.kmer_sba_start_indices.astype(np.uint64)):
+        raise AssertionError(f"{label}: the sorted suffixes are not the Kmers suffix sort's")
+    (got, total), t_counts = sync_time(lambda: lk.get_kmer_group_counts(None))
+    if not (np.array_equal(got.astype(np.int64), want[0]) and total == want[1]):
+        raise AssertionError(f"{label}: the histogram differs from the Kmers suffix sort's")
+    log(f"{label}: sort {t_sort:.4f} s in {info['rounds_log'].summary()}; Kmers suffix sort "
+        f"{t_kmers:.4f} s ({t_sort / t_kmers:.1f}x); get_kmer_group_counts(None) {t_counts:.4f} s "
+        f"from the kept run ids; equal positions and histogram; lane sort launches {n_launch}")
+    return {label: n_launch}
+
+
+def _set_ranks2(words: np.ndarray, start: int, ranks: np.ndarray) -> None:
+    """Write 2-bit ranks at bases ``start ..`` of a strided pack."""
+    p = np.arange(start, start + len(ranks), dtype=np.uint64)
+    w = (p >> np.uint64(4)).astype(np.int64)
+    sh = ((np.uint64(15) - (p & np.uint64(15))) * np.uint64(2)).astype(np.uint32)
+    for i in range(len(ranks)):  # a few hundred bases
+        words[w[i]] = (words[w[i]] & ~(np.uint32(3) << sh[i])) | (np.uint32(ranks[i]) << sh[i])
+
+
+def _ranks2(words: np.ndarray, start: int, n: int) -> np.ndarray:
+    p = np.arange(start, start + n, dtype=np.uint64)
+    sh = ((np.uint64(15) - (p & np.uint64(15))) * np.uint64(2)).astype(np.uint32)
+    return (words[(p >> np.uint64(4)).astype(np.int64)] >> sh) & np.uint32(3)
+
+
+def _windows64(words: np.ndarray, pos: np.ndarray, offset: int = 0) -> np.ndarray:
+    """The 32 bases from ``pos + offset`` of a strided 2-bit pack as one
+    uint64 (first base in the top field); reads past the pack are 0."""
+    p = pos + np.uint64(offset)
+    w = (p >> np.uint64(4)).astype(np.int64)
+    s = (p & np.uint64(15)) * np.uint64(2)
+    last = len(words) - 1
+    w0 = words[np.minimum(w, last)].astype(np.uint64)
+    w1 = words[np.minimum(w + 1, last)].astype(np.uint64)
+    w2 = words[np.minimum(w + 2, last)].astype(np.uint64)
+    return (((w0 << np.uint64(32)) | w1) << s) | (w2 >> (np.uint64(32) - s))
+
+
+def large_genome(rng, plants: bool):
+    """(strided 2-bit pack of LARGE_BP bases in two segments, seg_starts,
+    seg_ends, plant positions): random words made from the seed; with
+    ``plants``, LARGE_PLANTS word ranges of 1024 bases copied to 1-7 places each,
+    half of them past 2^32, so that k-mers come in groups of 2 to 8 across
+    2^32, else the last LARGE_TAIL bases of the two segments made equal."""
+    n_words = LARGE_BP // 16
+    words = rng.integers(0, 1 << 32, size=n_words + 8, dtype=np.uint32)
+    words[n_words:] = 0
+    seg_a = LARGE_SEG_A
+    starts = np.array([0, seg_a + 1], dtype=np.uint64)
+    ends = np.array([seg_a - 1, LARGE_BP - 1], dtype=np.uint64)
+    planted = np.zeros(0, dtype=np.uint64)
+    if plants:
+        span = 64  # words: 1024 bases
+        hi_word = (1 << 32) // 16
+        src = rng.choice(seg_a // 16 - span, size=LARGE_PLANTS, replace=False)
+        chunks = []
+        for i, s in enumerate(src):
+            n_dst = int(rng.integers(1, 8))
+            lo_dst = rng.integers(0, seg_a // 16 - span, size=n_dst // 2)
+            hi_dst = rng.integers(hi_word, n_words - span, size=n_dst - n_dst // 2)
+            dsts = np.concatenate([lo_dst, hi_dst])
+            for d in dsts:
+                words[d : d + span] = words[s : s + span]
+            offs = 1 + 2 * rng.integers(0, (span * 16 - 32) // 2, size=4)  # odd, inside the range
+            for w in np.concatenate([[s], dsts]):
+                chunks.append(np.uint64(16 * int(w)) + offs.astype(np.uint64))
+        planted = np.unique(np.concatenate(chunks))
+    else:
+        tail = _ranks2(words, seg_a - LARGE_TAIL, LARGE_TAIL)
+        _set_ranks2(words, LARGE_BP - LARGE_TAIL, tail)
+    return words, starts, ends, planted
+
+
+def _even_sample(rng, lo: int, hi: int, n: int) -> np.ndarray:
+    """``n`` distinct even numbers in [lo, hi) (``lo`` even), ascending, from
+    geometric gaps: no sort and no set of the range."""
+    slots = (hi - lo) // 2
+    p = min(1.0, n / (0.98 * slots))
+    idx = np.cumsum(rng.geometric(p, size=n).astype(np.int64)) - 1
+    if idx[-1] >= slots:
+        raise AssertionError(f"large positions: {n} even starts do not fit in [{lo}, {hi})")
+    return np.uint64(lo) + np.uint64(2) * idx.astype(np.uint64)
+
+
+def large_positions(rng, planted: np.ndarray, n: int) -> np.ndarray:
+    """``n`` distinct full-length 31-mer starts in ascending order: the
+    planted ones (odd) and even random ones, 30% of all at or past 2^32."""
+    n_high = int(0.3 * n)
+    n_low = n - n_high - len(planted)
+    seg_b = LARGE_SEG_A + 2  # even, past the '$'
+    len_a, len_b = LARGE_SEG_A - 32, (1 << 32) - seg_b
+    n_a = n_low * len_a // (len_a + len_b)
+    pos = np.concatenate([
+        _even_sample(rng, 0, LARGE_SEG_A - 32, n_a),
+        _even_sample(rng, seg_b, 1 << 32, n_low - n_a),
+        _even_sample(rng, 1 << 32, LARGE_BP - 32, n_high),
+    ])
+    return np.insert(pos, np.searchsorted(pos, planted), planted)
+
+
+def large_past_ceiling(rng, m1, m4) -> dict:
+    """18b: a genome of two segments and LARGE_BP bases (past 2^32) as a
+    strided pack, never an SBA; LARGE_POSITIONS 31-mer starts, 30% past
+    2^32, sorted on one shard and on four and held to a host oracle
+    (np.lexsort of the 62-bit keys and the positions): sorted positions,
+    histogram, total and count_queries of LARGE_QUERIES strings."""
+    label = f"LargeKmers past 2^32: {LARGE_BP} bp, {LARGE_POSITIONS} positions (31, 31)"
+    t0 = time.perf_counter()
+    words, starts, ends, planted = large_genome(rng, plants=True)
+    pos = large_positions(rng, planted, LARGE_POSITIONS)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    key = _windows64(words, pos) >> np.uint64(2)
+    # the positions ascend, so a stable sort by the key alone is the
+    # lexsort of (key, position)
+    order = np.lexsort((key,))
+    want_pos, ks = pos[order], key[order]
+    del key, order
+    shuffled = rng.permutation(pos)  # the sort's input, in no order
+    bnd = np.concatenate([[True], ks[1:] != ks[:-1]])
+    sizes = np.diff(np.concatenate([np.flatnonzero(bnd), [len(ks)]]))
+    del bnd
+    want_counts = np.bincount(np.minimum(sizes, 1000000), minlength=1000001).astype(np.uint64)
+    t_oracle = time.perf_counter() - t0
+    n_past = int(np.sum(pos >= (1 << 32)))
+    log(f"{label}: pack of {words.nbytes} bytes and positions made from the seed in {t_gen:.1f} s "
+        f"({n_past} positions at or past 2^32, {len(planted)} planted, largest position "
+        f"{int(pos.max())}); host oracle (keys, np.lexsort) {t_oracle:.1f} s: {len(sizes)} groups, "
+        f"largest {int(sizes.max())}, {int(np.sum(sizes >= 2))} of 2 or more")
+    # queries: k-mers of sorted rows and random ones; their oracle counts
+    sample = want_pos[rng.integers(0, len(want_pos), size=LARGE_QUERIES // 2)]
+    q_win = decode_strided_np(words, sample, 31, True)
+    q_rand = ACGT[rng.integers(0, 4, size=(LARGE_QUERIES // 2, 31))]
+    q_all = np.concatenate([q_win, q_rand])
+    queries = as_queries(q_all)
+    q_key = np.zeros(len(q_all), dtype=np.uint64)
+    for j in range(31):
+        q_key = (q_key << np.uint64(2)) | RANK2_TABLE[q_all[:, j]].astype(np.uint64)
+    oracle = dict(zip(q_key.tolist(), (np.searchsorted(ks, q_key, side="right")
+                                       - np.searchsorted(ks, q_key, side="left")).tolist()))
+    want_q = np.array([oracle[k] for k in q_key.tolist()], dtype=np.uint64)
+    del ks
+    launches = {}
+    lk = gkt.LargeKmers(words, starts, ends, 31, 31)
+    _, t_upload = sync_time(lambda: lk._packed(m1))
+    log(f"{label}: the pack's upload to the card {t_upload:.4f} s "
+        f"({words.nbytes / t_upload / 1e9:.2f} GB/s)")
+    for mesh, shards in ((m1, 1), (m4, MESH_SHARDS)):
+        where = f"{label}, {shards} shard{'s' if shards > 1 else ''}"
+        held_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t_sort, n_launch, info = large_sort(lk, mesh, where, positions=shuffled)
+        launches[where] = n_launch
+        if not np.array_equal(lk.sorted_positions(), want_pos):
+            raise AssertionError(f"{where}: the sorted positions differ from the host oracle")
+        (got, total), t_counts = sync_time(lambda: lk.get_kmer_group_counts(31))
+        count, t_count = sync_time(lambda: lk.get_kmer_count(31, min_group_size=2))
+        if not (np.array_equal(got, want_counts) and total == len(pos)
+                and count == int(np.sum(sizes[sizes >= 2]))):
+            raise AssertionError(f"{where}: the histogram or the totals differ from the host oracle")
+        got_q, t_q = sync_time(lambda: lk.count_queries(queries))
+        if not np.array_equal(got_q, want_q):
+            raise AssertionError(f"{where}: count_queries differs from the oracle's counts")
+        log(f"{where}: sort {t_sort:.4f} s = {len(pos) / t_sort / 1e6:.1f} M k-mers/s, rows by "
+            f"shard {info['rows']}; "
+            f"get_kmer_group_counts(31) {t_counts:.4f} s, get_kmer_count(31, min_group_size=2) "
+            f"{t_count:.4f} s, count_queries of {len(queries)} {t_q:.4f} s "
+            f"({int(np.count_nonzero(got_q))} found); equal to the host oracle; lane sort launches "
+            f"{n_launch}")
+        log_peak(where, held_before)
+    del lk, words, pos, shuffled, want_pos
+    torch.cuda.empty_cache()
+    return launches
+
+
+def large_suffix_past_ceiling(rng, m1) -> dict:
+    """18b, suffix mode (1, None) at LARGE_SUFFIX_POSITIONS positions of a
+    genome past 2^32 whose two segments end in the same LARGE_TAIL bases,
+    with 120 mirrored pairs in the shared tails, against a host oracle of
+    320-base prefixes capped at each segment's end."""
+    label = f"LargeKmers suffix mode past 2^32: {LARGE_BP} bp, {LARGE_SUFFIX_POSITIONS} positions"
+    words, starts, ends, _ = large_genome(rng, plants=False)
+    seg_a, L = LARGE_SEG_A, LARGE_BP
+    n_pairs = 120
+    n_rand = LARGE_SUFFIX_POSITIONS - 2 * n_pairs
+    pos_a = rng.choice(seg_a - LARGE_TAIL - 64, size=n_rand // 2, replace=False).astype(np.uint64)
+    pos_b = np.uint64(seg_a + 1) + rng.choice(L - seg_a - 1 - LARGE_TAIL - 64, size=n_rand - n_rand // 2,
+                                              replace=False).astype(np.uint64)
+    depths = rng.choice(np.arange(1, LARGE_TAIL + 1), size=n_pairs, replace=False).astype(np.uint64)
+    pos = np.concatenate([pos_a, pos_b, np.uint64(seg_a) - depths, np.uint64(L) - depths])
+    rng.shuffle(pos)
+    # oracle: ten 32-base words of each suffix, zero past its end, then its
+    # capped length and the position (a byte-string order)
+    nat = (ends[(pos > np.uint64(seg_a)).astype(np.int64)] - pos + np.uint64(1)).astype(np.int64)
+    cols = []
+    for j in range(10):
+        keep = np.clip(nat - 32 * j, 0, 32).astype(np.uint64)
+        mask = np.where(keep == 0, np.uint64(0),
+                        ~np.uint64(0) << (np.uint64(64) - np.uint64(2) * np.maximum(keep, 1)))
+        cols.append(_windows64(words, pos, 32 * j) & mask)
+    capped = np.minimum(nat, 320)
+    order = np.lexsort([pos, capped] + cols[::-1])
+    want_pos = pos[order]
+    ident = np.stack([c[order] for c in cols] + [nat[order].astype(np.uint64)], axis=1)
+    bnd = np.concatenate([[True], (ident[1:] != ident[:-1]).any(axis=1)])
+    sizes = np.diff(np.concatenate([np.flatnonzero(bnd), [len(pos)]]))
+    want_counts = np.bincount(np.minimum(sizes, 10), minlength=11).astype(np.uint64)
+    if want_counts[2] != n_pairs:
+        raise AssertionError(f"{label}: the oracle finds {want_counts[2]} pairs, not {n_pairs}")
+    w31 = cols[0][order] >> np.uint64(2)
+    c31 = np.minimum(nat[order], 31).astype(np.uint64)
+    s31 = np.lexsort((c31, w31))
+    b31 = np.concatenate([[True], (w31[s31][1:] != w31[s31][:-1]) | (c31[s31][1:] != c31[s31][:-1])])
+    sizes31 = np.diff(np.concatenate([np.flatnonzero(b31), [len(pos)]]))
+    want31 = np.bincount(np.minimum(sizes31, 10), minlength=11).astype(np.uint64)
+    lk = gkt.LargeKmers(words, starts, ends, 1, None)
+    held_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t_sort, n_launch, info = large_sort(lk, m1, label, positions=pos)
+    if not np.array_equal(lk.sorted_positions(), want_pos):
+        raise AssertionError(f"{label}: the sorted suffixes differ from the host oracle")
+    (got, total), t_counts = sync_time(lambda: lk.get_kmer_group_counts(None, max_counts_bin=10))
+    (got31, total31), t_31 = sync_time(lambda: lk.get_kmer_group_counts(31, max_counts_bin=10))
+    if not (np.array_equal(got, want_counts) and total == len(pos)
+            and np.array_equal(got31, want31) and total31 == len(pos)):
+        raise AssertionError(f"{label}: the histograms differ from the host oracle")
+    log(f"{label}: sort {t_sort:.4f} s in {info['rounds_log'].summary()} ({info['rounds']} rounds); "
+        f"get_kmer_group_counts(None) {t_counts:.4f} s from the kept run ids ({n_pairs} mirrored "
+        f"pairs found), at 31 {t_31:.4f} s; equal to the host oracle; lane sort launches {n_launch}")
+    log_peak(label, held_before)
+    del lk, words
+    torch.cuda.empty_cache()
+    return {label: n_launch}
+
+
+def phase_large(host_acgt, host_iupac, positions, counts, canonical_ref, rng_seed: int) -> dict:
+    """Phase 18: LargeKmers at full width (18a: the main path's genomes
+    through the large regime; 18b: a genome past 2^32 bases). Returns the
+    lane sort's launches by path."""
+    rng = np.random.default_rng(rng_seed)
+    t0 = time.perf_counter()
+    m1 = make_mesh(1)
+    m4 = make_mesh(MESH_SHARDS, devices=[f"{DEVICE}:0"] * MESH_SHARDS)
+    out = {}
+    for host_sc, name in ((host_acgt, "ACGT"), (host_iupac, "IUPAC")):
+        out.update(large_main(host_sc, name, positions[name], counts[name], canonical_ref[name], m1, m4))
+        torch.cuda.empty_cache()
+    out.update(large_suffix_small(rng, m1))
+    t_a = time.perf_counter() - t0
+    out.update(large_past_ceiling(rng, m1, m4))
+    out.update(large_suffix_past_ceiling(rng, m1))
+    if any(n < 1 for n in out.values()):
+        raise AssertionError(f"phase 18: the lane sort did not launch on a path: {out}")
+    log(f"LargeKmers phase: 18a {t_a:.1f} s, 18b {time.perf_counter() - t0 - t_a:.1f} s")
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -2483,6 +2872,9 @@ def main() -> None:
         persistence_launches = phase_persistence(sc_acgt, pos_acgt, counts31, Path(tmp), SEED + 16)
     mesh17_launches = phase_mesh_beyond_window(
         sc_acgt, sc_iupac, pos_acgt, suffix_ref, beyond_ref, canonical_ref, SEED + 17)
+    large_launches = phase_large(sc_acgt, sc_iupac, {"ACGT": pos_acgt, "IUPAC": pos_iupac},
+                                 {"ACGT": counts31, "IUPAC": counts31_iupac}, canonical_ref,
+                                 SEED + 18)
     del sc_acgt, sc_iupac, pos_acgt, pos_iupac, suffix_ref, beyond_ref
     torch.cuda.empty_cache()
     window_launches = phase_window_rounds(rng)
@@ -2522,7 +2914,8 @@ def main() -> None:
                                  **filter_launches["sort_lanes_cuda"],
                                  **{k: v for k, v in query_launches.items() if "IUPAC" in k},
                                  **mesh_launches["sort_lanes_cuda"],
-                                 **mesh17_launches["sort_lanes_cuda"]},
+                                 **mesh17_launches["sort_lanes_cuda"],
+                                 **large_launches},
             **sort_timing,
         },
     ]}))

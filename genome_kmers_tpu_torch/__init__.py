@@ -6,9 +6,10 @@ for tests, on the CPU: FASTA -> ``SequenceCollection`` (2-bit pack by a
 hand-written CUDA kernel) -> ``Kmers`` at any k-mer length, on either strand
 or both -> ``sort()`` (the multi-lane sort kernel for 4-bit keys and
 gathered keys) -> group counts, counts and yields, under any of the
-library's filters, a ``VectorizedFilter`` or a plain callable. The
-``VectorizedFilter`` mask function takes torch tensors. It never imports
-jax.
+library's filters, a ``VectorizedFilter`` or a plain callable; past 2^32
+bases ``LargeKmers`` (a strided pack, int64 positions, sorted over a mesh).
+The ``VectorizedFilter`` mask function takes torch tensors. It never
+imports jax.
 """
 
 from .kmers import (

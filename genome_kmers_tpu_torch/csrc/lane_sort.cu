@@ -6,8 +6,9 @@
 // length. A row is one element from each of 1..8 uint32 lanes; rows are
 // sorted ascending, lexicographically over ALL lanes, most significant lane
 // first, compared as unsigned, and the lanes of a row move together. The
-// caller makes the last lane unique (the position), so the order is total
-// and the result is the one a stable lexicographic sort gives. Its plain
+// caller makes the rows distinct (the position: one lane, or two lanes hi
+// and lo for 64-bit positions), so the order is total and the result is
+// the one a stable lexicographic sort gives. Its plain
 // version is ops/sort.py::sort_lanes.
 //
 // What bounds it: device memory. The least the card could do is read and

@@ -11,6 +11,10 @@ run ids ``suffix_gid`` instead, or neither), an assigned, unsorted one
 shard the sorted positions with their pads, and for a sort beyond one
 compare window the converged run ids) on a mesh of the port. The port then
 computes over exactly the state the JAX package built.
+
+``large_from_numpy_state`` does the same for a ``LargeKmers``: its strided
+pack, segment tables and parameters, and its sorted layout per shard (the
+(hi, lo) position pairs fused to uint64, the pad flags).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from .kmers import Kmers, _DistIndexCache
+from .large_kmers import LargeKmers
 from .ops.encoding import reverse_complement_bytes
 from .ops.keys import u32_bits_as_int32
 from .ops.sort import WINDOW2_BASES, WINDOW_BASES
@@ -159,3 +164,51 @@ def from_numpy_state(
         km._suffix_gid_cache = (_lane(suffix_gid, sc.device), max_kmer_len)
     km._is_sorted = True
     return sc, km
+
+
+def large_from_numpy_state(
+    packed_words,
+    seg_starts_u64,
+    seg_ends_u64,
+    min_kmer_len: int,
+    max_kmer_len,
+    two_bit: bool = True,
+    both_strands: bool = False,
+    track_strands_separately: bool = False,
+    record_names=None,
+    mesh=None,
+    mesh_positions=None,
+    mesh_pad=None,
+) -> LargeKmers:
+    """A port ``LargeKmers`` over a JAX ``LargeKmers``'s host state: the
+    strided ``packed_words`` (uint32), the uint64 segment starts and ends,
+    the k-mer bounds, ``two_bit``, ``both_strands`` (the reverse-complement
+    segments are the second half) and ``track_strands_separately``. Given
+    ``mesh``, ``mesh_positions`` (per shard, the sorted (hi, lo) positions
+    fused to uint64, pads included) and ``mesh_pad`` (per shard, the pad
+    flags) place that sorted layout on it, shard for shard; the key lanes
+    and run ids are rebuilt when a call needs them."""
+    lk = LargeKmers(
+        packed_words, seg_starts_u64, seg_ends_u64, min_kmer_len, max_kmer_len,
+        two_bit=two_bit, record_names=record_names,
+    )
+    if both_strands:
+        lk._n_fwd_records = len(lk.seg_starts) // 2
+        lk._track_strands = bool(track_strands_separately)
+    elif track_strands_separately:
+        raise ValueError("track_strands_separately can only be true if both_strands is True")
+    if mesh is None:
+        if mesh_positions is not None or mesh_pad is not None:
+            raise ValueError("a sorted layout needs the mesh it lies on")
+        return lk
+    if len(mesh_positions) != len(mesh.devices) or len(mesh_pad) != len(mesh.devices):
+        raise ValueError(f"the layout has {len(mesh_positions)} shards, the mesh "
+                         f"{len(mesh.devices)}")
+    pos = [
+        torch.from_numpy(np.ascontiguousarray(p, dtype=np.uint64).view(np.int64)).to(dev)
+        for p, dev in zip(mesh_positions, mesh.devices)
+    ]
+    pad = [torch.from_numpy(np.asarray(p) != 0).to(dev) for p, dev in zip(mesh_pad, mesh.devices)]
+    lk._sorted = (pos, pad, mesh, int(sum(int((~p).sum()) for p in pad)), None)
+    lk._is_sorted = True
+    return lk

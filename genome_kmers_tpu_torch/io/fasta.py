@@ -159,16 +159,21 @@ def parse_fasta_file(fasta_file_path) -> tuple[np.ndarray, np.ndarray, list[str]
 
 def _parse_fasta_dispatch(data: bytes) -> tuple[np.ndarray, np.ndarray, list[str]]:
     """The native parse, or the NumPy one where the native parse declines
-    the buffer (too many records); byte-identical outputs."""
+    the buffer (too many records); byte-identical outputs. A buffer with no
+    sequence bytes (no record, or blank lines only) raises the reference's
+    AssertionError on both routes."""
     result = parse_fasta_bytes_native(data)
     if result is None:
-        return parse_fasta_bytes(data)
-    sba, seg_starts, header_spans = result
+        sba, seg_starts, record_names = parse_fasta_bytes(data)
+    else:
+        sba, seg_starts, header_spans = result
+        record_names = None
     if sba.size == 0:
         raise AssertionError("After parsing the fasta file, we expect sba to be full")
-    record_names = [
-        _get_fasta_record_name(data[int(s) : int(e)].decode()) for s, e in header_spans
-    ]
+    if record_names is None:
+        record_names = [
+            _get_fasta_record_name(data[int(s) : int(e)].decode()) for s, e in header_spans
+        ]
     return sba, seg_starts, record_names
 
 

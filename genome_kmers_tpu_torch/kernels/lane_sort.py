@@ -6,7 +6,7 @@ one tile to any length: a block sort of tiles of ``TILE_ROWS`` rows (what the
 TPU kernel computes), then merge-path passes that double the width of the
 sorted runs until one run is left. Their plain PyTorch version is
 ``ops/sort.py::sort_lanes`` (chained stable ``torch.sort`` passes), which
-they must equal bit for bit whenever the last lane is unique. The wrapper
+they must equal bit for bit whenever the rows are distinct. The wrapper
 takes the plain version only for tensors on the CPU; for CUDA tensors it
 launches the kernels or raises.
 
@@ -90,10 +90,12 @@ def blocks_resident(n_lanes: int) -> tuple[int, int]:
 def sort_lanes_cuda(lanes) -> tuple:
     """Rows of 1..8 int32 lanes (uint32 bit patterns) sorted ascending,
     lexicographically over all lanes, most significant first, compared as
-    unsigned; the lanes of a row move together. The caller makes one lane
-    unique and never 0xFFFFFFFF (the position: the last lane, or the one
-    before a cap that rides along), so the order is total and the lanes
-    after the unique one never decide it.
+    unsigned; the lanes of a row move together. The caller makes the rows
+    distinct and none of them all-ones: one lane unique and never
+    0xFFFFFFFF (the position: the last lane, or the one before a cap that
+    rides along), or a 64-bit position in two lanes, hi then lo, unique
+    together with hi never 0xFFFFFFFF (``LargeKmers``). So the order is
+    total and the lanes after the position never decide it.
 
     ``lanes`` are contiguous 1-D int32 tensors of equal length on one
     device; they are not modified and not copied. For CUDA tensors the

@@ -47,9 +47,8 @@ The module-level functions (``compare_sba_kmers_lexicographically``,
 reference's host walk API, NumPy only.
 
 Construction checks and their messages are the JAX package's. The index
-inherits its collection's device. What the port does not have yet
-(``LargeKmers``) raises NotImplementedError naming the ROADMAP.md item that
-will port it.
+inherits its collection's device. Past the reference's 2^32 k-mers the
+index is ``LargeKmers`` (``large_kmers.py``).
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ message: nothing falls back to NumPy without a word.
 Each function here has a plain NumPy version that gives the same bytes and
 that the tests hold it against: ``io/fasta.parse_fasta_bytes`` for the
 parse, ``decode_rows_plain`` / ``decode_rows_var_plain`` for the row
-decoders, a table gather and a flip (``ops/encoding.py``) for the reverse
+decoders, ``ops/large.pack_strided_plain`` for the strided pack, a table gather and a flip (``ops/encoding.py``) for the reverse
 complement, ``np.bincount`` for the alphabet check. The parse falls back to
 its NumPy version in one case only, the one the native parse reports: more
 records than ``max(1024, len(data) // 8)``.
@@ -37,6 +37,7 @@ SOURCE = Path(__file__).resolve().parent / "fasta_parser.cpp"
 GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-pthread"]
 _MT_THRESHOLD = 8 << 20  # parse buffers of 8 MB and more with threads
 _ROW_THREADS_BYTES = 4 << 20  # decode with threads from 4 MB of output on
+_PACK_THREADS_BYTES = 4 << 20  # strided pack with threads from 4 MB of input on
 
 
 def _host_cpu() -> bytes:
@@ -83,6 +84,7 @@ def _lib() -> ctypes.CDLL:
         "gk_fasta_fill_mt": (None, [u8p, i64, i64, i64p, i64p, i64p, u8p, i64p, i64p]),
         "gk_decode_rows": (None, [u8p, i64p, i64, i64, i64, u8p]),
         "gk_decode_rows_var": (None, [u8p, i64p, i64p, i64p, i64, i64, u8p]),
+        "gk_pack_strided": (None, [u8p, i64, u8p, i64, i64, ctypes.POINTER(ctypes.c_uint32)]),
     }
     for name, (restype, argtypes) in signatures.items():
         fn = getattr(lib, name)
@@ -284,3 +286,25 @@ def decode_rows_var_plain(sba: np.ndarray, pos: np.ndarray, lens: np.ndarray):
     np.cumsum(L, out=offsets[1:])
     idx = np.repeat(p - offsets[:-1], L) + np.arange(int(offsets[-1]), dtype=np.int64)
     return sba[idx], offsets
+
+
+def pack_strided_native(sba: np.ndarray, table: np.ndarray, bits: int,
+                        extra_words: int = 8) -> np.ndarray:
+    """Strided rank pack (``bits`` 2 or 4; ``table`` byte -> rank): word w
+    holds the ranks of bases ``w * (32 // bits) ..`` big-endian, ranks past
+    the end 0, then ``extra_words`` zero words. Threads from 4 MB of input
+    on. Bit-identical to ``ops/large.pack_strided_plain``."""
+    if bits not in (2, 4):
+        raise ValueError(f"pack_strided_native: bits must be 2 or 4, got {bits}")
+    sba = np.ascontiguousarray(sba, dtype=np.uint8)
+    table = np.ascontiguousarray(table, dtype=np.uint8)
+    n = len(sba)
+    out = np.zeros(-(-n // (32 // bits)) + extra_words, dtype=np.uint32)
+    if n == 0:
+        return out
+    n_threads = 1 if n < _PACK_THREADS_BYTES else min(os.cpu_count() or 1, 8)
+    _lib().gk_pack_strided(
+        _u8(sba), n, _u8(table), bits, n_threads,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+    )
+    return out

@@ -44,6 +44,9 @@ RANK_TABLE = np.zeros(256, dtype=np.uint8)
 for _i, _c in enumerate(ALLOWED_CHARS):
     RANK_TABLE[ord(_c)] = _i
 
+# 4-bit rank -> uint8 byte (the strided decodes of ops/large.py).
+UNRANK_TABLE = np.frombuffer(ALLOWED_CHARS.encode(), dtype=np.uint8).copy()
+
 BASES_PER_WORD = 8  # 8 nibbles per uint32
 
 # NIBBLE_MASKS[r] keeps the top r nibbles of a packed word (r in [0, 8]).

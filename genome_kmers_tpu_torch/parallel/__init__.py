@@ -3,20 +3,22 @@
 Counterpart of ``genome_kmers_tpu/parallel``: the 1-D mesh (``make_mesh``)
 and the 2-D ``(node, local)`` mesh (``make_mesh2``), the sample sorts
 (dense, gather, canonical, and the refinement rounds beyond one compare
-window), the stitched group statistics, count queries and checkpoints. The
-collectives are plain functions over lists of per-shard tensors
-(``collectives.py``).
+window), the stitched group statistics, count queries and checkpoints, and
+their ``*_large*`` variants over a strided pack and int64 positions, which
+``LargeKmers`` runs (``large.py`` holds its statistics). The collectives are
+plain functions over lists of per-shard tensors (``collectives.py``).
 
 Not ported here: the odd-even merge sort ``distributed_sort_positions``
 (ROADMAP.md: not to be ported); multi-process runs over
-``torch.distributed`` (ROADMAP.md A11, multi-process) and the ``*_large*``
-variants of ``LargeKmers`` (A12).
+``torch.distributed`` (ROADMAP.md A14).
 """
 
 from .checkpoint import (
     load_kmers_sharded,
+    load_large_kmers,
     load_sharded_index,
     save_kmers_sharded,
+    save_large_kmers,
     save_sharded_index,
 )
 from .distributed import (
@@ -31,13 +33,23 @@ from .distributed import (
     mesh_size,
 )
 from .hier import make_mesh2, sample_sort_positions_ragged_hier
-from .query import distributed_count_queries
+from .large import (
+    distributed_group_size_histogram_large_ragged,
+    large_lanes_filter_flags,
+    rebuild_large_lanes,
+)
+from .query import distributed_count_queries, distributed_count_queries_large
 from .sample_sort import (
     distributed_adjacent_gids,
+    distributed_adjacent_gids_large,
     sample_sort_canonical_dense_ragged,
+    sample_sort_canonical_large_ragged,
     sample_sort_canonical_ragged,
     sample_sort_positions,
     sample_sort_positions_dense_ragged,
+    sample_sort_positions_large,
+    sample_sort_positions_large_ragged,
+    sample_sort_positions_large_unbounded,
     sample_sort_positions_ragged,
     sample_sort_positions_unbounded,
 )
@@ -47,23 +59,34 @@ __all__ = [
     "Mesh",
     "compact_ragged",
     "distributed_adjacent_gids",
+    "distributed_adjacent_gids_large",
     "distributed_count_queries",
+    "distributed_count_queries_large",
     "distributed_group_size_histogram",
+    "distributed_group_size_histogram_large_ragged",
     "distributed_group_size_histogram_ragged",
     "distributed_hist_from_sizes",
+    "large_lanes_filter_flags",
     "load_kmers_sharded",
+    "load_large_kmers",
     "load_sharded_index",
     "make_mesh",
     "make_mesh2",
     "mesh_lanes_filter_flags",
     "mesh_size",
+    "rebuild_large_lanes",
     "sample_sort_canonical_dense_ragged",
+    "sample_sort_canonical_large_ragged",
     "sample_sort_canonical_ragged",
     "sample_sort_positions",
     "sample_sort_positions_dense_ragged",
+    "sample_sort_positions_large",
+    "sample_sort_positions_large_ragged",
+    "sample_sort_positions_large_unbounded",
     "sample_sort_positions_ragged",
     "sample_sort_positions_ragged_hier",
     "sample_sort_positions_unbounded",
     "save_kmers_sharded",
+    "save_large_kmers",
     "save_sharded_index",
 ]

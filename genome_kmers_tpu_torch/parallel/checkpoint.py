@@ -2,9 +2,9 @@
 a JSON metadata file.
 
 Counterpart of ``genome_kmers_tpu/parallel/checkpoint.py``
-(``save_sharded_index`` / ``load_sharded_index`` and ``save_kmers_sharded`` /
-``load_kmers_sharded``; the ``LargeKmers`` variants wait for ROADMAP.md
-A12). The JAX package writes its arrays through orbax, which is JAX's and is
+(``save_sharded_index`` / ``load_sharded_index``, ``save_kmers_sharded`` /
+``load_kmers_sharded`` and ``save_large_kmers`` / ``load_large_kmers``). The
+JAX package writes its arrays through orbax, which is JAX's and is
 not installed beside the port; the port writes each array as
 ``arrays/<name>.npy``. The metadata file, its name, its keys and the
 validation messages are the JAX package's: ``gkt_meta.json`` holds the
@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .collectives import put_sharded, replicate
+from .distributed import compact_ragged
 
 _META_NAME = "gkt_meta.json"
 _PAD_MULTIPLE = 1024
@@ -135,4 +136,76 @@ def load_kmers_sharded(kmers, path, mesh=None) -> dict:
     host = _as_uint32(sorted_pos)
     kmers.kmer_sba_start_indices = host[:n_real]
     kmers._is_sorted = bool(meta["_is_sorted"])
+    return meta
+
+
+def save_large_kmers(lk, path) -> None:
+    """Checkpoint a sorted LargeKmers layout: the positions as (hi, lo)
+    uint32 arrays ``pos_hi`` / ``pos_lo`` and the pad flags ``is_pad``
+    (uint32), the shards concatenated in order and padded to a multiple of
+    1024 rows with pad rows, beside the JAX package's metadata. The pack
+    and segment tables are the constructor's inputs and are not written."""
+    path = Path(path).absolute()
+    positions, is_pad, _, n_real, _ = lk._sorted
+    pos = np.concatenate([x.cpu().numpy() for x in positions]).view(np.uint64)
+    pad = np.concatenate([x.cpu().numpy() for x in is_pad]).astype(np.uint32)
+    n_rows = int(pos.shape[0])
+    n_pad = max(-(-n_rows // _PAD_MULTIPLE) * _PAD_MULTIPLE, _PAD_MULTIPLE)
+    pos = np.concatenate([pos, np.full(n_pad - n_rows, 0xFFFFFFFFFFFFFFFF, dtype=np.uint64)])
+    pad = np.concatenate([pad, np.ones(n_pad - n_rows, dtype=np.uint32)])
+    tree = {
+        "pos_hi": (pos >> np.uint64(32)).astype(np.uint32),
+        "pos_lo": (pos & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+        "is_pad": pad,
+    }
+    meta = {
+        "kind": "large_kmers",
+        "min_kmer_len": lk.min_kmer_len,
+        "max_kmer_len": lk.max_kmer_len,
+        "two_bit": lk.two_bit,
+        "num_kmers": lk.num_kmers,
+        "n_real": int(n_real),
+        "custom_positions": bool(lk._custom_positions),
+        "__n_real__": n_rows,
+        "__arrays__": {
+            name: {"shape": list(a.shape), "dtype": str(a.dtype)} for name, a in tree.items()
+        },
+    }
+    arrays = path / "arrays"
+    arrays.mkdir(parents=True, exist_ok=True)
+    for name, a in tree.items():
+        np.save(arrays / f"{name}.npy", a)
+    (path / _META_NAME).write_text(json.dumps(meta))
+
+
+def load_large_kmers(lk, path, mesh) -> dict:
+    """Restore a LargeKmers sorted layout onto ``mesh`` (any shard count
+    that divides the padded rows): the rows cut into equal shards, then
+    each shard's valid rows moved before its pads in their order (a stable
+    per-shard compaction, as the JAX package's stable sort by the pad
+    flag), which leaves the global order of the real rows as it was. The
+    key lanes are not saved; statistics rebuild them."""
+    path = Path(path).absolute()
+    meta = json.loads((path / _META_NAME).read_text())
+    if meta.get("kind") != "large_kmers":
+        raise ValueError(f"{path} is not a LargeKmers checkpoint")
+    if (
+        meta["min_kmer_len"] != lk.min_kmer_len
+        or meta["max_kmer_len"] != lk.max_kmer_len
+        or bool(meta["two_bit"]) != lk.two_bit
+        or meta["num_kmers"] != lk.num_kmers
+    ):
+        raise ValueError(
+            "checkpoint parameters do not match this LargeKmers "
+            f"(ckpt: min={meta['min_kmer_len']} max={meta['max_kmer_len']} "
+            f"two_bit={meta['two_bit']} n={meta['num_kmers']})"
+        )
+    tree = {name: np.load(path / "arrays" / f"{name}.npy") for name in meta["__arrays__"]}
+    pos = (tree["pos_hi"].astype(np.uint64) << np.uint64(32)) | tree["pos_lo"].astype(np.uint64)
+    positions = put_sharded(torch.from_numpy(pos.view(np.int64)), mesh)
+    is_pad = put_sharded(torch.from_numpy(tree["is_pad"] != 0), mesh)
+    positions, is_pad = compact_ragged(positions, is_pad, mesh)
+    lk._sorted = (positions, is_pad, mesh, int(meta["n_real"]), None)
+    lk._is_sorted = True
+    lk._custom_positions = bool(meta.get("custom_positions", False))
     return meta

@@ -41,7 +41,7 @@ from .collectives import all_gather, psum, put_sharded, replicate
 
 AXIS = "kmers"  # mesh axis name: position-sharded data parallelism
 _PAD_POS = 0xFFFFFFF0  # padding position of an evenly sharded index (JAX ops/sort._PAD_POS)
-_BIG = 0xFFFFFFF0  # "no boundary here": above every counted-row index
+_BIG = 1 << 62  # "no boundary here": above every counted-row index
 
 
 class Mesh:
@@ -216,20 +216,22 @@ def _halo_prev_flag(flag: list, valid: list, mesh: Mesh) -> list:
     return out
 
 
-def _dist_sizes_digest(genome, positions, cap_len, is_pad, min_gs, max_gs, strand_split,
+def _dist_sizes_digest(words_fn, positions, cap_len, is_pad, min_gs, max_gs, strand_split,
                        sorted_words, mask, ext_gid, n_words, two_bit, keep_bits, mesh):
-    """Group sizes over sharded sorted rows: (size, qualifies, total).
+    """Group sizes over sharded sorted rows: (size, qualifies, total,
+    boundary).
 
     ``size[p][i]`` is, at the first valid row of a group, the number of its
     counted rows (valid rows, or the filter survivors of ``mask``: then the
     group identity stays that of all valid rows, the reference's
     previous-survivor walk), else 0; ``qualifies`` marks sizes in [max(min,
-    1), max]; ``total`` sums the qualifying sizes over all shards. Identity
-    lanes: the run ids ``ext_gid`` where given (they encode the ends of
-    the k-mers too), else the key words (gathered from ``genome[p]``, or
-    the retained ``sorted_words`` masked to ``keep_bits`` bits of the last
-    word) and the cap on 2-bit keys; and the strand where ``strand_split``
-    is given."""
+    1), max]; ``total`` sums the qualifying sizes over all shards;
+    ``boundary`` marks the first valid row of every group, those with no
+    counted row too. Identity lanes: the run ids ``ext_gid`` where given
+    (they encode the ends of the k-mers too), else the key words
+    (``words_fn(p, positions, caps, n_words)`` of shard p, or the retained
+    ``sorted_words`` masked to ``keep_bits`` bits of the last word) and the
+    cap on 2-bit keys; and the strand where ``strand_split`` is given."""
     n_dev = mesh_size(mesh)
     valid = [~pad for pad in is_pad]
     counted = valid if mask is None else [m & v for m, v in zip(mask, valid)]
@@ -241,7 +243,7 @@ def _dist_sizes_digest(genome, positions, cap_len, is_pad, min_gs, max_gs, stran
         else:
             cap = torch.where(valid[p], cap_len[p], 0)
             if sorted_words is None:
-                words = _words_for(genome[p], positions[p], cap, n_words, two_bit)
+                words = words_fn(p, positions[p], cap, n_words)
             else:
                 words = list(sorted_words[p][:n_words])
                 if keep_bits < 32:
@@ -252,9 +254,10 @@ def _dist_sizes_digest(genome, positions, cap_len, is_pad, min_gs, max_gs, stran
         lanes.append(shard)
     eqs = _halo_adjacent_eq(lanes, valid, mesh)
     del lanes
-    starts, vbs, firsts = [], [], []
+    starts, vbs, firsts, boundaries = [], [], [], []
     for p in range(n_dev):
         boundary = ~eqs[p] & valid[p]
+        boundaries.append(boundary)
         c = counted[p].to(torch.int64)
         offset = all_counted[p][:p].sum()
         vidx = offset + torch.cumsum(c, dim=0) - c  # counted rows before each row, all shards
@@ -281,7 +284,7 @@ def _dist_sizes_digest(genome, positions, cap_len, is_pad, min_gs, max_gs, stran
         sizes.append(size)
         qualifies.append(q)
         totals.append(torch.where(q, size, 0).sum())
-    return sizes, qualifies, int(psum(totals, mesh)[0])
+    return sizes, qualifies, int(psum(totals, mesh)[0]), boundaries
 
 
 def distributed_hist_from_sizes(size: list, qualifies: list, max_counts_bin: int, mesh: Mesh):
@@ -363,7 +366,7 @@ def distributed_group_size_histogram_ragged(
         )
     two_bit = packed2 is not None
     if ext_gid is not None:
-        size, qualifies, total = _dist_sizes_digest(
+        size, qualifies, total, _ = _dist_sizes_digest(
             None, sorted_positions, None, is_pad, min_group_size, max_group_size,
             strand_split, None, mask, ext_gid, 0, two_bit, 32, mesh,
         )
@@ -382,8 +385,9 @@ def distributed_group_size_histogram_ragged(
         if len(sorted_words[0]) < n_words:
             raise ValueError("sorted_words shorter than kmer_len requires")
         keep_bits = (2 if two_bit else 4) * kmer_len - 32 * (n_words - 1)
-    size, qualifies, total = _dist_sizes_digest(
-        genome, sorted_positions, cap_len, is_pad, min_group_size, max_group_size,
+    size, qualifies, total, _ = _dist_sizes_digest(
+        lambda p, pos, cap, n: _words_for(genome[p], pos, cap, n, two_bit),
+        sorted_positions, cap_len, is_pad, min_group_size, max_group_size,
         strand_split, sorted_words, mask, None, n_words, two_bit, keep_bits, mesh,
     )
     if return_sizes:

@@ -54,11 +54,16 @@ What differs from the JAX package, for the card:
   before anything moves and a retry re-runs no sort; the exchange moves
   each bucket's real rows and no padding.
 
+The ``*_large*`` sorts are the same pipeline over a strided pack
+(``ops/large.py``, the index of ``LargeKmers``): int64 positions of any
+size, which enter the lane sort as two int32 lanes (hi, then lo), key words
+by a funnel shift, and refinement windows of 64 bases on 2-bit keys and 32
+on 4-bit keys (4 words each), as the JAX package's. A key source
+(``_FlatKeys``, ``_StridedKeys``) tells the shared code how rows are keyed;
+the round driver, the run structure and the exchange are one copy.
+
 Every multi-lane sort here is ``sort_lanes_cuda``: the kernel on a CUDA
 tensor, its plain version on the CPU.
-
-Not ported yet (ROADMAP.md A12): the 64-bit (strided) positions of the
-``*_large*`` sorts.
 """
 
 from __future__ import annotations
@@ -66,9 +71,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels.lane_sort import sort_lanes_cuda
+from ..kernels.lane_sort import MAX_LANES, sort_lanes_cuda
 from ..ops.canonical import canonical_words
 from ..ops.keys import _mask_table, cap_lengths, compute_valid_len, u32_bits_as_int32, widen_u32
+from ..ops.large import (
+    NO_CAP,
+    build_key2_words_strided,
+    build_key_words_strided,
+    compute_valid_len64,
+    fuse64,
+    split64,
+)
 from ..ops.sort import WINDOW_BASES, _round_done
 from .collectives import all_gather, all_to_all, psum, replicate
 from .distributed import (
@@ -113,10 +126,10 @@ def _searchsorted_rows(rows: tuple, queries: np.ndarray) -> list:
 
 
 def _sort_samples(samples: tuple) -> tuple:
-    """The gathered samples sorted. Samples of pad rows (position lane
-    all-ones: no real position is 0xFFFFFFFF) are identical rows; they sort
-    last and are put there without going through the sort."""
-    real = samples[-1] != _ONES
+    """The gathered samples sorted. Samples of pad rows (all-ones in every
+    lane: no real row is, its position lanes never are) are identical rows;
+    they sort last and are put there without going through the sort."""
+    real = torch.stack([lane != _ONES for lane in samples]).any(dim=0)
     if bool(real.all()):
         return sort_lanes_cuda(samples)
     head = sort_lanes_cuda(tuple(lane[real] for lane in samples))
@@ -222,18 +235,79 @@ def _pad_tail(lane: torch.Tensor, rows: int, fill) -> torch.Tensor:
     return torch.cat([lane, lane.new_full((rows - lane.shape[0],), fill)])
 
 
-def _padded(merged: list, rows: int):
+def _padded(merged: list, rows: int, keys=None):
     """The JAX layout of per-shard real rows (``_exchange_merge``'s lanes):
     (positions, is_pad, key lanes) per shard, ``rows`` rows each, int64
-    positions (pads 0xFFFFFFFF), bool pad flags and int32 key lanes (pads
-    all-ones)."""
+    positions (pads all-ones: 0xFFFFFFFF, or -1 from a strided sort's two
+    lanes), bool pad flags and int32 key lanes (pads all-ones). ``keys``
+    (default flat) says how many lanes the position takes."""
+    n_pos = 1 if keys is None else keys.n_pos
     out_pos, out_pad, out_lanes = [], [], []
     for shard in merged:
         n_b = shard[0].shape[0]
-        out_pos.append(widen_u32(_pad_tail(shard[-1], rows, _ONES)))
+        padded = [_pad_tail(w, rows, _ONES) for w in shard]
+        out_pos.append(_lanes_position(padded, n_pos))
         out_pad.append(torch.arange(rows, device=shard[0].device) >= n_b)
-        out_lanes.append(tuple(_pad_tail(w, rows, _ONES) for w in shard[:-1]))
+        out_lanes.append(tuple(padded[:-n_pos]))
     return out_pos, out_pad, out_lanes
+
+
+def _lanes_position(lanes, n_pos: int) -> torch.Tensor:
+    """The int64 position of a row's last ``n_pos`` lanes."""
+    return widen_u32(lanes[-1]) if n_pos == 1 else fuse64(lanes[-2], lanes[-1])
+
+
+class _FlatKeys:
+    """Rows keyed on a per-position pack (``ops/keys.py``): the 2-bit pack
+    (16 bases a word) or the 4-bit one (8), positions below 2^32 in one
+    int32 lane, refinement windows of 32 bases. Each shard reads its
+    replicated copy of the pack and segment tables."""
+
+    n_pos = 1
+    pad = _PAD_U32  # a pad row's position and run id
+
+    def __init__(self, genome, seg_starts, seg_ends, two_bit: bool, mesh):
+        self.genome = replicate(genome, mesh)
+        self.ss, self.se = replicate(seg_starts, mesh), replicate(seg_ends, mesh)
+        self.two_bit = two_bit
+        self.per_word = 16 if two_bit else 8
+        self.window = WINDOW_BASES
+
+    def caps(self, p: int, pos, max_cap):
+        """min(valid_len, max_cap) of shard p's positions (None: no bound)."""
+        return cap_lengths(compute_valid_len(pos, self.ss[p], self.se[p]), max_cap)
+
+    def words(self, p: int, pos, cap, n_words: int, offset=0) -> tuple:
+        return _words_for(self.genome[p], pos, cap, n_words, self.two_bit, offset)
+
+    def pos_lanes(self, pos) -> tuple:
+        return (u32_bits_as_int32(pos),)
+
+
+class _StridedKeys(_FlatKeys):
+    """Rows keyed on a strided pack (``ops/large.py``), the index of
+    ``LargeKmers``: int64 positions of any size in two int32 lanes (hi,
+    lo), valid lengths saturated at ``NO_CAP`` as the JAX package's uint32
+    caps are, and refinement windows of 64 bases on 2-bit keys and 32 on
+    4-bit keys."""
+
+    n_pos = 2
+    pad = -1  # all-ones, the JAX package's (hi, lo) pad pair
+
+    def __init__(self, genome, seg_starts, seg_ends, two_bit: bool, mesh):
+        super().__init__(genome, seg_starts, seg_ends, two_bit, mesh)
+        self.window = 64 if two_bit else 32
+
+    def caps(self, p: int, pos, max_cap):
+        cap = NO_CAP if max_cap is None else min(int(max_cap), NO_CAP)
+        return torch.clamp_max(compute_valid_len64(pos, self.ss[p], self.se[p]), cap)
+
+    def words(self, p: int, pos, cap, n_words: int, offset=0) -> tuple:
+        build = build_key2_words_strided if self.two_bit else build_key_words_strided
+        return build(self.genome[p], pos, cap, n_words, offset)
+
+    def pos_lanes(self, pos) -> tuple:
+        return split64(pos)
 
 
 def _shard_slices(positions: torch.Tensor, mesh):
@@ -245,21 +319,31 @@ def _shard_slices(positions: torch.Tensor, mesh):
     return m, [positions[p * m : min((p + 1) * m, n)].to(dev) for p, dev in enumerate(mesh.devices)]
 
 
-def _gather_sort(packed, positions, seg_starts, seg_ends, max_kmer_len, mesh, packed2,
-                 n_samples, capacity_factor, uniform_cap, on_step):
-    """The gather sample sort at a bounded length: (per-shard sorted real
-    rows, every lane, and ``_exchange_merge``'s info)."""
+def _flat_keys(packed, packed2, seg_starts, seg_ends, mesh) -> _FlatKeys:
     two_bit = packed2 is not None
-    n_words = _cdiv(max_kmer_len, 16 if two_bit else 8)
+    return _FlatKeys(packed2 if two_bit else packed, seg_starts, seg_ends, two_bit, mesh)
+
+
+def _gather_sort(keys, positions, max_kmer_len, mesh, n_samples, capacity_factor,
+                 uniform_cap, on_step, canonical_k=None):
+    """The gather sample sort at a bounded length: (per-shard sorted real
+    rows, every lane, and ``_exchange_merge``'s info). Lanes: the key words
+    (canonical ones, of the rows with ``canonical_k`` bases or more, where
+    it is given), the cap unless ``uniform_cap``, the position."""
+    n_words = _cdiv(max_kmer_len, keys.per_word)
     m, pos_s = _shard_slices(positions, mesh)
-    genome = replicate(packed2 if two_bit else packed, mesh)
-    ss, se = replicate(seg_starts, mesh), replicate(seg_ends, mesh)
     lanes = []
     for p, pos in enumerate(pos_s):
-        cap = cap_lengths(compute_valid_len(pos, ss[p], se[p]), max_kmer_len)
-        words = _words_for(genome[p], pos, cap, n_words, two_bit)
+        cap = keys.caps(p, pos, max_kmer_len)
+        if canonical_k is not None:
+            # a truncated k-mer has no canonical form: it is a pad
+            full = cap >= canonical_k
+            pos, cap = pos[full], cap[full]
+        words = keys.words(p, pos, cap, n_words)
+        if canonical_k is not None:
+            words = _canonical(words, canonical_k, keys.two_bit)
         caps = () if uniform_cap else (cap.to(torch.int32),)
-        lanes.append(words + caps + (u32_bits_as_int32(pos),))
+        lanes.append(words + caps + keys.pos_lanes(pos))
     del pos_s
     return _exchange_merge(lanes, None, m, mesh, capacity_factor, n_samples, on_step)
 
@@ -292,8 +376,8 @@ def sample_sort_positions_ragged(
     if max_kmer_len is None or max_kmer_len > limit:
         raise NotImplementedError(f"sample sort requires max_kmer_len <= {limit} bases")
     merged, got = _gather_sort(
-        packed, positions, seg_starts, seg_ends, max_kmer_len, mesh, packed2, n_samples,
-        capacity_factor, uniform_cap, on_step,
+        _flat_keys(packed, packed2, seg_starts, seg_ends, mesh), positions, max_kmer_len,
+        mesh, n_samples, capacity_factor, uniform_cap, on_step,
     )
     out_pos, out_pad, out_lanes = _padded(merged, got["shard_rows"])
     if info is not None:
@@ -339,24 +423,24 @@ def sample_sort_positions(
 # --------------------------------------------------------------------------- #
 
 
-def _run_structure(genome, positions, valid, gid, ss, se, offset: int, max_cap, two_bit, mesh):
-    """The global run structure of a sorted layout after the window at
-    ``offset`` (32 bases): (run ids, unresolved). Rows are equal when their
-    previous run ids (``gid``; None on the first window) and the window's
-    key words agree and, on 2-bit keys, their caps clamped to the window
-    end (rows that both extend past it stay in one run); row 0 of a shard
-    compares with the last valid row of the nearest earlier shard that has
-    one. Run ids (int64) count the runs of all shards before a row, from
-    0; pads get 0xFFFFFFFF. ``unresolved`` (a 0-dim tensor) counts the
-    valid rows equal to their predecessor where either extends past the
-    window. ``max_cap`` None compares to the end of the record."""
-    n_words = WINDOW_BASES // (16 if two_bit else 8)
-    end = offset + WINDOW_BASES
+def _run_structure(keys, positions, valid, gid, offset: int, max_cap, mesh):
+    """The global run structure of a sorted layout after the window of
+    ``keys.window`` bases at ``offset``: (run ids, unresolved). Rows are
+    equal when their previous run ids (``gid``; None on the first window)
+    and the window's key words agree and, on 2-bit keys, their caps clamped
+    to the window end (rows that both extend past it stay in one run); row
+    0 of a shard compares with the last valid row of the nearest earlier
+    shard that has one. Run ids (int64) count the runs of all shards before
+    a row, from 0; pads get ``keys.pad``. ``unresolved`` (a 0-dim tensor)
+    counts the valid rows equal to their predecessor where either extends
+    past the window. ``max_cap`` None compares to the end of the record."""
+    n_words = keys.window // keys.per_word
+    end = offset + keys.window
     lanes, beyond = [], []
     for p, pos in enumerate(positions):
-        cap = torch.where(valid[p], cap_lengths(compute_valid_len(pos, ss[p], se[p]), max_cap), 0)
-        shard = _words_for(genome[p], pos, cap, n_words, two_bit, offset)
-        if two_bit:
+        cap = torch.where(valid[p], keys.caps(p, pos, max_cap), 0)
+        shard = keys.words(p, pos, cap, n_words, offset)
+        if keys.two_bit:
             shard += (torch.clamp_max(cap, end),)
         if gid is not None:
             shard = (gid[p],) + shard
@@ -371,19 +455,90 @@ def _run_structure(genome, positions, valid, gid, ss, se, offset: int, max_cap, 
     )[0]
     counts = all_gather([b.sum() for b in boundary], mesh)
     new_gid = [
-        torch.where(valid[p], counts[p][:p].sum() + torch.cumsum(b, dim=0) - 1, _PAD_U32)
+        torch.where(valid[p], counts[p][:p].sum() + torch.cumsum(b, dim=0) - 1, keys.pad)
         for p, b in enumerate(boundary)
     ]
     return new_gid, unresolved
 
 
-def _refine_lanes(genome, pos, gid, ss, se, offset: int, max_cap, two_bit):
-    """One shard's lanes of a refinement round: (run id, the 32-base window
-    at ``offset``, cap, position), the JAX package's ``gid=`` lane layout."""
-    n_words = WINDOW_BASES // (16 if two_bit else 8)
-    cap = cap_lengths(compute_valid_len(pos, ss, se), max_cap)
-    words = _words_for(genome, pos, cap, n_words, two_bit, offset)
-    return (u32_bits_as_int32(gid),) + words + (u32_bits_as_int32(cap), u32_bits_as_int32(pos))
+def _refine_lanes(keys, p: int, pos, gid, offset: int, max_cap, gid_lanes: int):
+    """Shard p's lanes of a refinement round: (run id, the window at
+    ``offset``, cap, position), the JAX package's ``gid=`` lane layout. The
+    run id takes one int32 lane while every id is below 2^32 (its high
+    lane, zero on every row, orders nothing), else two."""
+    n_words = keys.window // keys.per_word
+    cap = keys.caps(p, pos, max_cap)
+    words = keys.words(p, pos, cap, n_words, offset)
+    gid_l = (u32_bits_as_int32(gid),) if gid_lanes == 1 else split64(gid)
+    return gid_l + words + (u32_bits_as_int32(cap),) + keys.pos_lanes(pos)
+
+
+def _refinement_rounds(keys, merged, got, mesh, max_kmer_len, n_samples, capacity_factor,
+                       first_name, on_round, on_step):
+    """The rounds after round 0 (``merged``, ``got``: its sorted real rows
+    and info): run structure, then while rows are unresolved one sample
+    sort keyed by (run id, next window, cap, position) and the run
+    structure of the new layout. Returns (positions, run ids, the info of
+    every round), each shard's real rows in global order."""
+    n_dev = mesh_size(mesh)
+    step = on_step if on_step is not None else (lambda name: None)
+    rounds = [got]
+    pos = [_lanes_position(shard, keys.n_pos) for shard in merged]
+    del merged
+    valid = [torch.ones(x.shape[0], dtype=torch.bool, device=x.device) for x in pos]
+    gid, unresolved = _run_structure(keys, pos, valid, None, 0, max_kmer_len, mesh)
+    step("run structure")
+    offset, name = 0, first_name
+    while _round_done(unresolved, name, on_round):
+        offset += keys.window
+        name = "_refine_round"
+        gid_lanes = 1
+        if keys.n_pos == 2:  # a flat index has fewer than 2^32 rows
+            n_runs = sum(int(g[-1]) + 1 for g in gid if g.shape[0])  # ids rise in shard order
+            gid_lanes = 1 if n_runs <= 1 << 32 else 2
+        n_lanes = gid_lanes + keys.window // keys.per_word + 1 + keys.n_pos
+        if n_lanes > MAX_LANES:
+            raise NotImplementedError(
+                f"a refinement round of {n_runs} runs needs {n_lanes} sort lanes; "
+                f"the lane sort takes at most {MAX_LANES}"
+            )
+        lanes = [
+            _refine_lanes(keys, p, pos[p], gid[p], offset, max_kmer_len, gid_lanes)
+            for p in range(n_dev)
+        ]
+        del pos, gid
+        step("round lanes")
+        merged, got = _exchange_merge(
+            lanes, None, rounds[-1]["shard_rows"], mesh, capacity_factor, n_samples, on_step
+        )
+        rounds.append(got)
+        pos = [_lanes_position(shard, keys.n_pos) for shard in merged]
+        old_gid = [
+            widen_u32(shard[0]) if gid_lanes == 1 else fuse64(shard[0], shard[1])
+            for shard in merged
+        ]
+        del merged
+        valid = [torch.ones(x.shape[0], dtype=torch.bool, device=x.device) for x in pos]
+        gid, unresolved = _run_structure(keys, pos, valid, old_gid, offset, max_kmer_len, mesh)
+        del old_gid
+        step("run structure")
+    return pos, gid, rounds
+
+
+def _compact_layout(pos: list, gid: list, pad_value):
+    """Each shard's real rows and one pad row: (positions, is_pad, run ids)."""
+    pads = [torch.arange(x.shape[0] + 1, device=x.device) == x.shape[0] for x in pos]
+    return ([_pad_tail(x, x.shape[0] + 1, pad_value) for x in pos], pads,
+            [_pad_tail(g, g.shape[0] + 1, pad_value) for g in gid])
+
+
+def _rounds_info(info, rounds) -> None:
+    if info is not None:
+        info.update(
+            rounds=len(rounds), retries=sum(r["retries"] for r in rounds),
+            capacity_factors=[r["capacity_factor"] for r in rounds],
+            rows=rounds[-1]["rows"], shard_rows=rounds[-1]["shard_rows"],
+        )
 
 
 def sample_sort_positions_unbounded(
@@ -422,57 +577,31 @@ def sample_sort_positions_unbounded(
     built) and "run structure"; ``info`` receives "rounds", "retries",
     "capacity_factors" (one a round), "rows" and "shard_rows" (of the last
     layout)."""
-    two_bit = packed2 is not None
-    genome = replicate(packed2 if two_bit else packed, mesh)
-    ss, se = replicate(seg_starts, mesh), replicate(seg_ends, mesh)
-    n_dev = mesh_size(mesh)
-    step = on_step if on_step is not None else (lambda name: None)
-
+    keys = _flat_keys(packed, packed2, seg_starts, seg_ends, mesh)
     # round 0: the sample sort capped at the first window
     merged, got = _gather_sort(
-        packed, positions, seg_starts, seg_ends, WINDOW_BASES, mesh, packed2, n_samples,
-        capacity_factor, False, on_step,
+        keys, positions, keys.window, mesh, n_samples, capacity_factor, False, on_step
     )
-    rounds = [got]
-    pos = [widen_u32(shard[-1]) for shard in merged]
-    del merged
-    valid = [torch.ones(x.shape[0], dtype=torch.bool, device=x.device) for x in pos]
-    gid, unresolved = _run_structure(genome, pos, valid, None, ss, se, 0, max_kmer_len, two_bit, mesh)
-    step("run structure")
-    offset, name = 0, "sample_sort_positions_ragged"
-    while _round_done(unresolved, name, on_round):
-        offset += WINDOW_BASES
-        name = "_refine_round"
-        lanes = [
-            _refine_lanes(genome[p], pos[p], gid[p], ss[p], se[p], offset, max_kmer_len, two_bit)
-            for p in range(n_dev)
-        ]
-        del pos, gid
-        step("round lanes")
-        merged, got = _exchange_merge(
-            lanes, None, rounds[-1]["shard_rows"], mesh, capacity_factor, n_samples, on_step
-        )
-        rounds.append(got)
-        pos = [widen_u32(shard[-1]) for shard in merged]
-        old_gid = [widen_u32(shard[0]) for shard in merged]
-        del merged
-        valid = [torch.ones(x.shape[0], dtype=torch.bool, device=x.device) for x in pos]
-        gid, unresolved = _run_structure(
-            genome, pos, valid, old_gid, ss, se, offset, max_kmer_len, two_bit, mesh
-        )
-        del old_gid
-        step("run structure")
-    if info is not None:
-        info.update(
-            rounds=len(rounds), retries=sum(r["retries"] for r in rounds),
-            capacity_factors=[r["capacity_factor"] for r in rounds],
-            rows=rounds[-1]["rows"], shard_rows=rounds[-1]["shard_rows"],
-        )
+    pos, gid, rounds = _refinement_rounds(
+        keys, merged, got, mesh, max_kmer_len, n_samples, capacity_factor,
+        "sample_sort_positions_ragged", on_round, on_step,
+    )
+    _rounds_info(info, rounds)
     if return_ragged:
-        pads = [torch.arange(x.shape[0] + 1, device=x.device) == x.shape[0] for x in pos]
-        return ([_pad_tail(x, x.shape[0] + 1, _PAD_U32) for x in pos], pads,
-                [_pad_tail(g, g.shape[0] + 1, _PAD_U32) for g in gid])
+        return _compact_layout(pos, gid, keys.pad)
     return torch.cat([x.cpu() for x in pos]).to(positions.device)
+
+
+def _adjacent_gids(keys, rag_pos: list, rag_pad: list, kmer_len, mesh) -> list:
+    """The run structure window by window over a sorted layout, no
+    re-sort, until no tied pair can extend: the run ids."""
+    valid = [~pad for pad in rag_pad]
+    gid, unresolved = _run_structure(keys, rag_pos, valid, None, 0, kmer_len, mesh)
+    offset = 0
+    while bool(unresolved):
+        offset += keys.window
+        gid, unresolved = _run_structure(keys, rag_pos, valid, gid, offset, kmer_len, mesh)
+    return gid
 
 
 def distributed_adjacent_gids(
@@ -490,18 +619,8 @@ def distributed_adjacent_gids(
     prefix of each shard): the run structure window by window, no re-sort,
     until no tied pair can extend. Rows share an id iff their k-mers are
     equal at ``kmer_len`` (int64 per shard, pads 0xFFFFFFFF)."""
-    two_bit = packed2 is not None
-    genome = replicate(packed2 if two_bit else packed, mesh)
-    ss, se = replicate(seg_starts, mesh), replicate(seg_ends, mesh)
-    valid = [~pad for pad in rag_pad]
-    gid, unresolved = _run_structure(genome, rag_pos, valid, None, ss, se, 0, kmer_len, two_bit, mesh)
-    offset = 0
-    while bool(unresolved):
-        offset += WINDOW_BASES
-        gid, unresolved = _run_structure(
-            genome, rag_pos, valid, gid, ss, se, offset, kmer_len, two_bit, mesh
-        )
-    return gid
+    keys = _flat_keys(packed, packed2, seg_starts, seg_ends, mesh)
+    return _adjacent_gids(keys, rag_pos, rag_pad, kmer_len, mesh)
 
 
 # --------------------------------------------------------------------------- #
@@ -694,6 +813,196 @@ def sample_sort_canonical_ragged(
     merged, got = _exchange_merge(lanes, None, m, mesh, capacity_factor, n_samples, on_step)
     out_pos, out_pad, out_lanes = _padded(merged, got["shard_rows"])
     return out_pos, out_pad, out_lanes
+
+
+# --------------------------------------------------------------------------- #
+# the large regime: a strided pack and int64 positions (LargeKmers)
+# --------------------------------------------------------------------------- #
+
+
+def words_tensor(packed_words) -> torch.Tensor:
+    """A strided pack as an int32 tensor of uint32 bit patterns (a NumPy
+    uint32 array is viewed, not copied)."""
+    if isinstance(packed_words, torch.Tensor):
+        return packed_words
+    return torch.from_numpy(np.ascontiguousarray(packed_words, dtype=np.uint32).view(np.int32))
+
+
+def int64_tensor(values) -> torch.Tensor:
+    """Positions or segment bounds (uint64 values below 2^63) as an int64
+    tensor (a NumPy array is viewed, not copied)."""
+    if isinstance(values, torch.Tensor):
+        return values
+    return torch.from_numpy(np.ascontiguousarray(values, dtype=np.uint64).view(np.int64))
+
+
+def strided_keys(packed_strided, seg_starts_u64, seg_ends_u64, two_bit: bool, mesh) -> _StridedKeys:
+    """The key source of a strided pack, replicated over the mesh."""
+    return _StridedKeys(words_tensor(packed_strided), int64_tensor(seg_starts_u64),
+                        int64_tensor(seg_ends_u64), two_bit, mesh)
+
+
+def sample_sort_positions_large_ragged(
+    packed_strided,
+    positions_u64,
+    seg_starts_u64,
+    seg_ends_u64,
+    max_kmer_len: int,
+    mesh,
+    two_bit: bool = True,
+    n_samples: int = N_SAMPLES,
+    capacity_factor: float = CAPACITY_FACTOR,
+    uniform_cap: bool = False,
+    return_lanes: bool = False,
+    canonical_k: int | None = None,
+    on_step=None,
+    info: dict | None = None,
+):
+    """Sample sort of k-mer start positions over a strided pack (16 bases a
+    word when ``two_bit``, else 8), for genomes past the uint32 ceiling:
+    the pipeline of ``sample_sort_positions_ragged`` with each position in
+    two int32 sort lanes (hi, lo), so every comparison (local sort,
+    splitters, bucket bounds, merge) is the exact 64-bit one. Positions
+    (uint64 array or int64 tensor, any order) may lie past 2^32.
+
+    Returns ``(positions, is_pad)`` per shard, ``P * C`` rows each, int64
+    positions (pads -1, the JAX all-ones pair) and bool pad flags; with
+    ``return_lanes`` also the sorted key lanes (words, and the cap lane
+    unless ``uniform_cap``; pads all-ones). ``canonical_k`` sorts by
+    min(key, reverse complement); rows with fewer bases have no canonical
+    form and are pads. ``on_step`` and ``info`` as
+    ``sample_sort_positions_ragged``."""
+    limit = 64 if two_bit else 32
+    if max_kmer_len is None or max_kmer_len > limit:
+        raise NotImplementedError(f"large sample sort requires max_kmer_len <= {limit} bases")
+    if canonical_k is not None and not uniform_cap:
+        raise ValueError("canonical_k requires uniform_cap=True")
+    keys = strided_keys(packed_strided, seg_starts_u64, seg_ends_u64, two_bit, mesh)
+    merged, got = _gather_sort(
+        keys, int64_tensor(positions_u64), max_kmer_len, mesh, n_samples, capacity_factor,
+        uniform_cap, on_step, canonical_k,
+    )
+    if info is not None:
+        info.update(got)
+    out_pos, out_pad, out_lanes = _padded(merged, got["shard_rows"], keys)
+    if return_lanes:
+        return out_pos, out_pad, out_lanes
+    return out_pos, out_pad
+
+
+def sample_sort_positions_large(
+    packed_strided,
+    positions_u64,
+    seg_starts_u64,
+    seg_ends_u64,
+    max_kmer_len: int,
+    mesh,
+    two_bit: bool = True,
+    n_samples: int = N_SAMPLES,
+    capacity_factor: float = CAPACITY_FACTOR,
+    uniform_cap: bool = False,
+) -> np.ndarray:
+    """The globally sorted positions of
+    ``sample_sort_positions_large_ragged`` as a host uint64 array."""
+    out_pos, out_pad = sample_sort_positions_large_ragged(
+        packed_strided, positions_u64, seg_starts_u64, seg_ends_u64, max_kmer_len, mesh,
+        two_bit=two_bit, n_samples=n_samples, capacity_factor=capacity_factor,
+        uniform_cap=uniform_cap,
+    )
+    return large_rows(out_pos, out_pad)
+
+
+def sample_sort_positions_large_unbounded(
+    packed_strided,
+    positions_u64,
+    seg_starts_u64,
+    seg_ends_u64,
+    mesh,
+    two_bit: bool = True,
+    max_kmer_len: int | None = None,
+    n_samples: int = N_SAMPLES,
+    capacity_factor: float = CAPACITY_FACTOR,
+    on_round=None,
+    on_step=None,
+    info: dict | None = None,
+):
+    """Refinement sort over a strided pack with int64 positions: suffix
+    mode (``max_kmer_len`` None) or any bound beyond one window (64 bases
+    on 2-bit keys, 32 on 4-bit keys). Round 0 is the large sample sort
+    capped at the first window; then the rounds of
+    ``sample_sort_positions_unbounded`` with windows of 4 words, int64 run
+    ids (one sort lane below 2^32 runs, else two) and the position in two
+    lanes.
+
+    Returns ``(positions, is_pad, run ids)`` per shard: each shard's real
+    rows (the JAX package's, in its order) and one pad row, int64
+    positions and run ids (pads -1), bool pad flags; ``info["shard_rows"]``
+    is the JAX row count a shard. Rows share a run id iff their k-mers are
+    equal under the sort's full comparison. ``on_round`` (round 0 is named
+    "sample_sort_positions_large_ragged"), ``on_step`` and ``info`` as
+    ``sample_sort_positions_unbounded``."""
+    keys = strided_keys(packed_strided, seg_starts_u64, seg_ends_u64, two_bit, mesh)
+    merged, got = _gather_sort(
+        keys, int64_tensor(positions_u64), keys.window, mesh, n_samples, capacity_factor,
+        False, on_step,
+    )
+    pos, gid, rounds = _refinement_rounds(
+        keys, merged, got, mesh, max_kmer_len, n_samples, capacity_factor,
+        "sample_sort_positions_large_ragged", on_round, on_step,
+    )
+    _rounds_info(info, rounds)
+    return _compact_layout(pos, gid, keys.pad)
+
+
+def distributed_adjacent_gids_large(
+    packed_strided,
+    positions: list,
+    is_pad: list,
+    seg_starts_u64,
+    seg_ends_u64,
+    kmer_len: int | None,
+    mesh,
+    two_bit: bool = True,
+) -> list:
+    """Run ids at ``kmer_len``-base identity (None: to each segment's end)
+    over a sorted large layout, by windows of 64 (2-bit) or 32 (4-bit)
+    bases and no re-sort (int64 per shard, pads -1)."""
+    keys = strided_keys(packed_strided, seg_starts_u64, seg_ends_u64, two_bit, mesh)
+    return _adjacent_gids(keys, positions, is_pad, kmer_len, mesh)
+
+
+def sample_sort_canonical_large_ragged(
+    packed_strided,
+    positions_u64,
+    seg_starts_u64,
+    seg_ends_u64,
+    kmer_len: int,
+    mesh,
+    n_samples: int = N_SAMPLES,
+    capacity_factor: float = CAPACITY_FACTOR,
+    two_bit: bool = True,
+    on_step=None,
+):
+    """Canonical large sample sort: rows ordered by min(key, reverse
+    complement), the position the tie-break; truncated rows are pads.
+    Returns ``(positions, is_pad, canonical word lanes)`` per shard."""
+    limit = 64 if two_bit else 32
+    if kmer_len is None or kmer_len < 1 or kmer_len > limit:
+        raise ValueError(f"kmer_len ({kmer_len}) must be in [1, {limit}]")
+    return sample_sort_positions_large_ragged(
+        packed_strided, positions_u64, seg_starts_u64, seg_ends_u64, kmer_len, mesh,
+        two_bit=two_bit, n_samples=n_samples, capacity_factor=capacity_factor,
+        uniform_cap=True, return_lanes=True, canonical_k=kmer_len, on_step=on_step,
+    )
+
+
+def large_rows(positions: list, is_pad: list) -> np.ndarray:
+    """The real rows of a large layout in global order, host uint64."""
+    if not positions:
+        return np.zeros(0, dtype=np.uint64)
+    return np.concatenate(
+        [pos[~pad].cpu().numpy().view(np.uint64) for pos, pad in zip(positions, is_pad)]
+    )
 
 
 def ragged_rows(positions: list, is_pad: list) -> np.ndarray:

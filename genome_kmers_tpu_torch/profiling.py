@@ -9,8 +9,8 @@ kernels' build and the allocator's growth).
 Every sweep and runner takes ``device`` (default "cuda", as every entry
 point of the port). A timed call on a CUDA device ends in
 ``torch.cuda.synchronize()``, so it measures the work on the card and not
-its enqueue. ``profile_large_sort`` raises until ``LargeKmers`` is ported
-(ROADMAP.md A12).
+its enqueue. ``profile_large_sort`` sweeps the ``LargeKmers`` build over a
+mesh of the device's shards.
 """
 
 from __future__ import annotations
@@ -302,12 +302,60 @@ def profile_large_sort(
     discard_first_run: bool = True,
     seed: int = 42,
     n_devices: Union[int, None] = None,
+    device="cuda",
 ):
-    """The 64-bit large-regime sweep (``LargeKmers`` over a mesh): not
-    ported yet."""
-    raise NotImplementedError(
-        "profile_large_sort is not ported to genome_kmers_tpu_torch yet "
-        "(ROADMAP.md A12: LargeKmers)"
+    """Sweep the sorted-index build of the 64-bit regime (``LargeKmers``
+    over a mesh: strided pack, int64 positions; suffix mode with
+    ``kmer_lens=[None]``), on genomes both engines hold, for the regime's
+    overhead. The mesh takes ``n_devices`` CUDA cards (all visible ones
+    where None); with ``device="cpu"`` it is ``n_devices`` (default 1)
+    shards on the CPU."""
+    from .large_kmers import LargeKmers
+    from .parallel import make_mesh
+
+    if torch.device(device).type == "cpu":
+        mesh = make_mesh(devices=["cpu"] * (n_devices or 1))
+    else:
+        mesh = make_mesh(n_devices)
+    rows = []
+    for seq_len in seq_lens:
+        for kmer_len in kmer_lens:
+            records = [("chr1", get_random_seq(seq_len, seed=seed))]
+            times = []
+            n = num_iterations + (1 if discard_first_run else 0)
+            for i in range(n):
+                lk = LargeKmers.from_records(records, kmer_len if kmer_len else 1, kmer_len)
+                for dev in set(mesh.devices):
+                    _finish(dev)
+                t0 = time.perf_counter()
+                lk.sort(mesh)
+                for dev in set(mesh.devices):
+                    _finish(dev)
+                run_time = time.perf_counter() - t0
+                if discard_first_run and i == 0:
+                    continue
+                times.append(run_time)
+            avg = float(np.mean(times))
+            num_kmers = lk.num_kmers
+            rows.append(
+                [seq_len, kmer_len, num_kmers, num_iterations, avg, float(np.min(times)),
+                 num_kmers / avg if avg > 0 else float("inf")]
+            )
+            logger.info(
+                "large_sort len=%s k=%s avg=%.4fs (%.3g kmers/s)",
+                seq_len, kmer_len, avg, rows[-1][6],
+            )
+    return _summarize(
+        rows,
+        [
+            "seq_len",
+            "kmer_len",
+            "num_kmers",
+            "num_iterations",
+            "avg_run_time",
+            "min_run_time",
+            "kmers_per_s",
+        ],
     )
 
 

@@ -1,7 +1,8 @@
 """The 2-D hierarchical ``(node, local)`` mesh of the port, on the CPU.
 
 Counterparts of ``tests/test_hier.py`` and ``tests/test_hier_integration.py``
-(all but ``test_large_suffix``, whose ``LargeKmers`` is ROADMAP.md A12):
+(``test_large_suffix``'s ``LargeKmers`` on a 2-D mesh is held in
+tests/test_torch_large_api.py):
 ``make_mesh2`` and the two-stage exchange of ``collectives.all_to_all``;
 ``sample_sort_positions_ragged_hier`` against the JAX package's at one
 factorization and against the port's flat sort at every factorization of 8

@@ -513,10 +513,17 @@ def test_filter_calls_once_out_of_slice_now_match_jax(call):
     assert got == want and want[0] is NotImplementedError
 
 
-def _large_sort_sweep(**kwargs):
-    from genome_kmers_tpu_torch.profiling import profile_large_sort
+def _large_sort_sweep(g, **kwargs):
+    """The large sweep's k-mer counts (its times are not compared); the
+    port's on CPU shards."""
+    from genome_kmers_tpu import profiling as jprof
+    from genome_kmers_tpu_torch import profiling as tprof
 
-    return profile_large_sort([100], **kwargs)
+    if g is gt:
+        df = tprof.profile_large_sort([100], device="cpu", **kwargs)
+    else:
+        df = jprof.profile_large_sort([100], **kwargs)
+    return df[["seq_len", "kmer_len", "num_kmers", "num_iterations"]].values.tolist()
 
 
 def _strided_pack():
@@ -525,31 +532,38 @@ def _strided_pack():
     return np.zeros(4, dtype=np.uint32), np.array([0], np.uint64), np.array([20], np.uint64)
 
 
+def _large_state(lk):
+    return (lk.num_kmers, lk._one_window, lk.two_bit, lk.min_kmer_len, lk.max_kmer_len)
+
+
 # Persistence, export and the mesh calls were out of the slice once and are
 # ported (tests/test_torch_persistence.py, test_torch_mesh.py,
 # test_torch_mesh_unbounded.py, test_torch_hier.py; the mesh calls that
-# stood here are cases of test_calls_once_out_of_slice_now_match_jax); the
-# calls below are what still lies outside it: the 64-bit regime (A12).
+# stood here are cases of test_calls_once_out_of_slice_now_match_jax). The
+# calls below, of the 64-bit regime, raised NotImplementedError naming
+# ROADMAP.md A12 until it was ported (tests/test_torch_large*.py hold it
+# further): each now gives the JAX package's answer or error.
 @pytest.mark.parametrize(
     "call",
     [
-        lambda sc, km: gt.LargeKmers(*_strided_pack(), 1, None),
-        lambda sc, km: gt.LargeKmers(sc, 3, 3),
-        lambda sc, km: gt.LargeKmers(*_strided_pack(), 3, 70),
-        lambda sc, km: gt.LargeKmers(*_strided_pack(), 3, 8, two_bit=False),
-        lambda sc, km: gt.LargeKmers(),
-        lambda sc, km: _large_sort_sweep(),
-        lambda sc, km: _large_sort_sweep(kmer_lens=[None]),
-        lambda sc, km: _large_sort_sweep(n_devices=2),
-        lambda sc, km: _large_sort_sweep(kmer_lens=[31, 70], num_iterations=1),
-        lambda sc, km: (km.sort(), gt.LargeKmers(sc, 3, 8)),
+        lambda g, sc, km: _large_state(g.LargeKmers(*_strided_pack(), 1, None)),
+        lambda g, sc, km: g.LargeKmers(sc, 3, 3),
+        lambda g, sc, km: _large_state(g.LargeKmers(*_strided_pack(), 3, 70)),
+        lambda g, sc, km: _large_state(g.LargeKmers(*_strided_pack(), 3, 8, two_bit=False)),
+        lambda g, sc, km: g.LargeKmers(),
+        lambda g, sc, km: _large_sort_sweep(g),
+        lambda g, sc, km: _large_sort_sweep(g, kmer_lens=[None]),
+        lambda g, sc, km: _large_sort_sweep(g, n_devices=2),
+        lambda g, sc, km: _large_sort_sweep(g, kmer_lens=[31, 70], num_iterations=1),
+        lambda g, sc, km: (km.sort(), g.LargeKmers(sc, 3, 8)),
     ],
 )
 def test_out_of_slice_calls_raise_not_implemented(call):
-    sc = _tsc(sequence_list=SEQ_LIST_2)
-    km = gt.Kmers(sc, 3, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        call(sc, km)
+    sc, scj = _tsc(sequence_list=SEQ_LIST_2), gj.SequenceCollection(sequence_list=SEQ_LIST_2)
+    got = _outcome(lambda: call(gt, sc, gt.Kmers(sc, 3, 8)))
+    want = _outcome(lambda: call(gj, scj, gj.Kmers(scj, 3, 8)))
+    assert got == want
+    assert not (isinstance(got, tuple) and got[0] is NotImplementedError)
 
 
 def _mesh(g, n: int = 2):

@@ -512,7 +512,9 @@ def test_deferred_mesh_calls_raise_naming_a11():
     """The mesh calls this test once held to a NotImplementedError naming
     A11 are ported: each now equals the JAX package's single-device answer
     (tests/test_torch_mesh_unbounded.py and test_torch_hier.py hold them
-    further); the 64-bit regime still raises, naming A12."""
+    further); the 64-bit regime, which raised naming A12, is ported too
+    (tests/test_torch_large*.py): its constructor now refuses a call without
+    arguments as the JAX package's does."""
     sl = _seq_list(2, False)
     tm = tp.make_mesh(devices=["cpu"] * 2)
     sc = gt.SequenceCollection(sequence_list=sl, device="cpu")
@@ -553,8 +555,7 @@ def test_deferred_mesh_calls_raise_naming_a11():
     assert np.array_equal(got[0], want[0]) and got[1] == want[1]
     m2 = tp.make_mesh2(2, 2, devices=["cpu"] * 4)
     assert m2.shape == dict(jp.make_mesh2(2, 2).shape)
-    with pytest.raises(NotImplementedError, match="A12"):
-        gt.LargeKmers()
+    assert _outcome(lambda: gt.LargeKmers()) == _outcome(lambda: gj.LargeKmers())
 
 
 def test_unsorted_mesh_statistics_raise_as_jax():

@@ -101,23 +101,46 @@ def test_too_many_records_take_the_numpy_parse(tmp_path):
     assert native.parse_fasta_bytes_native.runs == runs
 
 
-@pytest.mark.parametrize(
-    "data,error",
-    [
-        (b">chr1\nATCG\n>chr2\n>chr3\nGGCC\n", ValueError),
-        (b">a\nACGT\n>b\n>c\nGG\n", ValueError),
-        (b"", AssertionError),
-        (b"\n\n", AssertionError),
-        (b"ACGT\n", AssertionError),
-    ],
-)
+PARSE_ERRORS = [
+    (b">chr1\nATCG\n>chr2\n>chr3\nGGCC\n", ValueError),
+    (b">a\nACGT\n>b\n>c\nGG\n", ValueError),
+    (b"", AssertionError),
+    (b"\n\n", AssertionError),
+    (b"ACGT\n", AssertionError),
+]
+
+
+def _parse_error(path, error):
+    """The error of the JAX package's native parse route, stated here: its
+    NumPy route, which it takes where its own library failed to build or
+    load, returns an empty parse of a buffer of blank lines instead
+    (ROADMAP.md §C6), so the answer is not read from whichever route the
+    JAX package took in this process."""
+    if error is ValueError:
+        return ValueError, f"At least one empty sequence was found in the input file ({path})"
+    return AssertionError, "After parsing the fasta file, we expect sba to be full"
+
+
+@pytest.mark.parametrize("data,error", PARSE_ERRORS)
 def test_parse_errors_match_jax(tmp_path, data, error):
     """Empty sequences (the message names the file), an empty file, no
-    header: the JAX package's error and message."""
+    header: the JAX package's native route's error and message."""
     path = tmp_path / "g.fa"
     path.write_bytes(data)
-    want = _outcome(lambda: jax_parse_fasta_file(path))
-    assert want[0] is error and _outcome(lambda: parse_fasta_file(path)) == want
+    assert _outcome(lambda: parse_fasta_file(path)) == _parse_error(path, error)
+
+
+@pytest.mark.parametrize("data,error", PARSE_ERRORS)
+def test_parse_errors_of_the_numpy_route(tmp_path, monkeypatch, data, error):
+    """The port's plain route (``parse_fasta_bytes`` through the dispatch,
+    the native parse declining the buffer) gives the native route's error
+    and message."""
+    from genome_kmers_tpu_torch.io import fasta
+
+    path = tmp_path / "g.fa"
+    path.write_bytes(data)
+    monkeypatch.setattr(fasta, "parse_fasta_bytes_native", lambda data: None)
+    assert _outcome(lambda: fasta.parse_fasta_file(path)) == _parse_error(path, error)
 
 
 @pytest.mark.parametrize("n_chunks", [1, 2, 5])

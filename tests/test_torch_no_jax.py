@@ -24,7 +24,8 @@ REPO = Path(__file__).resolve().parents[1]
      "genome_kmers_tpu_torch.parallel.sample_sort", "genome_kmers_tpu_torch.parallel.query",
      "genome_kmers_tpu_torch.parallel.checkpoint", "genome_kmers_tpu_torch.parallel.hier",
      "genome_kmers_tpu_torch.profiling",
-     "genome_kmers_tpu_torch.io.csv_out"],
+     "genome_kmers_tpu_torch.io.csv_out", "genome_kmers_tpu_torch.large_kmers",
+     "genome_kmers_tpu_torch.ops.large", "genome_kmers_tpu_torch.parallel.large"],
 )
 def test_import_loads_no_jax(module):
     code = (

@@ -2,8 +2,8 @@
 the JAX package's, on the CPU at a tiny size: the same DataFrame columns,
 the same row keys and, for the sort sweep, the same k-mer counts; the
 generators give the same sequences from the same seed; the large sweep
-raises naming ROADMAP.md A12. Times are not compared (CPU times of two
-engines)."""
+(``LargeKmers``) gives the JAX package's k-mer counts. Times are not
+compared (CPU times of two engines)."""
 
 import subprocess
 import sys
@@ -64,8 +64,26 @@ def test_generators_match_jax():
 
 
 def test_large_sort_raises_naming_a12():
-    with pytest.raises(NotImplementedError, match="A12"):
-        tprof.profile_large_sort([100])
+    """Once a NotImplementedError naming A12; the sweep is ported: on one
+    and on two CPU shards, suffix mode included, the JAX package's frame."""
+    want = jprof.profile_large_sort([300], [5, None], num_iterations=1)
+    for n in (None, 2):
+        got = tprof.profile_large_sort([300], [5, None], num_iterations=1, n_devices=n,
+                                       device="cpu")
+        _same_frames(got, want)
+
+
+def test_profiling_cli_large_sort_on_the_cpu(tmp_path):
+    out = tmp_path / "prof"
+    proc = subprocess.run(
+        [sys.executable, "tools/torch_run_profiling.py", "-c", "large_sort", "-n", "1",
+         "--device", "cpu", "--n-devices", "2", "-o", str(out)],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    rows = (tmp_path / "prof-large_sort.csv").read_text().splitlines()
+    assert rows[0].startswith("seq_len,kmer_len,num_kmers") and len(rows) == 2
+    assert rows[1].startswith("1000000,31,999970,")
 
 
 def test_profiling_cli_on_the_cpu(tmp_path):

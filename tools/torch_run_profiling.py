@@ -5,8 +5,9 @@ The flag surface of tools/run_profiling.py: --run-size
 {small,medium,large}, --num-iter, --category
 {all,seq_list_init,fasta_init,get_segment_num,kmers_sort,large_sort},
 --output-base for CSV dumps; plus --device (default cuda; cpu for a dry run
-on a machine without a card). There is no compile cache to enable.
-large_sort raises until LargeKmers is ported (ROADMAP.md A12).
+on a machine without a card), and --n-devices, the mesh of large_sort
+(LargeKmers; all visible cards by default, one CPU shard with --device
+cpu). There is no compile cache to enable.
 
     python3 tools/torch_run_profiling.py -s small -c kmers_sort -n 2 -o out/prof
 """
@@ -80,6 +81,12 @@ def parse_args():
         help="device of the collections and indexes (cuda, or cpu for a dry run)",
     )
     parser.add_argument(
+        "--n-devices",
+        type=int,
+        default=None,
+        help="mesh shards of large_sort (default: every visible card; 1 on the cpu)",
+    )
+    parser.add_argument(
         "--output-base",
         "-o",
         type=str,
@@ -141,9 +148,10 @@ def main():
         _dump(df, args.output_base, "kmers_sort")
 
     if args.category == "large_sort":
-        # not in "all", as in tools/run_profiling.py; raises until A12
+        # not in "all", as in tools/run_profiling.py
         df = profiling.profile_large_sort(
-            sizes["sort_lens"], sizes["sort_ks"], num_iterations=args.num_iter
+            sizes["sort_lens"], sizes["sort_ks"], num_iterations=args.num_iter,
+            n_devices=args.n_devices, device=args.device,
         )
         _dump(df, args.output_base, "large_sort")
 
