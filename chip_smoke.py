@@ -154,7 +154,9 @@ Phases, each of which raises (exit code 1) on failure:
     collections of its own rebuilt from phase 4's and phase 5's host arrays:
     ACGT suffix mode Kmers(sc, 1, None).sort(mesh=m) at 2^27 bp, timed round
     by round and step by step, cold and warm: its real rows must be phase
-    9's sorted suffixes; get_kmer_group_counts(None, mesh=m) from the kept
+    9's sorted suffixes, and every refinement round must leave no shard more
+    than twice the mean rows (the largest shard's share is printed round by
+    round); get_kmer_group_counts(None, mesh=m) from the kept
     run ids (no refinement round, no sort) must be phase 9's histogram, and
     at 31 phase 9's too. Kmers(sc, 100, 100) on the ACGT genome and (48, 48)
     on the IUPAC genome at 2^27 SBA bytes against phase 10's sorts and
@@ -193,6 +195,31 @@ Phases, each of which raises (exit code 1) on failure:
     must launch the multi-lane sort; each prints its times and its peak
     device memory.
 
+19. The mesh across processes on the one card (``torch.distributed``; the
+    script starts each rank as a fresh process, ``chip_smoke.py --rank``,
+    on host arrays of phases 4 and 5 that it writes to a temporary
+    directory; every rank builds its own collection, upload and pack, and
+    its shards live on cuda:0; a rank that fails or passes its time limit
+    fails the phase). (a) NCCL, one rank of 4 local shards: Kmers(sc, 31,
+    31).sort(mesh=m) at 2^27 on both genomes; every shard's layout equals
+    phase 15's byte for byte, the statistics phases 4's and 5's, and the
+    collectives moved card tensors only. (b) Gloo, 4 ranks of one shard, the
+    same sorts, shard for shard phase 15's layouts; get_kmer_count(31,
+    GcContentFilter(0.3, 0.7, 31), mesh=m) against phase 15, count_queries
+    and count_queries_canonical against phase 14's counts; LargeKmers (31,
+    31) on the same ranks against phase 18a's rows and histogram; the
+    collectives staged every card tensor through the host. (c) Gloo, 2
+    ranks of 2 shards as make_mesh2(2, 2), a node a rank (stage A of the
+    exchange crosses processes): the layouts equal phase 17's 2-D layouts;
+    save_kmers_sharded there, load_kmers_sharded onto 2 ranks of one shard:
+    the same rows and histogram. (d) On the ranks of (b), ACGT suffix mode
+    Kmers(sc) at 2^24 bp against one card's sort of the same collection
+    (positions, histogram at None), each refinement round within twice the
+    mean rows a shard. Each rank prints its seconds, peak device memory and
+    kernel launches by step (the exchange's host staging under Gloo
+    included, with the bytes staged); the launches go into the kernels
+    line under the runs' names.
+
 ``--profile DIR`` adds a warm second run of phase 5's calls and of phase 9's,
 and a canonical dense-route call and a count_queries call of phase 14 on
 each genome, under torch.profiler and writes the device time by kernel to
@@ -205,9 +232,12 @@ the paths; the last is {"ok": true, "device": {...}}. No JAX is imported.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import math
+import pickle
+import socket
 import subprocess
 import sys
 import tempfile
@@ -246,6 +276,7 @@ from genome_kmers_tpu_torch.ops.keys import compute_valid_len, pack_rank2_words,
 from genome_kmers_tpu_torch.ops.large import decode_strided_np, split64
 from genome_kmers_tpu_torch.ops.query import encode_query_words
 from genome_kmers_tpu_torch.ops.sort import sort_lanes
+from genome_kmers_tpu_torch.parallel import collectives
 from genome_kmers_tpu_torch.parallel import (
     load_kmers_sharded,
     make_mesh,
@@ -1796,6 +1827,7 @@ def queries_on(km, sc, two_bit: bool, label: str, rng, profile_dir) -> None:
                              f"queries, e.g. {queries[bad[0]]}: {got[bad[0]]} vs {expected[bad[0]]}")
     if not np.array_equal(canon, expected_canon):
         raise AssertionError(f"{label}: count_queries_canonical differs from the searchsorted sums")
+    REFERENCES[f"queries {'ACGT' if two_bit else 'IUPAC'}"] = (queries, got, canon)
     nq = len(queries)
     log(f"{label}: count_queries of {nq} queries ({len(sampled)} sampled, {QUERY_RANDOM} random"
         + ("" if two_bit else f", {QUERY_WITH_N} with an N") + f"; {int((got > 0).sum())} present, "
@@ -1930,6 +1962,8 @@ def mesh_main(host_sc, expected: np.ndarray, counts31: np.ndarray, m4, m1, rng):
     reset_launches()
     sc, km = from_numpy_state(sba, seg_starts, host_sc.forward_record_names, 31, 31, device=DEVICE)
     t_sort, steps, info = mesh_sort(km, m4, expected, label)
+    REFERENCES[f"mesh layout {'ACGT' if two_bit else 'IUPAC'}"] = layout_digests(km._dist_cache.positions,
+                                                                                   km._dist_cache.is_pad)
     km.get_kmer_group_counts(31, mesh=m4)  # cold: the allocator grows
     t_sort_warm, steps_warm, _ = mesh_sort(gkt.Kmers(sc, 31, 31), m4, expected, label)
     (counts, total), t_stats = sync_time(lambda: km.get_kmer_group_counts(31, mesh=m4))
@@ -1949,6 +1983,7 @@ def mesh_main(host_sc, expected: np.ndarray, counts31: np.ndarray, m4, m1, rng):
     want = single.get_kmer_group_counts(31, gc)
     if not (np.array_equal(fcounts, want[0]) and ftotal == want[1]):
         raise AssertionError(f"{label}: the GC-filtered mesh histogram differs from one card's")
+    REFERENCES[f"gc {'ACGT' if two_bit else 'IUPAC'}"] = ftotal
     queries = mesh_queries(sc, rng)
     got, t_q = sync_time(lambda: km.count_queries(queries, 31, mesh=m4))
     canon = km.count_queries_canonical(queries, 31, mesh=m4)
@@ -2279,6 +2314,7 @@ def mesh_suffix_acgt(host_sc, reference, m4, adjacent) -> dict:
         raise AssertionError(f"{label}: a kernel did not launch ({launches}; lane sort launches "
                              f"by round {[n for _, _, n in rounds.rounds][:8]}...)")
     later = [t for _, t, _ in rounds.rounds[1:]]
+    log(f"{label}: {check_balance(info['round_rows'], len(km), label)}")
     log(f"{label}: sort(mesh) {t_sort:.4f} s = {len(km) / t_sort / 1e6:.1f} M suffixes/s "
         f"(one card, phase 9: {reference['seconds']:.4f} s = "
         f"{len(km) / reference['seconds'] / 1e6:.1f} M suffixes/s; {t_sort / reference['seconds']:.1f}x); "
@@ -2286,7 +2322,7 @@ def mesh_suffix_acgt(host_sc, reference, m4, adjacent) -> dict:
     log(f"{label}: {len(names)} rounds, {np.mean(later):.4f} s a round after the first (median "
         f"{np.median(later):.4f}); seconds by step over all rounds: {step_summary(steps)}; "
         f"capacity factors {sorted(set(info['capacity_factors']))}, {info['retries']} retries; real "
-        f"rows by shard at the end {info['rows']} (JAX layout {info['shard_rows']} rows a shard)")
+        f"rows by shard at the end {info['rows']}")
     log(f"{label}: get_kmer_group_counts(None, mesh) {t_none:.4f} s from the kept run ids (no "
         f"round, no sort), equal to phase 9's; get_kmer_group_counts(31, mesh) {t_31:.4f} s, equal "
         f"to phase 9's; launches: pack {launches['pack_rank2_words_cuda']}, lane sort "
@@ -2419,6 +2455,7 @@ def mesh_2d(host_sc, expected: np.ndarray, m4, m22, rng) -> dict:
     t_2d, steps, _ = mesh_sort(km2, m22, expected, label)
     launches = {"2-D mesh (2, 2), ACGT 2^27 (31, 31)": sort_lanes_cuda.launches}
     check_layouts_equal(km1._dist_cache, km2._dist_cache, f"{label}, (31, 31) 2^27")
+    REFERENCES["mesh2 layout ACGT"] = layout_digests(km2._dist_cache.positions, km2._dist_cache.is_pad)
     counts = km2.get_kmer_group_counts(31, mesh=m22)
     if not np.array_equal(counts[0], km1.get_kmer_group_counts(31, mesh=m4)[0]):
         raise AssertionError(f"{label}: the histograms differ")
@@ -2842,6 +2879,416 @@ def phase_large(host_acgt, host_iupac, positions, counts, canonical_ref, rng_see
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 19: meshes that span processes
+# --------------------------------------------------------------------------- #
+
+# what phase 19 is held to, filled in by the earlier phases: the 4-shard
+# mesh layouts of phase 15 and the 2-D layout of phase 17 (digests), phase
+# 15's GC-filtered totals and phase 14's queries with their counts
+REFERENCES = {}
+RANK_COMMAND = [sys.executable, str(Path(__file__).resolve()), "--rank"]
+RANK_TIMEOUT = 420  # seconds a launch of ranks may take before the phase fails
+PROCESS_SUFFIX_BP = 1 << 24  # phase 19 (d)
+BALANCE = 2.0  # a refinement round leaves no shard more than twice the mean rows
+
+
+def digest(a: np.ndarray) -> str:
+    return hashlib.blake2b(memoryview(np.ascontiguousarray(a)).cast("B"), digest_size=16).hexdigest()
+
+
+def layout_digests(positions: list, is_pad: list) -> list:
+    """Per shard, digests of its positions (uint32) and its pad flags."""
+    return [(digest(p.cpu().numpy().astype(np.uint32)), digest(d.cpu().numpy().view(np.uint8)))
+            for p, d in zip(positions, is_pad)]
+
+
+def check_balance(round_rows: list, n_rows: int, label: str) -> str:
+    """Each refinement round's largest shard against the mean; raises past
+    ``BALANCE`` times the mean. Returns the per-round shares for the log."""
+    shares = [max(rows) / max(sum(rows), 1) for rows in round_rows]
+    n_shards = len(round_rows[0])
+    for r, rows in enumerate(round_rows[1:], start=1):
+        if max(rows) > BALANCE * -(-n_rows // n_shards):
+            raise AssertionError(f"{label}: round {r} leaves {max(rows)} of {n_rows} rows on one "
+                                 f"of {n_shards} shards")
+    shown = ", ".join(f"{x:.4f}" for x in shares)
+    return (f"largest shard's share of the real rows by round (round 0 first; mean "
+            f"{1 / n_shards:.4f}, bound {BALANCE / n_shards:.4f}): {shown}")
+
+
+class RankSteps:
+    """``on_step`` of a rank: per step name, the seconds (after a
+    synchronise), the peak device memory of the rank and its kernel
+    launches, summed over calls."""
+
+    def __init__(self):
+        self.steps = {}
+        torch.cuda.synchronize()
+        self.t = time.perf_counter()
+        self.launches = pack_rank2_words_cuda.launches + sort_lanes_cuda.launches
+
+    def __call__(self, name: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        launches = pack_rank2_words_cuda.launches + sort_lanes_cuda.launches
+        s, peak, n = self.steps.get(name, (0.0, 0, 0))
+        self.steps[name] = (s + now - self.t, max(peak, torch.cuda.max_memory_allocated()),
+                            n + launches - self.launches)
+        self.t, self.launches = now, launches
+
+
+def rank_collection(tmp: Path, key: str, k_min, k_max):
+    """A rank's own collection (own upload and pack) from the host arrays
+    the parent wrote, and its Kmers."""
+    names = json.loads((tmp / f"{key}-names.json").read_text())
+    return from_numpy_state(np.load(tmp / f"{key}-sba.npy"), np.load(tmp / f"{key}-starts.npy"),
+                            names, k_min, k_max, device=f"{DEVICE}:0")
+
+
+def rank_sort(sc, km, mesh, out: dict, label: str) -> None:
+    """``km.sort(mesh=mesh)`` on a rank, step by step, with its launches
+    counted from 0 (the upload and the pack included); records the seconds,
+    steps, launches, staging and the layout's digests in ``out[label]``."""
+    reset_launches()
+    collectives.reset_traffic()
+    torch.cuda.reset_peak_memory_stats()
+    steps, info = RankSteps(), {}
+    (_, seconds) = sync_time(lambda: km.sort(mesh=mesh, on_step=steps, mesh_info=info))
+    out[label] = {
+        "seconds": seconds, "steps": steps.steps, "info": info,
+        "launches": {"pack_rank2_words_cuda": pack_rank2_words_cuda.launches,
+                     "sort_lanes_cuda": sort_lanes_cuda.launches},
+        "traffic": dict(collectives.TRAFFIC), "peak": torch.cuda.max_memory_allocated(),
+        "layout": layout_digests(km._dist_cache.positions, km._dist_cache.is_pad),
+        "on_card": all(p.device.type == DEVICE for p in km._dist_cache.positions),
+    }
+
+
+def rank_index(km, mesh, out: dict, label: str) -> None:
+    """The mesh statistics of a sorted index on a rank."""
+    (counts, total), t_stats = sync_time(lambda: km.get_kmer_group_counts(31, mesh=mesh))
+    count, t_count = sync_time(lambda: km.get_kmer_count(31, mesh=mesh))
+    out[label].update(counts=counts, total=total, count=count, t_stats=t_stats, t_count=t_count)
+
+
+def rank_run_nccl(rank: int, world: int, tmp: Path) -> dict:
+    """(a): one rank over NCCL, the 4 local shards of phase 15 on the card."""
+    mesh = make_mesh(devices=[f"{DEVICE}:0"] * MESH_SHARDS)
+    out = {}
+    for key in ("ACGT", "IUPAC"):
+        sc, km = rank_collection(tmp, key, 31, 31)
+        rank_sort(sc, km, mesh, out, key)
+        rank_index(km, mesh, out, key)
+        out[key]["index"] = digest(km.kmer_sba_start_indices)
+        del sc, km
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank_run_gloo4(rank: int, world: int, tmp: Path) -> dict:
+    """(b) and (d): 4 ranks over Gloo, one shard of the card each."""
+    mesh = make_mesh(devices=[f"{DEVICE}:0"])
+    out = {}
+    for key in ("ACGT", "IUPAC"):
+        sc, km = rank_collection(tmp, key, 31, 31)
+        rank_sort(sc, km, mesh, out, key)
+        rank_index(km, mesh, out, key)
+        gc = GcContentFilter(0.3, 0.7, 31)
+        out[key]["gc"], out[key]["t_gc"] = sync_time(
+            lambda: km.get_kmer_count(31, kmer_filter_func=gc, mesh=mesh))
+        with open(tmp / f"{key}-queries.pkl", "rb") as f:
+            queries = pickle.load(f)
+        got, out[key]["t_queries"] = sync_time(lambda: km.count_queries(queries, 31, mesh=mesh))
+        canon = km.count_queries_canonical(queries, 31, mesh=mesh)
+        out[key]["queries"] = (digest(got), digest(canon))
+        out[key]["index"] = digest(km.kmer_sba_start_indices)
+        del km
+        # LargeKmers (31, 31) on the same ranks
+        lk = gkt.LargeKmers.from_sequence_collection(sc, 31, 31)
+        reset_launches()
+        steps = RankSteps()
+        (_, t_large) = sync_time(lambda: lk.sort(mesh, on_step=steps))
+        out[f"{key} large"] = {
+            "seconds": t_large, "steps": steps.steps, "launches": {
+                "pack_rank2_words_cuda": pack_rank2_words_cuda.launches,
+                "sort_lanes_cuda": sort_lanes_cuda.launches},
+            "rows": digest(lk.sorted_positions().astype(np.uint32)),
+            "counts": lk.get_kmer_group_counts(31)[0].astype(np.int64)}
+        del sc, lk
+        torch.cuda.empty_cache()
+    # (d) suffix mode at PROCESS_SUFFIX_BP, the refinement rounds balanced
+    sc, km = rank_collection(tmp, "suffix", 1, None)
+    rounds = RoundLog()
+    reset_launches()
+    collectives.reset_traffic()
+    torch.cuda.reset_peak_memory_stats()
+    steps, info = RankSteps(), {}
+    (_, seconds) = sync_time(lambda: km.sort(mesh=mesh, on_round=rounds, on_step=steps,
+                                             mesh_info=info))
+    counts, total = km.get_kmer_group_counts(None, mesh=mesh)
+    index = km.kmer_sba_start_indices
+    if rank == 0:
+        np.save(tmp / "suffix-index.npy", index)
+    out["suffix"] = {
+        "seconds": seconds, "steps": steps.steps, "info": info, "rounds": len(rounds.rounds),
+        "round_seconds": [t for _, t, _ in rounds.rounds],
+        "launches": {"pack_rank2_words_cuda": pack_rank2_words_cuda.launches,
+                     "sort_lanes_cuda": sort_lanes_cuda.launches},
+        "traffic": dict(collectives.TRAFFIC), "peak": torch.cuda.max_memory_allocated(),
+        "counts": counts, "total": total,
+    }
+    return out
+
+
+def rank_run_gloo2x2(rank: int, world: int, tmp: Path) -> dict:
+    """(c): 2 ranks over Gloo as make_mesh2(2, 2), a node a rank, then a
+    sharded checkpoint loaded onto one shard a rank."""
+    mesh2 = make_mesh2(2, 2, devices=[f"{DEVICE}:0"] * 2)
+    out = {}
+    sc, km = rank_collection(tmp, "ACGT", 31, 31)
+    rank_sort(sc, km, mesh2, out, "ACGT")
+    rank_index(km, mesh2, out, "ACGT")
+    path = tmp / "c-checkpoint"
+    (_, t_save) = sync_time(lambda: save_kmers_sharded(km, path))
+    km2 = gkt.Kmers(sc, 31, 31)
+    mesh1 = make_mesh(devices=[f"{DEVICE}:0"])
+    (_, t_load) = sync_time(lambda: load_kmers_sharded(km2, path, mesh=mesh1))
+    counts, _ = km2.get_kmer_group_counts(31, mesh=mesh1)
+    out["checkpoint"] = {"rows": digest(km2.kmer_sba_start_indices), "counts": counts,
+                         "t_save": t_save, "t_load": t_load}
+    return out
+
+
+RANK_RUNS = {"a": ("nccl", rank_run_nccl), "b": ("gloo", rank_run_gloo4),
+             "c": ("gloo", rank_run_gloo2x2)}
+
+
+def rank_main(argv: list) -> None:
+    """One rank of phase 19: ``chip_smoke.py --rank RUN RANK WORLD PORT DIR``.
+    Writes its results to DIR/RUN-rankRANK.pkl; any failure exits 1."""
+    import torch.distributed as dist
+
+    run, rank, world, port, tmp = argv[0], int(argv[1]), int(argv[2]), int(argv[3]), Path(argv[4])
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke rank: CUDA is not available")
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    backend, body = RANK_RUNS[run]
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank)
+    try:
+        out = body(rank, world, tmp)
+    finally:
+        dist.destroy_process_group()
+    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
+        raise AssertionError("a rank imported jax")
+    with open(tmp / f"{run}-rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(run: str, world: int, tmp: Path) -> list:
+    """Start ``world`` fresh rank processes of ``run``, wait for all of them
+    (at most RANK_TIMEOUT seconds), kill any left, and return their
+    results; a rank that fails or hangs fails the phase."""
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        log_file = open(tmp / f"{run}-rank{rank}.log", "wb")
+        procs.append((subprocess.Popen(RANK_COMMAND + [run, str(rank), str(world), str(port), str(tmp)],
+                                       stdout=log_file, stderr=subprocess.STDOUT), log_file))
+    t0 = time.perf_counter()
+    codes = []
+    try:
+        for proc, _ in procs:
+            codes.append(proc.wait(timeout=max(RANK_TIMEOUT - (time.perf_counter() - t0), 1)))
+    except subprocess.TimeoutExpired:
+        codes = None
+    finally:
+        for proc, log_file in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_file.close()
+    if codes != [0] * world:
+        tails = "\n".join(f"--- rank {r} ---\n"
+                          + (tmp / f"{run}-rank{r}.log").read_text(errors="replace")[-4000:]
+                          for r in range(world))
+        raise AssertionError(f"phase 19 ({run}): rank exit codes {codes} (None: a rank passed "
+                             f"{RANK_TIMEOUT} s)\n{tails}")
+    log(f"phase 19 ({run}): {world} rank{'s' if world > 1 else ''} done in "
+        f"{time.perf_counter() - t0:.1f} s (process start, CUDA context and the rank's own collections included)")
+    results = []
+    for rank in range(world):
+        with open(tmp / f"{run}-rank{rank}.pkl", "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def write_host_arrays(tmp: Path, key: str, host_sc) -> None:
+    sba, seg_starts = index_sba(host_sc)
+    np.save(tmp / f"{key}-sba.npy", sba)
+    np.save(tmp / f"{key}-starts.npy", seg_starts)
+    (tmp / f"{key}-names.json").write_text(json.dumps(list(host_sc.forward_record_names)))
+
+
+def step_log(steps: dict) -> str:
+    return ", ".join(f"{name} {s:.4f} s (peak {peak / 2**30:.2f} GiB, {n} launches)"
+                     for name, (s, peak, n) in steps.items())
+
+
+def sum_launches(results: list, key: str) -> dict:
+    return {name: sum(r[key]["launches"][name] for r in results)
+            for name in ("pack_rank2_words_cuda", "sort_lanes_cuda")}
+
+
+def check_sorted_run(results: list, key: str, layout: list, positions, counts31, label: str) -> None:
+    """A process-mesh sort: every shard's layout against ``layout`` (digests
+    in global shard order), the host index against ``positions``, the
+    histogram, total and count against ``counts31`` on every rank."""
+    got = [d for r in results for d in r[key]["layout"]]
+    if got != layout:
+        raise AssertionError(f"{label}: the shards' layouts differ from the single-process mesh's")
+    for r in results:
+        res = r[key]
+        if res["index"] != digest(positions):
+            raise AssertionError(f"{label}: the host index is not the sorted positions")
+        if not (np.array_equal(res["counts"], counts31) and res["total"] == res["count"] == len(positions)):
+            raise AssertionError(f"{label}: the histogram or the count differs from the main path's")
+        if not res["on_card"]:
+            raise AssertionError(f"{label}: the layout does not live on the card")
+
+
+def log_rank_sort(results: list, key: str, label: str) -> None:
+    for rank, r in enumerate(results):
+        res = r[key]
+        traffic = res["traffic"]
+        log(f"{label}, rank {rank}: sort(mesh) {res['seconds']:.4f} s, real rows by shard "
+            f"{res['info']['rows']}; steps: {step_log(res['steps'])}; collectives {traffic['collectives']}, "
+            f"{traffic['device_bytes']} bytes from card tensors, {traffic['host_bytes']} from host "
+            f"tensors, {traffic['staged_bytes']} bytes staged between card and host in "
+            f"{traffic['staging_seconds']:.4f} s; statistics {res['t_stats']:.4f} s, count "
+            f"{res['t_count']:.4f} s; peak {res['peak'] / 2**30:.3f} GiB; launches {res['launches']}")
+
+
+def phase_process_mesh(host_acgt, host_iupac, positions, counts, rng_seed: int) -> dict:
+    """Phase 19: the mesh across processes on one card. (a) NCCL, one rank
+    of 4 local shards; (b) Gloo, 4 ranks of one shard: (31, 31) on both
+    genomes, the GC-filtered count, queries, LargeKmers; (c) Gloo, 2 ranks
+    of 2 shards as make_mesh2(2, 2), a sharded checkpoint loaded onto one
+    shard a rank; (d) suffix mode at PROCESS_SUFFIX_BP on the ranks of (b).
+    Returns the launches of both kernels by path."""
+    rng = np.random.default_rng(rng_seed)
+    t0 = time.perf_counter()
+    out = {"pack_rank2_words_cuda": {}, "sort_lanes_cuda": {}}
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        for key, host_sc in (("ACGT", host_acgt), ("IUPAC", host_iupac)):
+            write_host_arrays(tmp, key, host_sc)
+            queries, _, _ = REFERENCES[f"queries {key}"]
+            with open(tmp / f"{key}-queries.pkl", "wb") as f:
+                pickle.dump(queries, f)
+        suffix_sc = collection_of(synthetic_records(rng, PROCESS_SUFFIX_BP, 12))
+        write_host_arrays(tmp, "suffix", suffix_sc)
+        single = gkt.Kmers(suffix_sc)
+        single_rounds, t_single = timed_sort(single)
+        suffix_ref = (single.kmer_sba_start_indices.copy(), single.get_kmer_group_counts(None))
+        del single, suffix_sc
+        torch.cuda.empty_cache()
+        log(f"phase 19: host arrays written, suffix reference at {PROCESS_SUFFIX_BP} bp sorted on one "
+            f"card in {t_single:.4f} s ({len(single_rounds.rounds)} rounds), {time.perf_counter() - t0:.1f} s")
+
+        # (a) NCCL, one rank, 4 local shards
+        results = launch_ranks("a", 1, tmp)
+        for key in ("ACGT", "IUPAC"):
+            label = f"process mesh (a) NCCL 1 rank x {MESH_SHARDS} shards, {key} 2^27 (31, 31)"
+            check_sorted_run(results, key, REFERENCES[f"mesh layout {key}"], positions[key],
+                             counts[key], label)
+            traffic = results[0][key]["traffic"]
+            if DEVICE == "cuda" and (traffic["device_bytes"] < 1 or traffic["host_bytes"]
+                                     or traffic["staged_bytes"]):
+                raise AssertionError(f"{label}: the NCCL collectives moved host tensors ({traffic})")
+            log_rank_sort(results, key, label)
+            for name, n in sum_launches(results, key).items():
+                out[name][label] = n
+        # (b) and (d): Gloo, 4 ranks of one shard
+        results = launch_ranks("b", MESH_SHARDS, tmp)
+        for key in ("ACGT", "IUPAC"):
+            label = f"process mesh (b) Gloo {MESH_SHARDS} ranks x 1 shard, {key} 2^27 (31, 31)"
+            check_sorted_run(results, key, REFERENCES[f"mesh layout {key}"], positions[key],
+                             counts[key], label)
+            _, q_counts, q_canon = REFERENCES[f"queries {key}"]
+            for r in results:
+                res = r[key]
+                if res["gc"] != REFERENCES[f"gc {key}"]:
+                    raise AssertionError(f"{label}: the GC-filtered count differs from phase 15's")
+                if res["queries"] != (digest(q_counts), digest(q_canon)):
+                    raise AssertionError(f"{label}: count_queries differ from phase 14's counts")
+                large = r[f"{key} large"]
+                if large["rows"] != digest(positions[key]) or not np.array_equal(large["counts"], counts[key]):
+                    raise AssertionError(f"{label}: LargeKmers' rows or histogram differ from phase 18a's")
+                traffic = res["traffic"]
+                if DEVICE == "cuda" and (traffic["staged_bytes"] < 1 or traffic["device_bytes"]):
+                    raise AssertionError(f"{label}: Gloo moved card tensors unstaged ({traffic})")
+            log_rank_sort(results, key, label)
+            log(f"{label}: GC-filtered count {results[0][key]['gc']} ({results[0][key]['t_gc']:.4f} s), "
+                f"count_queries of {len(q_counts)} {results[0][key]['t_queries']:.4f} s, both equal to "
+                f"phases 15 and 14; LargeKmers (31, 31) sort " + ", ".join(
+                    f"rank {i} {r[f'{key} large']['seconds']:.4f} s" for i, r in enumerate(results))
+                + " equal to phase 18a's rows and histogram; steps of rank 0: "
+                + step_log(results[0][f"{key} large"]["steps"]))
+            for name, n in sum_launches(results, key).items():
+                out[name][label] = n
+            out["sort_lanes_cuda"][f"{label}, LargeKmers"] = sum_launches(
+                results, f"{key} large")["sort_lanes_cuda"]
+        label = f"process mesh (d) Gloo {MESH_SHARDS} ranks, ACGT suffix mode at {PROCESS_SUFFIX_BP} bp"
+        want_index, (want_counts, want_total) = suffix_ref
+        if not np.array_equal(np.load(tmp / "suffix-index.npy"), want_index):
+            raise AssertionError(f"{label}: the positions differ from one card's sort")
+        for rank, r in enumerate(results):
+            res = r["suffix"]
+            if not (np.array_equal(res["counts"], want_counts) and res["total"] == want_total):
+                raise AssertionError(f"{label}: the histogram at None differs from one card's")
+            later = res["round_seconds"][1:]
+            log(f"{label}, rank {rank}: sort(mesh) {res['seconds']:.4f} s in {res['rounds']} rounds "
+                f"({np.mean(later):.4f} s a round after the first) against one card's {t_single:.4f} s; "
+                f"steps: {step_log(res['steps'])}; {res['traffic']['staged_bytes']} bytes staged in "
+                f"{res['traffic']['staging_seconds']:.4f} s; peak {res['peak'] / 2**30:.3f} GiB")
+        log(f"{label}: {check_balance(results[0]['suffix']['info']['round_rows'], len(want_index), label)}; "
+            "positions and the histogram at None equal one card's")
+        for name, n in sum_launches(results, "suffix").items():
+            out[name][label] = n
+        # (c) Gloo, 2 ranks of 2 shards as make_mesh2(2, 2)
+        results = launch_ranks("c", 2, tmp)
+        label = "process mesh (c) Gloo make_mesh2(2, 2), a node a rank, ACGT 2^27 (31, 31)"
+        got = [d for r in results for d in r["ACGT"]["layout"]]
+        if got != REFERENCES["mesh2 layout ACGT"]:
+            raise AssertionError(f"{label}: the layouts differ from phase 17's make_mesh2(2, 2) layouts")
+        for r in results:
+            res = r["ACGT"]
+            if not (np.array_equal(res["counts"], counts["ACGT"]) and res["total"] == res["count"]):
+                raise AssertionError(f"{label}: the histogram differs from phase 4's")
+            ckpt = r["checkpoint"]
+            if ckpt["rows"] != digest(positions["ACGT"]) or not np.array_equal(ckpt["counts"], counts["ACGT"]):
+                raise AssertionError(f"{label}: the checkpoint loaded onto 2 ranks x 1 shard differs")
+        log_rank_sort(results, "ACGT", label)
+        log(f"{label}: sharded checkpoint saved in {results[0]['checkpoint']['t_save']:.4f} s, loaded onto "
+            f"2 ranks x 1 shard in {results[0]['checkpoint']['t_load']:.4f} s, the rows and histogram equal")
+        for name, n in sum_launches(results, "ACGT").items():
+            out[name][label] = n
+    if any(n < 1 for n in out["sort_lanes_cuda"].values()) or any(
+            n < 1 for label, n in out["pack_rank2_words_cuda"].items() if "ACGT" in label):
+        raise AssertionError(f"phase 19: a kernel did not launch on a path: {out}")
+    log(f"process mesh phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -2875,6 +3322,9 @@ def main() -> None:
     large_launches = phase_large(sc_acgt, sc_iupac, {"ACGT": pos_acgt, "IUPAC": pos_iupac},
                                  {"ACGT": counts31, "IUPAC": counts31_iupac}, canonical_ref,
                                  SEED + 18)
+    torch.cuda.empty_cache()
+    process_launches = phase_process_mesh(sc_acgt, sc_iupac, {"ACGT": pos_acgt, "IUPAC": pos_iupac},
+                                          {"ACGT": counts31, "IUPAC": counts31_iupac}, SEED + 19)
     del sc_acgt, sc_iupac, pos_acgt, pos_iupac, suffix_ref, beyond_ref
     torch.cuda.empty_cache()
     window_launches = phase_window_rounds(rng)
@@ -2897,7 +3347,8 @@ def main() -> None:
                                  **{k: v for k, v in query_launches.items() if "ACGT" in k},
                                  **mesh_launches["pack_rank2_words_cuda"],
                                  **persistence_launches,
-                                 **mesh17_launches["pack_rank2_words_cuda"]},
+                                 **mesh17_launches["pack_rank2_words_cuda"],
+                                 **process_launches["pack_rank2_words_cuda"]},
             **pack_timing,
         },
         {
@@ -2915,7 +3366,8 @@ def main() -> None:
                                  **{k: v for k, v in query_launches.items() if "IUPAC" in k},
                                  **mesh_launches["sort_lanes_cuda"],
                                  **mesh17_launches["sort_lanes_cuda"],
-                                 **large_launches},
+                                 **large_launches,
+                                 **process_launches["sort_lanes_cuda"]},
             **sort_timing,
         },
     ]}))
@@ -2927,4 +3379,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:
+        rank_main(sys.argv[2:])
+    else:
+        main()

@@ -54,6 +54,12 @@ def _collection(sba, seg_starts, record_names, source_strand: str, device) -> Se
     return sc
 
 
+def _check_shards(mesh_positions, mesh_pad, mesh) -> None:
+    n = mesh.n_shards
+    if len(mesh_positions) != n or len(mesh_pad) != n:
+        raise ValueError(f"the layout has {len(mesh_positions)} shards, the mesh {n}")
+
+
 def from_numpy_state(
     sba,
     seg_starts,
@@ -100,7 +106,11 @@ def from_numpy_state(
     on a pad), and ``mesh_gid``, for a sort beyond one compare window
     (``max_kmer_len`` None included), each shard's converged run ids, the
     group identity at ``max_kmer_len``. The mesh statistics and queries
-    then read that layout with no sort."""
+    then read that layout with no sort. Any layout whose valid rows are a
+    prefix of each shard in global order serves: the JAX package's mesh
+    layout (pad tails of any length, the refinement rounds' too) or the
+    port's. On a process mesh the lists hold every shard (the JAX
+    package's host arrays) and each rank keeps its own."""
     sc = _collection(sba, seg_starts, record_names, source_strand, device)
     if source_strand == "forward":
         km = Kmers(sc, min_kmer_len=min_kmer_len, max_kmer_len=max_kmer_len)
@@ -112,14 +122,15 @@ def from_numpy_state(
     if mesh is not None:
         if positions is not None or words is not None or cap is not None or suffix_gid is not None:
             raise ValueError("a mesh index is given by its layout alone (mesh_positions, mesh_pad)")
-        if len(mesh_positions) != len(mesh.devices) or len(mesh_pad) != len(mesh.devices):
-            raise ValueError(f"the layout has {len(mesh_positions)} shards, the mesh "
-                             f"{len(mesh.devices)}")
-        pos = [_lane(p, dev) for p, dev in zip(mesh_positions, mesh.devices)]
-        pad = [torch.from_numpy(np.asarray(p) != 0).to(dev) for p, dev in zip(mesh_pad, mesh.devices)]
-        gid = None if mesh_gid is None else [_lane(g, dev) for g, dev in zip(mesh_gid, mesh.devices)]
+        _check_shards(mesh_positions, mesh_pad, mesh)
+        n_real = int(sum(int((np.asarray(p) == 0).sum()) for p in mesh_pad))
+        pos = [_lane(mesh_positions[p], dev) for p, dev in zip(mesh.shard_ids, mesh.devices)]
+        pad = [torch.from_numpy(np.asarray(mesh_pad[p]) != 0).to(dev)
+               for p, dev in zip(mesh.shard_ids, mesh.devices)]
+        gid = None if mesh_gid is None else [
+            _lane(mesh_gid[p], dev) for p, dev in zip(mesh.shard_ids, mesh.devices)]
         km._dist_cache = _DistIndexCache(
-            mesh, pos, pad, int(sum(int((~p).sum()) for p in pad)), gid_full=gid,
+            mesh, pos, pad, n_real, gid_full=gid,
             gid_full_k=max_kmer_len if gid is not None else None,
         )
         km._pos_dev = km._pos_host = km._init_geometry = None
@@ -201,14 +212,14 @@ def large_from_numpy_state(
         if mesh_positions is not None or mesh_pad is not None:
             raise ValueError("a sorted layout needs the mesh it lies on")
         return lk
-    if len(mesh_positions) != len(mesh.devices) or len(mesh_pad) != len(mesh.devices):
-        raise ValueError(f"the layout has {len(mesh_positions)} shards, the mesh "
-                         f"{len(mesh.devices)}")
+    _check_shards(mesh_positions, mesh_pad, mesh)
     pos = [
-        torch.from_numpy(np.ascontiguousarray(p, dtype=np.uint64).view(np.int64)).to(dev)
-        for p, dev in zip(mesh_positions, mesh.devices)
+        torch.from_numpy(np.ascontiguousarray(mesh_positions[p], dtype=np.uint64).view(np.int64)).to(dev)
+        for p, dev in zip(mesh.shard_ids, mesh.devices)
     ]
-    pad = [torch.from_numpy(np.asarray(p) != 0).to(dev) for p, dev in zip(mesh_pad, mesh.devices)]
-    lk._sorted = (pos, pad, mesh, int(sum(int((~p).sum()) for p in pad)), None)
+    pad = [torch.from_numpy(np.asarray(mesh_pad[p]) != 0).to(dev)
+           for p, dev in zip(mesh.shard_ids, mesh.devices)]
+    n_real = int(sum(int((np.asarray(p) == 0).sum()) for p in mesh_pad))
+    lk._sorted = (pos, pad, mesh, n_real, None)
     lk._is_sorted = True
     return lk

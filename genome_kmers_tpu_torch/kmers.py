@@ -34,13 +34,17 @@ strand, the reverse complement or both (``Kmers.from_strand``):
   package's schema: a file either package writes loads into the other),
   ``get_kmers_full_arrays`` and ``to_csv`` (byte for byte the JAX
   package's output, through the native row decoders);
-* a single-process mesh (parallel/; 1-D, or 2-D ``(node, local)``) at any
+* a mesh (parallel/; 1-D, or 2-D ``(node, local)``; within one process or
+  spanning the processes of ``torch.distributed``) at any
   ``max_kmer_len``: ``sort(mesh=)`` by the sample sort, or beyond one
   compare window by its refinement rounds, whose ragged layout (and run
-  ids) the index keeps (``_DistIndexCache``); ``get_kmer_count`` /
-  ``get_kmer_group_counts`` at any ``kmer_len``, ``count_queries`` /
-  ``count_queries_canonical`` and ``get_canonical_kmer_group_counts`` with
-  ``mesh=``.
+  ids) the index keeps (``_DistIndexCache``: on a process mesh this rank's
+  shards; the host index ``kmer_sba_start_indices`` gathers every rank's);
+  ``get_kmer_count`` / ``get_kmer_group_counts`` at any ``kmer_len``,
+  ``count_queries`` / ``count_queries_canonical`` and
+  ``get_canonical_kmer_group_counts`` with ``mesh=``. On a process mesh
+  every rank holds the whole collection and makes the same calls, as in
+  the JAX package; the answers come back the same on every rank.
 
 The module-level functions (``compare_sba_kmers_lexicographically``,
 ``kmer_info_by_group_generator``, ``get_kmer_group_size_hist``, ...) are the
@@ -122,7 +126,7 @@ from .parallel import (
     sample_sort_positions_ragged,
     sample_sort_positions_unbounded,
 )
-from .parallel.collectives import replicate
+from .parallel.collectives import all_gather_shards, replicate
 from .parallel.distributed import shard_evenly
 from .parallel.sample_sort import ragged_rows
 from .sequence_collection import (
@@ -835,9 +839,10 @@ class Kmers:
 
     def _ragged_to_host(self) -> np.ndarray:
         """The kept mesh layout compacted to a host uint32 array (global
-        sorted order, pads removed)."""
+        sorted order, pads removed; every rank's shards on a process
+        mesh)."""
         cache = self._dist_cache
-        out = ragged_rows(cache.positions, cache.is_pad)
+        out = ragged_rows(cache.positions, cache.is_pad, cache.mesh)
         if out.shape[0] != cache.n_real:
             raise AssertionError(
                 f"the mesh layout holds {out.shape[0]} rows, the index {cache.n_real}"
@@ -1600,20 +1605,30 @@ class Kmers:
         route: its raise check shard by shard in shard order over the valid
         rows only (``FilterContext.valid_rows``), so the first offending row
         in global sorted order raises, as in the reference's walk; then its
-        survivor mask per shard. Pad rows read position 0 here."""
+        survivor mask per shard. Pad rows read position 0 here. On a
+        process mesh the check runs over every rank's rows gathered in
+        shard order (the JAX package's ``process_allgather``), so every
+        rank raises the same error."""
         dc = self._dc()
         shared = {}
-        ctxs = []
-        for p, (pos, pad) in enumerate(zip(positions, is_pad)):
-            scans = _ShardScans(dc, mesh, p, shared)
+
+        def context(i, pos, pad):
+            scans = _ShardScans(dc, mesh, i, shared)
             pos = torch.where(pad, 0, pos)
             valid_len = compute_valid_len(pos, scans.seg_starts, scans.seg_ends)
-            ctx = FilterContext(
+            return FilterContext(
                 self._host_sba(), pos, valid_len, sba_dev=lambda s=scans: s.sba,
                 valid_rows=~pad, scans=scans,
             )
-            kmer_filter_func.check_batch(ctx)
-            ctxs.append(ctx)
+
+        ctxs = [context(i, pos, pad) for i, (pos, pad) in enumerate(zip(positions, is_pad))]
+        if mesh.group is None:
+            for ctx in ctxs:
+                kmer_filter_func.check_batch(ctx)
+        else:
+            dev = mesh.devices[0]
+            every = lambda xs: torch.cat([x.to(dev) for x in all_gather_shards(list(xs), mesh)])  # noqa: E731
+            kmer_filter_func.check_batch(context(0, every(positions), every(is_pad)))
         return [kmer_filter_func.mask_pure(ctx) for ctx in ctxs]
 
     # ------------------------------------------------------------------ #

@@ -18,8 +18,10 @@ the refinement rounds and keeps the converged run ids. A
 ``both_strands=True`` index also takes ``track_strands_separately``.
 
 The mesh decides where the work runs: ``make_mesh()`` takes the CUDA cards
-(and raises without one), ``make_mesh(n, devices=["cpu"] * n)`` the CPU.
-The strided pack is uploaded to the mesh's devices once and kept there.
+(and raises without one), ``make_mesh(n, devices=["cpu"] * n)`` the CPU;
+under ``torch.distributed`` the mesh spans the processes, every rank holds
+the whole pack and sorts its own shards. The strided pack is uploaded to
+the mesh's devices once and kept there.
 """
 
 from __future__ import annotations
@@ -315,8 +317,8 @@ class LargeKmers:
 
         if not self._is_sorted:
             raise ValueError("LargeKmers must be sorted first. Run sort(mesh).")
-        positions, is_pad, _, n_real, _ = self._sorted
-        out = large_rows(positions, is_pad)
+        positions, is_pad, mesh, n_real, _ = self._sorted
+        out = large_rows(positions, is_pad, mesh)
         assert out.shape[0] == n_real
         return out
 
@@ -412,12 +414,12 @@ class LargeKmers:
             return True
         if self.min_kmer_len > self._lanes_k:
             return False  # the cap lane saturates below min_kmer_len
-        _, is_pad, _, _, _ = self._sorted
+        from .parallel.collectives import gather_host
+
+        _, is_pad, mesh, _, _ = self._sorted
         caps = [widen_u32(shard[-1])[~pad] for shard, pad in zip(self._ensure_lanes(), is_pad)]
-        caps = [c for c in caps if c.shape[0]]
-        if not caps:
-            return True
-        return min(int(c.min()) for c in caps) >= self.min_kmer_len
+        least = [int(c.min()) if c.shape[0] else self.min_kmer_len for c in caps]
+        return int(gather_host(least, mesh).min()) >= self.min_kmer_len
 
     def _filter_mask(self, kmer_filter_func, kmer_len):
         """Survivor mask per shard of a library filter, evaluated on the

@@ -556,7 +556,10 @@ def homopoly_lanes_flags2(words, cap, positions, params):
 def homopoly_lanes_flags4(words, cap, positions, params):
     """Homopolymer filter on 4-bit lanes (built_k <= 32, so the eq stream
     fits 32 bits). params: [k_f, max_h, overflow_thr, short_circuit]. Raise
-    semantics as in ``homopoly_lanes_flags2``."""
+    semantics as in ``homopoly_lanes_flags2``. A row's cap counts its kept
+    nonzero nibbles only; the JAX package also counts the nibbles past
+    ``k_f`` (set to 0xF), so on lanes built longer than ``k_f`` a truncated
+    row's raise can be missed there (ROADMAP.md §C2)."""
     del cap
     k, max_h, thr, short = (int(p) for p in params)
     overflow = positions >= thr
@@ -568,9 +571,10 @@ def homopoly_lanes_flags4(words, cap, positions, params):
     prev_w = None
     for i, w in enumerate(words):
         w = widen_u32(w)
-        nz = _nib_nonzero_bits(_kept4(w, _lanes_keep_mask(k, i, 8, 4)))
+        keep = _lanes_keep_mask(k, i, 8, 4)
+        nz = _nib_nonzero_bits(_kept4(w, keep))
         trunc |= nz != 0x11111111
-        capv += popcount32(nz)
+        capv += popcount32(nz & keep & 0x11111111)
         eqnib = _nib_nonzero_bits(w ^ (w >> 4)) ^ 0x11111111  # bit (28 - 4j)
         c = _compress_even_bits(_compress_even_bits(eqnib)) & 0x7F  # bit (7 - j)
         if prev_w is not None:

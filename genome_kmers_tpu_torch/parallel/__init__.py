@@ -1,4 +1,4 @@
-"""The sorted k-mer index on a single-process mesh.
+"""The sorted k-mer index on a mesh, within one process or across processes.
 
 Counterpart of ``genome_kmers_tpu/parallel``: the 1-D mesh (``make_mesh``)
 and the 2-D ``(node, local)`` mesh (``make_mesh2``), the sample sorts
@@ -6,11 +6,13 @@ and the 2-D ``(node, local)`` mesh (``make_mesh2``), the sample sorts
 window), the stitched group statistics, count queries and checkpoints, and
 their ``*_large*`` variants over a strided pack and int64 positions, which
 ``LargeKmers`` runs (``large.py`` holds its statistics). The collectives are
-plain functions over lists of per-shard tensors (``collectives.py``).
+functions over lists of per-shard tensors (``collectives.py``): plain moves
+within one process, a ``torch.distributed`` process group (NCCL on cards,
+Gloo through the host) where the mesh spans processes, the counterpart of
+the JAX package's ``jax.distributed`` meshes.
 
 Not ported here: the odd-even merge sort ``distributed_sort_positions``
-(ROADMAP.md: not to be ported); multi-process runs over
-``torch.distributed`` (ROADMAP.md A14).
+(ROADMAP.md: not to be ported).
 """
 
 from .checkpoint import (
@@ -31,6 +33,7 @@ from .distributed import (
     make_mesh,
     mesh_lanes_filter_flags,
     mesh_size,
+    process_group,
 )
 from .hier import make_mesh2, sample_sort_positions_ragged_hier
 from .large import (
@@ -74,6 +77,7 @@ __all__ = [
     "make_mesh2",
     "mesh_lanes_filter_flags",
     "mesh_size",
+    "process_group",
     "rebuild_large_lanes",
     "sample_sort_canonical_dense_ragged",
     "sample_sort_canonical_large_ragged",

@@ -12,6 +12,13 @@ caller's keys plus ``__n_real__`` (the index length) and ``__arrays__``
 (each array's shape and dtype). The position array is padded to a multiple
 of 1024 with 0xFFFFFFF0, as the JAX package pads it so that any mesh of up
 to 1024 shards can take it in equal blocks.
+
+Where ``torch.distributed`` is initialised every rank calls save and load:
+a save gathers what a process mesh holds across ranks, one writer (rank 0)
+writes the files, and a barrier holds every rank until they are written
+(the JAX package's one writer plus ``sync_global_devices``), so a save on a
+process mesh writes the files of a single-process save of the same index;
+a load reads them on every rank and keeps this rank's shards.
 """
 
 from __future__ import annotations
@@ -21,9 +28,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from .collectives import put_sharded, replicate
-from .distributed import compact_ragged
+from .collectives import all_gather_shards, put_sharded, replicate
+from .distributed import compact_ragged, process_group
 
 _META_NAME = "gkt_meta.json"
 _PAD_MULTIPLE = 1024
@@ -44,11 +52,25 @@ def _as_uint32(values) -> np.ndarray:
     return values.astype(np.uint32)
 
 
-def save_sharded_index(path, sorted_positions, meta: dict, packed_genome=None) -> None:
+def _one_writer(write) -> None:
+    """``write()`` on one process (rank 0 where ``torch.distributed`` is
+    initialised), then a barrier: no rank reads before the files exist."""
+    group = process_group()
+    if group is None or dist.get_rank(group) == 0:
+        write()
+    if group is not None:
+        dist.barrier(group=group)
+
+
+def save_sharded_index(path, sorted_positions, meta: dict, packed_genome=None,
+                       mesh=None) -> None:
     """Write a sorted index (a tensor, a list of per-shard tensors in
     global order, or an array) and ``meta`` to the directory ``path``;
-    ``packed_genome`` (uint32 words) is written beside it when given."""
+    ``packed_genome`` (uint32 words) is written beside it when given. A
+    list of a process ``mesh``'s shards is gathered from every rank."""
     path = Path(path).absolute()
+    if mesh is not None and isinstance(sorted_positions, (list, tuple)):
+        sorted_positions = all_gather_shards(list(sorted_positions), mesh)
     positions = _as_uint32(sorted_positions)
     n_real = int(positions.shape[0])
     n_pad = max(-(-n_real // _PAD_MULTIPLE) * _PAD_MULTIPLE, _PAD_MULTIPLE)
@@ -59,15 +81,19 @@ def save_sharded_index(path, sorted_positions, meta: dict, packed_genome=None) -
     tree = {"sorted_positions": positions}
     if packed_genome is not None:
         tree["packed_genome"] = _as_uint32(packed_genome)
-    arrays = path / "arrays"
-    arrays.mkdir(parents=True, exist_ok=True)
-    for name, a in tree.items():
-        np.save(arrays / f"{name}.npy", a)
     meta = dict(meta)
     meta["__n_real__"] = n_real
     meta["__arrays__"] = {
         name: {"shape": list(a.shape), "dtype": str(a.dtype)} for name, a in tree.items()
     }
+    _one_writer(lambda: _write(path, tree, meta))
+
+
+def _write(path: Path, tree: dict, meta: dict) -> None:
+    arrays = path / "arrays"
+    arrays.mkdir(parents=True, exist_ok=True)
+    for name, a in tree.items():
+        np.save(arrays / f"{name}.npy", a)
     (path / _META_NAME).write_text(json.dumps(meta))
 
 
@@ -76,7 +102,8 @@ def load_sharded_index(path, mesh=None):
     ``mesh`` the positions come back cut into equal shards (a list, one
     tensor a shard) and the genome replicated (a list); without, both are
     host arrays. The positions keep their padding: ``meta["__n_real__"]``
-    is the index length."""
+    is the index length. On a process mesh each rank reads the files and
+    keeps its own shards."""
     path = Path(path).absolute()
     meta = json.loads((path / _META_NAME).read_text())
     arrays_info = meta.pop("__arrays__", {"sorted_positions": None})
@@ -114,6 +141,7 @@ def save_kmers_sharded(kmers, path, include_genome: bool = False) -> None:
         "num_kmers": int(len(kmers)),
     }
     genome = kmers._dc().packed if include_genome else None
+    # on a process mesh the host index is every rank's layout gathered
     save_sharded_index(path, kmers.kmer_sba_start_indices, meta, packed_genome=genome)
 
 
@@ -133,6 +161,8 @@ def load_kmers_sharded(kmers, path, mesh=None) -> dict:
             f"checkpoint has {meta['num_kmers']} kmers, this Kmers has {len(kmers)}"
         )
     n_real = int(meta["__n_real__"])
+    if mesh is not None and mesh.group is not None:
+        sorted_pos = all_gather_shards(sorted_pos, mesh)
     host = _as_uint32(sorted_pos)
     kmers.kmer_sba_start_indices = host[:n_real]
     kmers._is_sorted = bool(meta["_is_sorted"])
@@ -144,9 +174,12 @@ def save_large_kmers(lk, path) -> None:
     uint32 arrays ``pos_hi`` / ``pos_lo`` and the pad flags ``is_pad``
     (uint32), the shards concatenated in order and padded to a multiple of
     1024 rows with pad rows, beside the JAX package's metadata. The pack
-    and segment tables are the constructor's inputs and are not written."""
+    and segment tables are the constructor's inputs and are not written. A
+    layout on a process mesh is gathered from every rank, pads included."""
     path = Path(path).absolute()
-    positions, is_pad, _, n_real, _ = lk._sorted
+    positions, is_pad, mesh, n_real, _ = lk._sorted
+    if mesh.group is not None:
+        positions, is_pad = all_gather_shards(positions, mesh), all_gather_shards(is_pad, mesh)
     pos = np.concatenate([x.cpu().numpy() for x in positions]).view(np.uint64)
     pad = np.concatenate([x.cpu().numpy() for x in is_pad]).astype(np.uint32)
     n_rows = int(pos.shape[0])
@@ -171,11 +204,7 @@ def save_large_kmers(lk, path) -> None:
             name: {"shape": list(a.shape), "dtype": str(a.dtype)} for name, a in tree.items()
         },
     }
-    arrays = path / "arrays"
-    arrays.mkdir(parents=True, exist_ok=True)
-    for name, a in tree.items():
-        np.save(arrays / f"{name}.npy", a)
-    (path / _META_NAME).write_text(json.dumps(meta))
+    _one_writer(lambda: _write(path, tree, meta))
 
 
 def load_large_kmers(lk, path, mesh) -> dict:

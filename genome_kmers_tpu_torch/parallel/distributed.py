@@ -1,14 +1,22 @@
-"""The single-process mesh, and group statistics over a sharded sorted index.
+"""The mesh, and group statistics over a sharded sorted index.
 
 Counterpart of ``genome_kmers_tpu/parallel/distributed.py``. The JAX package
-runs one controller over a ``jax.sharding.Mesh`` of ``shard_map`` bodies;
-the port's mesh is single-process: an ordered list of ``torch.device``s, one
-a shard (``make_mesh``), a sharded array is a list of per-shard tensors, and
-the collectives are the plain functions of ``collectives.py``. On the CPU
-``make_mesh(8, devices=["cpu"] * 8)`` stands where the JAX tests put XLA's 8
-virtual CPU devices; on one card ``make_mesh(4, devices=["cuda:0"] * 4)``
-runs the sharded code, exchange included, on that card; on a host with
-more cards one shard goes to each.
+runs one controller over a ``jax.sharding.Mesh`` of ``shard_map`` bodies,
+within one process or over the processes of ``jax.distributed``. The port's
+mesh is an ordered list of ``torch.device``s, one a shard (``make_mesh``),
+a sharded array is a list of per-shard tensors, and the collectives are
+the functions of ``collectives.py``. On the CPU ``make_mesh(8,
+devices=["cpu"] * 8)`` stands where the JAX tests put XLA's 8 virtual CPU
+devices; on one card ``make_mesh(4, devices=["cuda:0"] * 4)`` runs the
+sharded code, exchange included, on that card; on a host with more cards
+one shard goes to each.
+
+Where ``torch.distributed`` is initialised, ``make_mesh`` builds a process
+mesh: each rank names its own devices (its local shards), the mesh spans
+every rank's shards in rank order (the process-major order of the JAX
+package's ``jax.devices()``), each rank holds and computes its own shards
+only, and the collectives move data between ranks over the process group
+(NCCL for card tensors, one rank a card; Gloo through the host).
 
 Group statistics stitch across shard edges as the JAX package does: each
 shard compares its first row with the last valid row of the nearest
@@ -30,14 +38,16 @@ Not ported here: the odd-even merge sort (``distributed_sort_positions``).
 from __future__ import annotations
 
 import math
+import os
 
 import torch
+import torch.distributed as dist
 
 from ..ops.groups import fold_err_conditions
 from ..ops.keys import build_key2_words, build_key_words, cap_lengths, compute_valid_len
 from ..ops.sort import _masked
 from ..sequence_collection import resolve_device
-from .collectives import all_gather, psum, put_sharded, replicate
+from .collectives import all_gather, gather_host, psum, put_sharded, replicate
 
 AXIS = "kmers"  # mesh axis name: position-sharded data parallelism
 _PAD_POS = 0xFFFFFFF0  # padding position of an evenly sharded index (JAX ops/sort._PAD_POS)
@@ -45,21 +55,38 @@ _BIG = 1 << 62  # "no boundary here": above every counted-row index
 
 
 class Mesh:
-    """A single-process mesh: ``devices[p]`` holds shard ``p`` (several
-    shards may share one device). One axis by default; ``axis_names`` and
-    ``axis_sizes`` name more, the shards then in row-major order over them
-    (``hier.make_mesh2``: ``("node", "local")``). Two meshes are equal when
-    they list the same devices in the same order over the same axes."""
+    """A mesh of shards: ``devices[i]`` holds this process's local shard
+    ``i``, global shard ``first + i`` (several shards may share one
+    device). Within one process (``group`` None) every shard is local. With
+    ``group``, a ``torch.distributed`` process group whose every rank holds
+    as many shards, the mesh spans ``n_ranks * len(devices)`` shards in rank
+    order and this rank's are ``shard_ids``. One axis by default;
+    ``axis_names`` and ``axis_sizes`` name more, the shards then in
+    row-major order over them (``hier.make_mesh2``: ``("node", "local")``).
+    Two meshes are equal when they list the same devices in the same order
+    over the same axes and group."""
 
-    def __init__(self, devices, axis_names=(AXIS,), axis_sizes=None):
+    def __init__(self, devices, axis_names=(AXIS,), axis_sizes=None, group=None):
         self.devices = tuple(resolve_device(d) for d in devices)
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
+        self.group = group
+        self.n_ranks = 1 if group is None else dist.get_world_size(group)
+        self.rank = 0 if group is None else dist.get_rank(group)
+        self.n_shards = len(self.devices) * self.n_ranks
+        self.first = self.rank * len(self.devices)
+        self.shard_ids = range(self.first, self.first + len(self.devices))
+        # where a collective's tensors travel: the card under NCCL, the
+        # host under Gloo
+        self.comm_device = None
+        if group is not None:
+            on_card = dist.get_backend(group) == "nccl"
+            self.comm_device = self.devices[0] if on_card else torch.device("cpu")
         self.axis_names = tuple(axis_names)
-        sizes = (len(self.devices),) if axis_sizes is None else tuple(int(a) for a in axis_sizes)
-        if len(sizes) != len(self.axis_names) or math.prod(sizes) != len(self.devices):
+        sizes = (self.n_shards,) if axis_sizes is None else tuple(int(a) for a in axis_sizes)
+        if len(sizes) != len(self.axis_names) or math.prod(sizes) != self.n_shards:
             raise ValueError(
-                f"axes {self.axis_names} of sizes {sizes} do not hold {len(self.devices)} devices"
+                f"axes {self.axis_names} of sizes {sizes} do not hold {self.n_shards} shards"
             )
         self.shape = dict(zip(self.axis_names, sizes))
 
@@ -68,13 +95,15 @@ class Mesh:
             isinstance(other, Mesh)
             and self.devices == other.devices
             and self.shape == other.shape
+            and self.group is other.group
         )
 
     def __hash__(self):
         return hash((self.devices, self.axis_names))
 
     def __repr__(self):
-        return f"Mesh({[str(d) for d in self.devices]}, {self.shape})"
+        ranks = "" if self.group is None else f", rank {self.rank} of {self.n_ranks}"
+        return f"Mesh({[str(d) for d in self.devices]}, {self.shape}{ranks})"
 
 
 def visible_cards(n: int | None, caller: str) -> list:
@@ -93,19 +122,46 @@ def visible_cards(n: int | None, caller: str) -> list:
     return devices
 
 
+def process_group():
+    """The default ``torch.distributed`` group where it is initialised (a
+    mesh built now spans its processes), else None."""
+    return dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
+
+
+def rank_card(caller: str) -> list:
+    """This rank's card, ``cuda:<local rank>`` (``LOCAL_RANK`` where the
+    launcher sets it, else the rank modulo the visible cards); raises
+    without CUDA."""
+    cards = visible_cards(None, caller)
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank() % len(cards)))
+    return [cards[local]]
+
+
 def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
     """1-D mesh over the position-sharding axis. ``devices`` (any
     ``torch.device`` specs, repeats allowed) are taken as given; without
     them the mesh takes the visible CUDA cards, the first ``n_devices`` of
-    them where it is given, and raises without CUDA."""
-    if devices is None:
-        devices = visible_cards(n_devices, "make_mesh")
-    return Mesh(devices)
+    them where it is given, and raises without CUDA.
+
+    Where ``torch.distributed`` is initialised the mesh spans its processes:
+    ``devices`` are this rank's own (every rank names as many), by default
+    its card ``cuda:<local rank>``, and ``n_devices``, where given, must be
+    the mesh's shard count over all ranks."""
+    group = process_group()
+    if group is None:
+        if devices is None:
+            devices = visible_cards(n_devices, "make_mesh")
+        return Mesh(devices)
+    mesh = Mesh(rank_card("make_mesh") if devices is None else devices, group=group)
+    if n_devices is not None and n_devices != mesh.n_shards:
+        raise ValueError(f"make_mesh: {n_devices} shards asked for, the process mesh has "
+                         f"{mesh.n_shards} ({mesh.n_ranks} ranks of {len(mesh.devices)})")
+    return mesh
 
 
 def mesh_size(mesh: Mesh) -> int:
-    """Number of shards."""
-    return len(mesh.devices)
+    """Number of shards, over all ranks of a process mesh."""
+    return mesh.n_shards
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -162,14 +218,14 @@ def _last_rows(shard: tuple, n_valid: torch.Tensor) -> torch.Tensor:
 
 
 def _halo_preds(valid: list, mesh: Mesh) -> list:
-    """For each shard p, the nearest q < p whose shard has a valid row, as
-    a 0-dim tensor on shard p's device (-1 if none), and the valid-row
-    counts of all shards on every shard."""
+    """For each local shard (global shard p), the nearest q < p whose shard
+    has a valid row, as a 0-dim tensor on the shard's device (-1 if
+    none)."""
     all_n_valid = all_gather([v.sum() for v in valid], mesh)
     preds = []
-    for p in range(mesh_size(mesh)):
-        dev = all_n_valid[p].device
-        cand = torch.where(all_n_valid[p][:p] > 0, torch.arange(p, device=dev), -1)
+    for i, p in enumerate(mesh.shard_ids):
+        dev = all_n_valid[i].device
+        cand = torch.where(all_n_valid[i][:p] > 0, torch.arange(p, device=dev), -1)
         preds.append(cand.max() if p else torch.tensor(-1, device=dev))
     return preds
 
@@ -179,21 +235,21 @@ def _halo_adjacent_eq(lanes: list, valid: list, mesh: Mesh) -> list:
     i of a shard equals row i - 1 in every lane (valid rows form each
     shard's prefix, so row i - 1 of a valid row is its true predecessor),
     and row 0 compares with the last valid row of the nearest previous
-    shard that has one (False where there is none). ``lanes[p]`` is shard
-    p's tuple of lanes, any integer or bool dtypes; a shard may have no
+    shard that has one (False where there is none). ``lanes[i]`` is local
+    shard i's tuple of lanes, any integer or bool dtypes; a shard may have no
     rows."""
     n_valid = [v.sum() for v in valid]
     all_last = all_gather([_last_rows(shard, nv) for shard, nv in zip(lanes, n_valid)], mesh)
     preds = _halo_preds(valid, mesh)
     out = []
-    for p, shard in enumerate(lanes):
+    for i, shard in enumerate(lanes):
         eq = torch.ones(shard[0].shape[0], dtype=torch.bool, device=shard[0].device)
         for lane in shard:
             eq[1:] &= lane[1:] == lane[:-1]
         if eq.shape[0]:
-            pred = preds[p]
+            pred = preds[i]
             first = torch.stack([lane[0].to(torch.int64) for lane in shard])
-            eq[:1] = (first == all_last[p][torch.clamp_min(pred, 0)]).all() & (pred >= 0)
+            eq[:1] = (first == all_last[i][torch.clamp_min(pred, 0)]).all() & (pred >= 0)
         out.append(eq)
     return out
 
@@ -206,12 +262,12 @@ def _halo_prev_flag(flag: list, valid: list, mesh: Mesh) -> list:
     all_last = all_gather([_last_rows((f,), nv)[0] for f, nv in zip(flag, n_valid)], mesh)
     preds = _halo_preds(valid, mesh)
     out = []
-    for p, f in enumerate(flag):
+    for i, f in enumerate(flag):
         prev = torch.zeros_like(f)
         prev[1:] = f[:-1]
         if f.shape[0]:
-            pred = preds[p]
-            prev[:1] = (all_last[p][torch.clamp_min(pred, 0)] != 0) & (pred >= 0)
+            pred = preds[i]
+            prev[:1] = (all_last[i][torch.clamp_min(pred, 0)] != 0) & (pred >= 0)
         out.append(prev)
     return out
 
@@ -229,7 +285,7 @@ def _dist_sizes_digest(words_fn, positions, cap_len, is_pad, min_gs, max_gs, str
     ``boundary`` marks the first valid row of every group, those with no
     counted row too. Identity lanes: the run ids ``ext_gid`` where given
     (they encode the ends of the k-mers too), else the key words
-    (``words_fn(p, positions, caps, n_words)`` of shard p, or the retained
+    (``words_fn(i, positions, caps, n_words)`` of local shard i, or the retained
     ``sorted_words`` masked to ``keep_bits`` bits of the last word) and the
     cap on 2-bit keys; and the strand where ``strand_split`` is given."""
     n_dev = mesh_size(mesh)
@@ -237,29 +293,29 @@ def _dist_sizes_digest(words_fn, positions, cap_len, is_pad, min_gs, max_gs, str
     counted = valid if mask is None else [m & v for m, v in zip(mask, valid)]
     all_counted = all_gather([c.sum() for c in counted], mesh)
     lanes = []
-    for p in range(n_dev):
+    for i in range(len(valid)):
         if ext_gid is not None:
-            shard = (ext_gid[p],)
+            shard = (ext_gid[i],)
         else:
-            cap = torch.where(valid[p], cap_len[p], 0)
+            cap = torch.where(valid[i], cap_len[i], 0)
             if sorted_words is None:
-                words = words_fn(p, positions[p], cap, n_words)
+                words = words_fn(i, positions[i], cap, n_words)
             else:
-                words = list(sorted_words[p][:n_words])
+                words = list(sorted_words[i][:n_words])
                 if keep_bits < 32:
                     words[-1] = _masked(words[-1], (0xFFFFFFFF << (32 - keep_bits)) & 0xFFFFFFFF)
             shard = tuple(words) + ((cap,) if two_bit else ())
         if strand_split is not None:
-            shard += (positions[p] >= strand_split,)
+            shard += (positions[i] >= strand_split,)
         lanes.append(shard)
     eqs = _halo_adjacent_eq(lanes, valid, mesh)
     del lanes
     starts, vbs, firsts, boundaries = [], [], [], []
-    for p in range(n_dev):
-        boundary = ~eqs[p] & valid[p]
+    for i, p in enumerate(mesh.shard_ids):
+        boundary = ~eqs[i] & valid[i]
         boundaries.append(boundary)
-        c = counted[p].to(torch.int64)
-        offset = all_counted[p][:p].sum()
+        c = counted[i].to(torch.int64)
+        offset = all_counted[i][:p].sum()
         vidx = offset + torch.cumsum(c, dim=0) - c  # counted rows before each row, all shards
         b_idx = torch.nonzero(boundary).flatten()
         vb = vidx[b_idx]
@@ -268,16 +324,16 @@ def _dist_sizes_digest(words_fn, positions, cap_len, is_pad, min_gs, max_gs, str
         firsts.append(torch.cat([vb, vb.new_full((1,), _BIG)])[0])
     all_firsts = all_gather(firsts, mesh)
     sizes, qualifies, totals = [], [], []
-    for p in range(n_dev):
-        dev = positions[p].device
-        total_counted = all_counted[p].sum()
+    for i, p in enumerate(mesh.shard_ids):
+        dev = positions[i].device
+        total_counted = all_counted[i].sum()
         # first boundary of a later shard, or none (the end of the index)
-        after = all_firsts[p][p + 1 :].min() if p + 1 < n_dev else torch.tensor(_BIG, device=dev)
-        next_v = torch.cat([vbs[p][1:], after.view(1)])
-        size = torch.zeros(positions[p].shape[0], dtype=torch.int64, device=dev)
-        size[starts[p]] = torch.minimum(next_v, total_counted) - vbs[p]
-        q = torch.zeros_like(valid[p])
-        q[starts[p]] = True
+        after = all_firsts[i][p + 1 :].min() if p + 1 < n_dev else torch.tensor(_BIG, device=dev)
+        next_v = torch.cat([vbs[i][1:], after.view(1)])
+        size = torch.zeros(positions[i].shape[0], dtype=torch.int64, device=dev)
+        size[starts[i]] = torch.minimum(next_v, total_counted) - vbs[i]
+        q = torch.zeros_like(valid[i])
+        q[starts[i]] = True
         q &= size >= max(min_gs, 1)  # groups with no counted row never existed for the walk
         if max_gs is not None:
             q &= size <= max_gs
@@ -310,17 +366,16 @@ def mesh_lanes_filter_flags(words: list, positions: list, is_pad: list, params, 
     first in global sorted order, the row the reference's walk raises at."""
     ss, se = replicate(seg_starts, mesh), replicate(seg_ends, mesh)
     masks, digests = [], []
-    for p in range(mesh_size(mesh)):
-        valid = ~is_pad[p]
-        pos = torch.where(valid, positions[p], 0)
-        cap = cap_lengths(compute_valid_len(pos, ss[p], se[p]), built_k)
-        mask, errs = flags_fn(words[p], cap, pos, params)
+    for i, pad in enumerate(is_pad):
+        valid = ~pad
+        pos = torch.where(valid, positions[i], 0)
+        cap = cap_lengths(compute_valid_len(pos, ss[i], se[i]), built_k)
+        mask, errs = flags_fn(words[i], cap, pos, params)
         masks.append(mask & valid)
         digests.append(fold_err_conditions([e & valid for e in errs], pos))
     if digests[0] is None:
         return masks, []
-    for digest in digests:
-        values = digest.tolist()
+    for values in gather_host([d.cpu().numpy() for d in digests], mesh).tolist():
         if values[0]:
             return masks, values
     return masks, [0, 0, 0]
@@ -376,8 +431,8 @@ def distributed_group_size_histogram_ragged(
     genome = replicate(packed2 if two_bit else packed, mesh)
     ss, se = replicate(seg_starts, mesh), replicate(seg_ends, mesh)
     cap_len = [
-        cap_lengths(compute_valid_len(pos, ss[p], se[p]), kmer_len)
-        for p, pos in enumerate(sorted_positions)
+        cap_lengths(compute_valid_len(pos, ss[i], se[i]), kmer_len)
+        for i, pos in enumerate(sorted_positions)
     ]
     n_words = _cdiv(kmer_len, 16 if two_bit else 8)
     keep_bits = 32
@@ -386,7 +441,7 @@ def distributed_group_size_histogram_ragged(
             raise ValueError("sorted_words shorter than kmer_len requires")
         keep_bits = (2 if two_bit else 4) * kmer_len - 32 * (n_words - 1)
     size, qualifies, total, _ = _dist_sizes_digest(
-        lambda p, pos, cap, n: _words_for(genome[p], pos, cap, n, two_bit),
+        lambda i, pos, cap, n: _words_for(genome[i], pos, cap, n, two_bit),
         sorted_positions, cap_len, is_pad, min_group_size, max_group_size,
         strand_split, sorted_words, mask, None, n_words, two_bit, keep_bits, mesh,
     )

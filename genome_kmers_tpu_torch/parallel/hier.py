@@ -8,11 +8,17 @@ checkpoints); only the sample sort's exchange differs, the two stages of
 ``collectives.all_to_all``: one node-aggregated group of blocks a
 destination node over the ``node`` axis, then the fan-out over ``local``.
 The layouts are the flat mesh's byte for byte.
+
+Where ``torch.distributed`` is initialised the ``node`` axis is the
+process, as in the JAX package's multi-process meshes: rank ``n`` holds
+shards ``(n, 0) .. (n, n_local - 1)``, stage A is one all-to-all over the
+ranks carrying one aggregated message a pair of nodes, and stage B is each
+rank's local moves.
 """
 
 from __future__ import annotations
 
-from .distributed import Mesh, visible_cards
+from .distributed import Mesh, process_group, rank_card, visible_cards
 from .sample_sort import N_SAMPLES, CAPACITY_FACTOR, sample_sort_positions_ragged
 
 AXES = ("node", "local")
@@ -21,10 +27,27 @@ AXES = ("node", "local")
 def make_mesh2(n_nodes: int, n_local: int, devices=None) -> Mesh:
     """2-D ``(node, local)`` mesh over the first ``n_nodes * n_local`` of
     ``devices`` (any ``torch.device`` specs, repeats allowed), row-major;
-    without them over the visible CUDA cards, raising without CUDA."""
-    n = n_nodes * n_local
-    devices = visible_cards(n, "make_mesh2") if devices is None else list(devices)[:n]
-    return Mesh(devices, AXES, (n_nodes, n_local))
+    without them over the visible CUDA cards, raising without CUDA.
+
+    Where ``torch.distributed`` is initialised a node is a process:
+    ``n_nodes`` must be the world size and ``devices`` are this rank's
+    ``n_local`` devices (by default its card, where ``n_local`` is 1)."""
+    group = process_group()
+    if group is None:
+        n = n_nodes * n_local
+        devices = visible_cards(n, "make_mesh2") if devices is None else list(devices)[:n]
+        return Mesh(devices, AXES, (n_nodes, n_local))
+    if devices is None:
+        if n_local != 1:
+            raise ValueError("make_mesh2 on a process mesh: name this rank's n_local devices")
+        devices = rank_card("make_mesh2")
+    devices = list(devices)
+    if len(devices) != n_local:
+        raise ValueError(f"make_mesh2: {len(devices)} devices for {n_local} local shards")
+    mesh = Mesh(devices, AXES, (n_nodes, n_local), group=group)
+    if mesh.n_ranks != n_nodes:
+        raise ValueError(f"make_mesh2: {n_nodes} nodes on {mesh.n_ranks} processes (a node is a process)")
+    return mesh
 
 
 def sample_sort_positions_ragged_hier(

@@ -6,7 +6,8 @@ ragged with trailing pads (the sample sort's layout), so a k-mer's count is
 the sum of its per-shard counts: every shard runs the lower and upper bound
 search of ops/query.py over its rows, with a pad flag as the leading key so
 that the trailing pads compare above every query, and one ``psum`` adds the
-shards' counts. ``distributed_count_queries_large`` searches a large index
+shards' counts (over every rank of a process mesh: the counts come back the
+same on each). ``distributed_count_queries_large`` searches a large index
 (``LargeKmers``: a strided pack, int64 positions) in the key space of its
 sort, 2-bit or 4-bit, and returns uint64 counts.
 """
@@ -21,7 +22,6 @@ import torch
 from ..ops.keys import build_key_words, cap_lengths, compute_valid_len, widen_u32
 from ..ops.query import _lex_less, encode_query2_words, encode_query_words
 from .collectives import psum, replicate
-from .distributed import mesh_size
 from .sample_sort import strided_keys
 
 
@@ -80,14 +80,13 @@ def distributed_count_queries(
     genome = replicate(packed, mesh)
     ss, se = replicate(seg_starts, mesh), replicate(seg_ends, mesh)
     counts = []
-    for p in range(mesh_size(mesh)):
-        pos, pad = sorted_positions[p], is_pad[p]
+    for i, (pos, pad) in enumerate(zip(sorted_positions, is_pad)):
         dev = pos.device
-        cap = cap_lengths(compute_valid_len(pos, ss[p], se[p]), kmer_len)
+        cap = cap_lengths(compute_valid_len(pos, ss[i], se[i]), kmer_len)
         cap = torch.where(pad, 0, cap)
         q = tuple(torch.from_numpy(w.astype(np.int64)).to(dev) for w in q_host)
         n_rounds = max(1, math.ceil(math.log2(max(pos.shape[0], 2))) + 1)
-        words_fn = lambda pos, cap, n, g=genome[p]: build_key_words(g, pos, cap, n)  # noqa: E731
+        words_fn = lambda pos, cap, n, g=genome[i]: build_key_words(g, pos, cap, n)  # noqa: E731
         counts.append(_local_counts(words_fn, pos, cap, pad, q, n_words, n_rounds))
     return psum(counts, mesh)[0].cpu().numpy().astype(np.uint32)
 
@@ -118,15 +117,14 @@ def distributed_count_queries_large(
     keys = strided_keys(packed_strided, seg_starts_u64, seg_ends_u64, two_bit, mesh)
     n_words = -(-kmer_len // keys.per_word)
     counts = []
-    for p in range(mesh_size(mesh)):
-        pos, pad = positions[p], is_pad[p]
+    for i, (pos, pad) in enumerate(zip(positions, is_pad)):
         dev = pos.device
-        cap = torch.where(pad, 0, keys.caps(p, pos, kmer_len))
+        cap = torch.where(pad, 0, keys.caps(i, pos, kmer_len))
         q = tuple(torch.from_numpy(w.astype(np.int64)).to(dev) for w in q_host)
         if two_bit:
             q += (torch.full_like(q[0], kmer_len),)
         n_rounds = max(1, math.ceil(math.log2(max(pos.shape[0], 2))) + 1)
-        words_fn = lambda x, c, n, p=p: keys.words(p, x, c, n)  # noqa: E731
+        words_fn = lambda x, c, n, i=i: keys.words(i, x, c, n)  # noqa: E731
         counts.append(_local_counts(words_fn, pos, cap, pad, q, n_words, n_rounds, cap_key=two_bit))
     out = psum(counts, mesh)[0].cpu().numpy().astype(np.uint64)
     out[~matchable] = 0

@@ -38,16 +38,24 @@ What differs from the JAX package, for the card:
 * a shard holds its real rows only, and its row count ``m`` in the JAX
   layout as a number: the pads that sort behind the real rows in the JAX
   package's local sort (the padding of an uneven index, the rows a
-  canonical sort leaves out, and every shard's pad tail in a refinement
-  round) are not built, and a sample that falls on one of them is an
-  all-ones row. So no sort is given rows that are identical in every lane,
-  which the multi-lane sort kernel (``kernels/lane_sort.py``) does not
-  promise to order. The JAX capacity series grows a refinement layout's
-  ``m`` 1.5x a round, and its samples then fall on pads more and more, so
-  the real rows gather on the first shards; the port keeps that series, so
-  its layout is the JAX package's, and holds the real rows alone between
-  rounds. The bounded sorts return the JAX layout, pads included; the
-  refinement rounds return the real rows and one pad row a shard.
+  canonical sort leaves out) are not built, and a sample that falls on one
+  of them is an all-ones row. So no sort is given rows that are identical
+  in every lane, which the multi-lane sort kernel (``kernels/lane_sort.py``)
+  does not promise to order. The bounded sorts and round 0 return the JAX
+  layout byte for byte, pads included.
+* the refinement rounds are balanced. The JAX package sizes each round's
+  exchange from the previous layout's rows, pads included, and samples at
+  a regular stride over all of them; its capacity series grows that layout
+  1.5x a round, so the samples fall on pads more and more and from about
+  round 4 every real row sits on shard 0. Here a round sizes its exchange
+  from the real rows (``m`` = the largest shard's real rows after the
+  previous round) and draws each shard's samples at a regular stride over
+  its real rows, as many as its share of all rows (``P * n_samples``
+  samples in all); the splitters are the quantiles of the real samples.
+  Each shard then ends a round with about ``1 / P`` of the rows (the tests
+  hold at most twice the mean), so the rows of a round keep the global
+  order and run ids of the JAX package but not its per-shard split. They
+  return each shard's real rows and one pad row.
 * the bucket bounds are found on the host side (a lane-by-lane
   ``torch.searchsorted`` of each splitter in each shard's sorted rows; the
   JAX package reads an overflow flag once a try), so the capacity is chosen
@@ -64,6 +72,13 @@ the round driver, the run structure and the exchange are one copy.
 
 Every multi-lane sort here is ``sort_lanes_cuda``: the kernel on a CUDA
 tensor, its plain version on the CPU.
+
+On a process mesh (``distributed.make_mesh`` under ``torch.distributed``)
+every per-shard loop runs over this rank's shards only; sample counts,
+bucket counts and run counts that need every shard are all-gathered
+(``collectives.gather_host``), and rows move between ranks only through
+``collectives.all_to_all``. Host views of a layout (``ragged_rows``,
+``large_rows`` with ``mesh``) all-gather it.
 """
 
 from __future__ import annotations
@@ -83,7 +98,7 @@ from ..ops.large import (
     split64,
 )
 from ..ops.sort import WINDOW_BASES, _round_done
-from .collectives import all_gather, all_to_all, psum, replicate
+from .collectives import all_gather, all_gather_shards, all_to_all, gather_host, psum, replicate
 from .distributed import (
     _cdiv,
     _halo_adjacent_eq,
@@ -151,23 +166,62 @@ def _capacity(m: int, n_dev: int, largest: int, capacity_factor: float):
         retries += 1
 
 
+def _samples(lanes: list, rows: int, n_samples: int, mesh, balanced: bool):
+    """Step 2's samples of each local shard's sorted lanes, one width on
+    every shard (a missing sample is an all-ones pad row), and the index in
+    the sorted gathered samples of each of the ``P - 1`` splitters.
+
+    The JAX package's (``balanced`` False): ``n_samples`` rows of each
+    shard's ``rows`` at a regular stride, a row past its built rows a pad;
+    the splitters at stride ``n_samples``. Balanced (the refinement
+    rounds): ``P * n_samples`` samples in all, each shard's share of them
+    by its share of the rows, at the midpoints of equal parts of its real
+    rows; the splitters the quantiles of the real samples."""
+    n_dev = mesh_size(mesh)
+    if not balanced:
+        stride = max(rows // n_samples, 1)
+        take = [[(i * stride + stride // 2) % rows for i in range(n_samples)]] * len(lanes)
+        width = n_samples
+        split_idx = [(b + 1) * n_samples for b in range(n_dev - 1)]
+    else:
+        n_rows = gather_host([shard[0].shape[0] for shard in lanes], mesh)
+        total = int(n_rows.sum())
+        share = [min(int(n), -(-n_dev * n_samples * int(n) // total)) if total else 0
+                 for n in n_rows]
+        take = [[(2 * i + 1) * int(n_rows[p]) // (2 * share[p]) for i in range(share[p])]
+                for p in mesh.shard_ids]
+        width = max(max(share), 1)
+        split_idx = [(b + 1) * sum(share) // n_dev for b in range(n_dev - 1)]
+    local = []
+    for shard, idx in zip(lanes, take):
+        built = [i for i in idx if i < shard[0].shape[0]]
+        at = torch.tensor(built, dtype=torch.int64, device=shard[0].device)
+        n_pad = width - len(built)
+        local.append(tuple(torch.cat([lane[at], lane.new_full((n_pad,), _ONES)]) for lane in shard))
+    return local, torch.tensor(split_idx, dtype=torch.int64)
+
+
 def _exchange_merge(lanes: list, padm, rows: int, mesh, capacity_factor: float,
-                    n_samples: int = N_SAMPLES, on_step=None):
+                    n_samples: int = N_SAMPLES, on_step=None, balanced: bool = False):
     """Steps 1-5 over prepared per-shard lanes (key lanes, then the
     position, int32 bit patterns; the list is consumed). Shard p holds the
     first ``lanes[p][0].shape[0]`` of its ``rows`` rows in the JAX layout;
     the rest are pads, all-ones in every lane, which are not built.
     ``padm[p]`` (or None: none) marks the rows built but not exchanged: the
     invalid rows of the dense sorts, which sort behind the real rows by
-    their leading lanes.
+    their leading lanes. ``balanced`` (the refinement rounds: every built
+    row is real, ``rows`` the largest shard's) samples each shard's real
+    rows by its share (``_samples``).
 
     Returns (lanes, info): each shard's received rows sorted (its real rows
     in the JAX layout), every lane, and ``{"capacity_factor", "capacity",
     "retries", "rows", "shard_rows"}``: ``rows`` the real rows of each
-    shard, ``shard_rows`` (``P * C``) the rows of each shard in the JAX
-    layout. ``on_step(name)`` is called after each step ("local sort",
-    "splitters", "bucket bounds", "exchange", "merge") once its work is
-    queued, so a caller that synchronises in it times the steps."""
+    shard (all shards, on every rank), ``shard_rows`` (``P * C``) the rows
+    of each shard in a layout padded to the exchange capacity ``C``: the
+    JAX layout, except after a balanced round. ``on_step(name)`` is called
+    after each step ("local sort", "splitters", "bucket bounds",
+    "exchange", "merge") once its work is queued, so a caller that
+    synchronises in it times the steps."""
     n_dev = mesh_size(mesh)
     n_samples = min(n_samples, rows)
     step = on_step if on_step is not None else (lambda name: None)
@@ -180,41 +234,35 @@ def _exchange_merge(lanes: list, padm, rows: int, mesh, capacity_factor: float,
     lanes = sorted_lanes
     step("local sort")
 
-    # 2. regular-stride samples -> all shards -> sorted -> splitters; a
-    # sample past a shard's built rows is a pad row
-    stride = max(rows // n_samples, 1)
-    samp = [(i * stride + stride // 2) % rows for i in range(n_samples)]
-    local = []
-    for shard in lanes:
-        built = [i for i in samp if i < shard[0].shape[0]]
-        idx = torch.tensor(built, dtype=torch.int64, device=shard[0].device)
-        n_pad = n_samples - len(built)
-        local.append(tuple(torch.cat([lane[idx], lane.new_full((n_pad,), _ONES)]) for lane in shard))
+    # 2. samples -> all shards -> sorted -> splitters; a sample past a
+    # shard's built rows is a pad row
+    local, split_idx = _samples(lanes, rows, n_samples, mesh, balanced)
     gathered = [all_gather([s[li] for s in local], mesh) for li in range(len(local[0]))]
-    split_idx = (torch.arange(n_dev - 1, dtype=torch.int64) + 1) * n_samples
+    del local
     splitters = []
-    for p in range(n_dev):
-        ranked = _sort_samples(tuple(g[p].reshape(-1) for g in gathered))
+    for i in range(len(lanes)):
+        ranked = _sort_samples(tuple(g[i].reshape(-1) for g in gathered))
         splitters.append(tuple(lane[split_idx.to(lane.device)] for lane in ranked))
     step("splitters")
 
-    # 3. bucket bounds: rows below each splitter, clamped to the real rows
+    # 3. bucket bounds: rows below each splitter, clamped to the real rows;
+    # every shard's bucket sizes on every rank
     bounds = []
-    for p in range(n_dev):
-        n_real = lanes[p][0].shape[0] - (0 if padm is None else int(padm[p].sum()))
-        split_host = np.stack([lane.cpu().numpy() for lane in splitters[p]])  # (lanes, P - 1)
-        below = [min(b, n_real) for b in _searchsorted_rows(lanes[p], split_host)]
+    for i, shard in enumerate(lanes):
+        n_real = shard[0].shape[0] - (0 if padm is None else int(padm[i].sum()))
+        split_host = np.stack([lane.cpu().numpy() for lane in splitters[i]])  # (lanes, P - 1)
+        below = [min(b, n_real) for b in _searchsorted_rows(shard, split_host)]
         bounds.append([0] + below + [n_real])
-    bounds = np.asarray(bounds, dtype=np.int64)  # (P, P + 1)
-    counts = np.diff(bounds, axis=1)
+    bounds = np.asarray(bounds, dtype=np.int64)  # (local shards, P + 1)
+    counts = gather_host(list(np.diff(bounds, axis=1)), mesh)  # (P, P)
     capacity, factor, retries = _capacity(rows, n_dev, int(counts.max()), capacity_factor)
     step("bucket bounds")
 
     # 4. exchange: bucket b of shard p -> shard b (its real rows only)
     recv = [
         all_to_all(
-            [[shard[li][int(bounds[p][b]) : int(bounds[p][b + 1])] for b in range(n_dev)]
-             for p, shard in enumerate(lanes)],
+            [[shard[li][int(bounds[i][b]) : int(bounds[i][b + 1])] for b in range(n_dev)]
+             for i, shard in enumerate(lanes)],
             mesh,
         )
         for li in range(len(lanes[0]))
@@ -223,8 +271,8 @@ def _exchange_merge(lanes: list, padm, rows: int, mesh, capacity_factor: float,
     step("exchange")
 
     # 5. merge: sort the received real rows
-    merged = [sort_lanes_cuda(tuple(torch.cat(recv[li][b]) for li in range(len(recv))))
-              for b in range(n_dev)]
+    merged = [sort_lanes_cuda(tuple(torch.cat(recv[li][i]) for li in range(len(recv))))
+              for i in range(len(recv[0]))]
     step("merge")
     info = {"capacity_factor": factor, "capacity": capacity, "retries": retries,
             "rows": [int(c) for c in counts.sum(axis=0)], "shard_rows": capacity * n_dev}
@@ -260,8 +308,8 @@ def _lanes_position(lanes, n_pos: int) -> torch.Tensor:
 class _FlatKeys:
     """Rows keyed on a per-position pack (``ops/keys.py``): the 2-bit pack
     (16 bases a word) or the 4-bit one (8), positions below 2^32 in one
-    int32 lane, refinement windows of 32 bases. Each shard reads its
-    replicated copy of the pack and segment tables."""
+    int32 lane, refinement windows of 32 bases. Each local shard ``i``
+    reads its replicated copy of the pack and segment tables."""
 
     n_pos = 1
     pad = _PAD_U32  # a pad row's position and run id
@@ -273,12 +321,12 @@ class _FlatKeys:
         self.per_word = 16 if two_bit else 8
         self.window = WINDOW_BASES
 
-    def caps(self, p: int, pos, max_cap):
-        """min(valid_len, max_cap) of shard p's positions (None: no bound)."""
-        return cap_lengths(compute_valid_len(pos, self.ss[p], self.se[p]), max_cap)
+    def caps(self, i: int, pos, max_cap):
+        """min(valid_len, max_cap) of local shard i's positions (None: no bound)."""
+        return cap_lengths(compute_valid_len(pos, self.ss[i], self.se[i]), max_cap)
 
-    def words(self, p: int, pos, cap, n_words: int, offset=0) -> tuple:
-        return _words_for(self.genome[p], pos, cap, n_words, self.two_bit, offset)
+    def words(self, i: int, pos, cap, n_words: int, offset=0) -> tuple:
+        return _words_for(self.genome[i], pos, cap, n_words, self.two_bit, offset)
 
     def pos_lanes(self, pos) -> tuple:
         return (u32_bits_as_int32(pos),)
@@ -298,13 +346,13 @@ class _StridedKeys(_FlatKeys):
         super().__init__(genome, seg_starts, seg_ends, two_bit, mesh)
         self.window = 64 if two_bit else 32
 
-    def caps(self, p: int, pos, max_cap):
+    def caps(self, i: int, pos, max_cap):
         cap = NO_CAP if max_cap is None else min(int(max_cap), NO_CAP)
-        return torch.clamp_max(compute_valid_len64(pos, self.ss[p], self.se[p]), cap)
+        return torch.clamp_max(compute_valid_len64(pos, self.ss[i], self.se[i]), cap)
 
-    def words(self, p: int, pos, cap, n_words: int, offset=0) -> tuple:
+    def words(self, i: int, pos, cap, n_words: int, offset=0) -> tuple:
         build = build_key2_words_strided if self.two_bit else build_key_words_strided
-        return build(self.genome[p], pos, cap, n_words, offset)
+        return build(self.genome[i], pos, cap, n_words, offset)
 
     def pos_lanes(self, pos) -> tuple:
         return split64(pos)
@@ -312,11 +360,13 @@ class _StridedKeys(_FlatKeys):
 
 def _shard_slices(positions: torch.Tensor, mesh):
     """(rows, slices): the index cut into equal shards of ``rows`` rows
-    (the JAX layout pads it to a multiple of the shard count), each shard's
-    real positions on its device."""
+    (the JAX layout pads it to a multiple of the shard count), each local
+    shard's real positions on its device (every rank holds the whole
+    index)."""
     n = positions.shape[0]
     m = _cdiv(max(n, 1), mesh_size(mesh))
-    return m, [positions[p * m : min((p + 1) * m, n)].to(dev) for p, dev in enumerate(mesh.devices)]
+    return m, [positions[min(p * m, n) : min((p + 1) * m, n)].to(dev)
+               for p, dev in zip(mesh.shard_ids, mesh.devices)]
 
 
 def _flat_keys(packed, packed2, seg_starts, seg_ends, mesh) -> _FlatKeys:
@@ -333,13 +383,13 @@ def _gather_sort(keys, positions, max_kmer_len, mesh, n_samples, capacity_factor
     n_words = _cdiv(max_kmer_len, keys.per_word)
     m, pos_s = _shard_slices(positions, mesh)
     lanes = []
-    for p, pos in enumerate(pos_s):
-        cap = keys.caps(p, pos, max_kmer_len)
+    for i, pos in enumerate(pos_s):
+        cap = keys.caps(i, pos, max_kmer_len)
         if canonical_k is not None:
             # a truncated k-mer has no canonical form: it is a pad
             full = cap >= canonical_k
             pos, cap = pos[full], cap[full]
-        words = keys.words(p, pos, cap, n_words)
+        words = keys.words(i, pos, cap, n_words)
         if canonical_k is not None:
             words = _canonical(words, canonical_k, keys.two_bit)
         caps = () if uniform_cap else (cap.to(torch.int32),)
@@ -414,8 +464,7 @@ def sample_sort_positions(
         packed, positions, seg_starts, seg_ends, max_kmer_len, mesh, packed2=packed2,
         n_samples=n_samples, capacity_factor=capacity_factor, uniform_cap=uniform_cap,
     )
-    host = torch.cat([pos[~pad].cpu() for pos, pad in zip(out_pos, out_pad)])
-    return host.to(positions.device)
+    return torch.from_numpy(np.concatenate(_real_rows(out_pos, out_pad, mesh))).to(positions.device)
 
 
 # --------------------------------------------------------------------------- #
@@ -437,13 +486,13 @@ def _run_structure(keys, positions, valid, gid, offset: int, max_cap, mesh):
     n_words = keys.window // keys.per_word
     end = offset + keys.window
     lanes, beyond = [], []
-    for p, pos in enumerate(positions):
-        cap = torch.where(valid[p], keys.caps(p, pos, max_cap), 0)
-        shard = keys.words(p, pos, cap, n_words, offset)
+    for i, pos in enumerate(positions):
+        cap = torch.where(valid[i], keys.caps(i, pos, max_cap), 0)
+        shard = keys.words(i, pos, cap, n_words, offset)
         if keys.two_bit:
             shard += (torch.clamp_max(cap, end),)
         if gid is not None:
-            shard = (gid[p],) + shard
+            shard = (gid[i],) + shard
         lanes.append(shard)
         beyond.append(cap > end)
     eqs = _halo_adjacent_eq(lanes, valid, mesh)
@@ -455,20 +504,20 @@ def _run_structure(keys, positions, valid, gid, offset: int, max_cap, mesh):
     )[0]
     counts = all_gather([b.sum() for b in boundary], mesh)
     new_gid = [
-        torch.where(valid[p], counts[p][:p].sum() + torch.cumsum(b, dim=0) - 1, keys.pad)
-        for p, b in enumerate(boundary)
+        torch.where(valid[i], counts[i][:p].sum() + torch.cumsum(b, dim=0) - 1, keys.pad)
+        for (i, b), p in zip(enumerate(boundary), mesh.shard_ids)
     ]
     return new_gid, unresolved
 
 
-def _refine_lanes(keys, p: int, pos, gid, offset: int, max_cap, gid_lanes: int):
-    """Shard p's lanes of a refinement round: (run id, the window at
+def _refine_lanes(keys, i: int, pos, gid, offset: int, max_cap, gid_lanes: int):
+    """Local shard i's lanes of a refinement round: (run id, the window at
     ``offset``, cap, position), the JAX package's ``gid=`` lane layout. The
     run id takes one int32 lane while every id is below 2^32 (its high
     lane, zero on every row, orders nothing), else two."""
     n_words = keys.window // keys.per_word
-    cap = keys.caps(p, pos, max_cap)
-    words = keys.words(p, pos, cap, n_words, offset)
+    cap = keys.caps(i, pos, max_cap)
+    words = keys.words(i, pos, cap, n_words, offset)
     gid_l = (u32_bits_as_int32(gid),) if gid_lanes == 1 else split64(gid)
     return gid_l + words + (u32_bits_as_int32(cap),) + keys.pos_lanes(pos)
 
@@ -476,11 +525,11 @@ def _refine_lanes(keys, p: int, pos, gid, offset: int, max_cap, gid_lanes: int):
 def _refinement_rounds(keys, merged, got, mesh, max_kmer_len, n_samples, capacity_factor,
                        first_name, on_round, on_step):
     """The rounds after round 0 (``merged``, ``got``: its sorted real rows
-    and info): run structure, then while rows are unresolved one sample
-    sort keyed by (run id, next window, cap, position) and the run
-    structure of the new layout. Returns (positions, run ids, the info of
-    every round), each shard's real rows in global order."""
-    n_dev = mesh_size(mesh)
+    and info): run structure, then while rows are unresolved one balanced
+    sample sort keyed by (run id, next window, cap, position), sized from
+    the largest shard's real rows, and the run structure of the new
+    layout. Returns (positions, run ids, the info of every round), each
+    shard's real rows in global order."""
     step = on_step if on_step is not None else (lambda name: None)
     rounds = [got]
     pos = [_lanes_position(shard, keys.n_pos) for shard in merged]
@@ -494,7 +543,8 @@ def _refinement_rounds(keys, merged, got, mesh, max_kmer_len, n_samples, capacit
         name = "_refine_round"
         gid_lanes = 1
         if keys.n_pos == 2:  # a flat index has fewer than 2^32 rows
-            n_runs = sum(int(g[-1]) + 1 for g in gid if g.shape[0])  # ids rise in shard order
+            # ids rise in shard order: the runs are the largest id + 1
+            n_runs = int(gather_host([int(g[-1]) + 1 if g.shape[0] else 0 for g in gid], mesh).max())
             gid_lanes = 1 if n_runs <= 1 << 32 else 2
         n_lanes = gid_lanes + keys.window // keys.per_word + 1 + keys.n_pos
         if n_lanes > MAX_LANES:
@@ -503,13 +553,14 @@ def _refinement_rounds(keys, merged, got, mesh, max_kmer_len, n_samples, capacit
                 f"the lane sort takes at most {MAX_LANES}"
             )
         lanes = [
-            _refine_lanes(keys, p, pos[p], gid[p], offset, max_kmer_len, gid_lanes)
-            for p in range(n_dev)
+            _refine_lanes(keys, i, pos[i], gid[i], offset, max_kmer_len, gid_lanes)
+            for i in range(len(pos))
         ]
         del pos, gid
         step("round lanes")
         merged, got = _exchange_merge(
-            lanes, None, rounds[-1]["shard_rows"], mesh, capacity_factor, n_samples, on_step
+            lanes, None, max(rounds[-1]["rows"]), mesh, capacity_factor, n_samples, on_step,
+            balanced=True,
         )
         rounds.append(got)
         pos = [_lanes_position(shard, keys.n_pos) for shard in merged]
@@ -533,10 +584,14 @@ def _compact_layout(pos: list, gid: list, pad_value):
 
 
 def _rounds_info(info, rounds) -> None:
+    """``info`` of a refinement sort: "rounds", "retries",
+    "capacity_factors" and "round_rows" (the real rows of every shard after
+    each round), "rows" and "shard_rows" of the last layout."""
     if info is not None:
         info.update(
             rounds=len(rounds), retries=sum(r["retries"] for r in rounds),
             capacity_factors=[r["capacity_factor"] for r in rounds],
+            round_rows=[r["rows"] for r in rounds],
             rows=rounds[-1]["rows"], shard_rows=rounds[-1]["shard_rows"],
         )
 
@@ -567,16 +622,14 @@ def sample_sort_positions_unbounded(
     equal under the sort's full comparison: the group identity of the
     statistics at ``kmer_len = max_kmer_len``.
 
-    The real rows are the JAX package's layout; its shards hold
-    ``info["shard_rows"]`` rows each, the rest pads (a pad tail that the
-    capacity series grows 1.5x a round, too large to build after many
-    rounds: ROADMAP.md §C5). ``on_round(name)`` is
-    called once a round's unresolved count has been read (round 0:
+    Round 0's layout is the JAX package's; the refinement rounds balance
+    the rows over the shards (the module doc), so after them the global
+    order and the run ids are the JAX package's and each shard holds about
+    ``1 / P`` of the rows. ``on_round(name)`` is called once a round's
+    unresolved count has been read (round 0:
     "sample_sort_positions_ragged", then "_refine_round"); ``on_step`` see
     ``_exchange_merge``, and also hears "round lanes" (a round's key lanes
-    built) and "run structure"; ``info`` receives "rounds", "retries",
-    "capacity_factors" (one a round), "rows" and "shard_rows" (of the last
-    layout)."""
+    built) and "run structure"; ``info`` see ``_rounds_info``."""
     keys = _flat_keys(packed, packed2, seg_starts, seg_ends, mesh)
     # round 0: the sample sort capped at the first window
     merged, got = _gather_sort(
@@ -589,7 +642,7 @@ def sample_sort_positions_unbounded(
     _rounds_info(info, rounds)
     if return_ragged:
         return _compact_layout(pos, gid, keys.pad)
-    return torch.cat([x.cpu() for x in pos]).to(positions.device)
+    return torch.from_numpy(np.concatenate(_real_rows(pos, None, mesh))).to(positions.device)
 
 
 def _adjacent_gids(keys, rag_pos: list, rag_pad: list, kmer_len, mesh) -> list:
@@ -707,9 +760,9 @@ def sample_sort_positions_dense_ragged(
     m, genome = _dense_shards(packed, mesh)
     ss, se = replicate(seg_starts, mesh), replicate(seg_ends, mesh)
     lanes, padm = [], []
-    for p in range(mesh_size(mesh)):
+    for i, p in enumerate(mesh.shard_ids):
         key, iota, invalid = _dense_key_lanes(
-            genome[p], ss[p], se[p], p * m, (p + 1) * m, min_kmer_len, n_words,
+            genome[i], ss[i], se[i], p * m, (p + 1) * m, min_kmer_len, n_words,
             max_kmer_len, two_bit, uniform_cap,
         )
         lanes.append(key + (iota,))
@@ -766,11 +819,11 @@ def sample_sort_canonical_dense_ragged(
     m, genome = _dense_shards(packed_e, mesh)
     ss, se = replicate(seg_starts, mesh), replicate(seg_ends, mesh)
     lanes, padm = [], []
-    for p in range(mesh_size(mesh)):
-        iota = torch.arange(p * m, (p + 1) * m, dtype=torch.int64, device=genome[p].device)
-        valid = compute_valid_len(iota, ss[p], se[p]) >= max(k, min_kmer_len)
+    for i, p in enumerate(mesh.shard_ids):
+        iota = torch.arange(p * m, (p + 1) * m, dtype=torch.int64, device=genome[i].device)
+        valid = compute_valid_len(iota, ss[i], se[i]) >= max(k, min_kmer_len)
         cap = torch.where(valid, k, 0)
-        words = _canonical(_dense_words(genome[p], p * m, (p + 1) * m, cap, n_words,
+        words = _canonical(_dense_words(genome[i], p * m, (p + 1) * m, cap, n_words,
                                         16 if two_bit else 8), k, two_bit)
         lanes.append(((~valid).to(torch.int32),) + words + (u32_bits_as_int32(iota),))
         padm.append(~valid)
@@ -804,10 +857,10 @@ def sample_sort_canonical_ragged(
     genome = replicate(packed_e, mesh)
     ss, se = replicate(seg_starts, mesh), replicate(seg_ends, mesh)
     lanes = []
-    for p, pos in enumerate(pos_s):
-        pos = pos[compute_valid_len(pos, ss[p], se[p]) >= kmer_len]
+    for i, pos in enumerate(pos_s):
+        pos = pos[compute_valid_len(pos, ss[i], se[i]) >= kmer_len]
         cap = torch.full_like(pos, kmer_len)
-        words = _canonical(_words_for(genome[p], pos, cap, n_words, two_bit), kmer_len, two_bit)
+        words = _canonical(_words_for(genome[i], pos, cap, n_words, two_bit), kmer_len, two_bit)
         lanes.append(words + (u32_bits_as_int32(pos),))
     del pos_s
     merged, got = _exchange_merge(lanes, None, m, mesh, capacity_factor, n_samples, on_step)
@@ -935,9 +988,9 @@ def sample_sort_positions_large_unbounded(
     lanes.
 
     Returns ``(positions, is_pad, run ids)`` per shard: each shard's real
-    rows (the JAX package's, in its order) and one pad row, int64
-    positions and run ids (pads -1), bool pad flags; ``info["shard_rows"]``
-    is the JAX row count a shard. Rows share a run id iff their k-mers are
+    rows (round 0's the JAX package's; the refinement rounds balance them
+    over the shards) and one pad row, int64 positions and run ids (pads
+    -1), bool pad flags. Rows share a run id iff their k-mers are
     equal under the sort's full comparison. ``on_round`` (round 0 is named
     "sample_sort_positions_large_ragged"), ``on_step`` and ``info`` as
     ``sample_sort_positions_unbounded``."""
@@ -996,20 +1049,28 @@ def sample_sort_canonical_large_ragged(
     )
 
 
-def large_rows(positions: list, is_pad: list) -> np.ndarray:
-    """The real rows of a large layout in global order, host uint64."""
+def _real_rows(positions: list, is_pad, mesh) -> list:
+    """Each shard's real rows (all of them where ``is_pad`` is None) on the
+    host, every rank's shards where ``mesh`` is a process mesh (the JAX
+    package's ``process_allgather``)."""
+    rows = positions if is_pad is None else [pos[~pad] for pos, pad in zip(positions, is_pad)]
+    if mesh is not None:
+        rows = all_gather_shards(rows, mesh)
+    return [x.cpu().numpy() for x in rows]
+
+
+def large_rows(positions: list, is_pad: list, mesh=None) -> np.ndarray:
+    """The real rows of a large layout in global order, host uint64; pass
+    the layout's ``mesh`` where it spans processes."""
     if not positions:
         return np.zeros(0, dtype=np.uint64)
-    return np.concatenate(
-        [pos[~pad].cpu().numpy().view(np.uint64) for pos, pad in zip(positions, is_pad)]
-    )
+    return np.concatenate([x.view(np.uint64) for x in _real_rows(positions, is_pad, mesh)])
 
 
-def ragged_rows(positions: list, is_pad: list) -> np.ndarray:
+def ragged_rows(positions: list, is_pad: list, mesh=None) -> np.ndarray:
     """The real rows of a ragged layout in global order, as a host uint32
-    array (the counterpart of the JAX package's ``pos[pad == 0]``)."""
+    array (the counterpart of the JAX package's ``pos[pad == 0]``); pass
+    the layout's ``mesh`` where it spans processes."""
     if not positions:
         return np.zeros(0, dtype=np.uint32)
-    return np.concatenate(
-        [pos[~pad].cpu().numpy().astype(np.uint32) for pos, pad in zip(positions, is_pad)]
-    )
+    return np.concatenate([x.astype(np.uint32) for x in _real_rows(positions, is_pad, mesh)])

@@ -109,6 +109,19 @@ def _route(km, route: str) -> None:
         km._dc().filter_flags = None
 
 
+def _c2_twin(kind, mn, mx, name, route, tkm):
+    """The JAX package's plane route on the same sorted index, where a
+    4-bit homopolymer filter runs on the lanes route: the one recorded
+    difference of the port's lanes route (ROADMAP.md §C2), which gives the
+    plane route's answer there. None elsewhere."""
+    if route != "lanes" or not name.startswith("homopoly") or tkm._dc().packed2 is not None:
+        return None
+    jkm, _ = _pair(kind, mn, mx)
+    jkm.sort()
+    _route(jkm, "plane")
+    return jkm
+
+
 def _queries(k, sorted_index: bool, yields: bool = True):
     """The calls a filter is held to. The yields compact to the survivors,
     a new shape (and compile) of the JAX package's for every filter, so the
@@ -166,8 +179,11 @@ def test_filtered_queries_match_jax(kind, mn, mx, sort, route):
         lanes = sort and tkm._filtered_lanes_stats(k, tfil) is not None
         assert lanes == (sort and jkm._filtered_lanes_stats(k, jfil) is not None), name
         planes_before = None if tdc.filter_flags is None else len(tdc.filter_flags)
+        twin = _c2_twin(kind, mn, mx, name, route, tkm) if lanes else None
         for qname, call in _queries(k, sort, yields=i % 3 == third):
             got, want = _outcome(lambda: call(tkm, tfil)), _outcome(lambda: call(jkm, jfil))
+            if twin is not None and not _same(got, want):
+                want = _outcome(lambda: call(twin, jfil))
             assert _same(got, want), (name, qname, got, want)
         if lanes:
             taken["lanes"] += 1
@@ -181,6 +197,44 @@ def test_filtered_queries_match_jax(kind, mn, mx, sort, route):
         assert taken["lanes"] == 0 and taken["plane"] > 0
     else:
         assert taken["lanes"] == taken["plane"] == 0 and tdc.filter_flags is None
+
+
+C2_GENOME = [
+    ("r1", "KACGCKMSACTRSYGCWKACRRMYRRWSCKKNKTTWWWMTNAANNTCTAMWSGYGKYAGWYRGASWYNNGSSGTYKT"
+           "WWGRMMWAWGMNRNKTMRCSMWRMYRCGWKTSMCTYSRRCSNGGACACAGTCG"),
+    ("r2", "KCAKCKTSNNYGGMSCMNNSNSYNSKTKNAYRAAGGWGSMYCATRYTMSNNWAGKYNWMA" + "T" * 14),
+]
+
+
+def test_homopolymer_lanes4_raise_on_truncated_rows():
+    """ROADMAP.md §C2 on truncated 4-bit rows: an IUPAC genome whose first
+    record ends in a run-free tail, Kmers(sc, 1, 31) sorted (4-bit lanes
+    built at 31), get_kmer_count(12, HomopolymerFilter(2, 12)). The port's
+    lanes route raises where the JAX package's plane and window routes, the
+    port's plane and window routes and the reference's scalar walk raise (at
+    the first truncated row in sorted order, position 121). The one recorded
+    difference: the JAX package's lanes route misses that row's raise and
+    raises at position 204, an array-end row."""
+    jsc = gj.SequenceCollection(sequence_list=C2_GENOME)
+    tsc = gt.SequenceCollection(sequence_list=C2_GENOME, device="cpu")
+    call = lambda km, f: km.get_kmer_count(12, kmer_filter_func=f)  # noqa: E731
+    want = (ValueError, "The kmer_len (12) requested is too large for kmer_sba_start_idx (121)")
+    got = {}
+    for route in ("lanes", "plane", "window"):
+        jkm, tkm = gj.Kmers(jsc, 1, 31), gt.Kmers(tsc, 1, 31)
+        for km in (jkm, tkm):
+            km.sort()
+            _route(km, route)
+        assert (tkm._filtered_lanes_stats(12, tf.HomopolymerFilter(2, 12)) is not None) == (
+            route == "lanes")
+        got[("jax", route)] = _outcome(lambda: call(jkm, jf.HomopolymerFilter(2, 12)))
+        got[("port", route)] = _outcome(lambda: call(tkm, tf.HomopolymerFilter(2, 12)))
+    walk = jf.HomopolymerFilter(2, 12)
+    sba = jsc.forward_sba
+    got["walk"] = _outcome(lambda: [walk(sba, "forward", int(p)) for p in jkm.kmer_sba_start_indices])
+    assert got.pop(("jax", "lanes")) == (
+        ValueError, "The kmer_len (12) requested is too large for kmer_sba_start_idx (204)")
+    assert all(v == want for v in got.values()), got
 
 
 @pytest.mark.parametrize("route", ["lanes", "plane"])

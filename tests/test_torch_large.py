@@ -286,12 +286,14 @@ def _jax_refinement(max_k, two_bit: bool):
 @pytest.mark.parametrize("max_k,two_bit", [(None, True), (45, False)])
 def test_large_refinement_sort_matches_jax(max_k, two_bit):
     """Suffix mode and bounds beyond one window: the real rows and converged
-    run ids equal the JAX package's (each shard's, on its mesh size, where
-    ``info["shard_rows"]`` is its row count a shard; each shard holds its
-    real rows and one pad); ``distributed_adjacent_gids_large`` over the
-    layout gives the sort's run ids back at the sort's identity, and the
-    JAX package's at 70 and None, and the statistics over them with a
-    strand split equal its."""
+    run ids equal the JAX package's in global order; each shard holds its
+    real rows and one pad, round 0's rows by shard are the JAX package's
+    large sample sort's at the first window, and every refinement round
+    leaves each shard at most twice the mean rows (the port balances the
+    rounds where the JAX package gathers them on shard 0, ROADMAP.md §C5);
+    ``distributed_adjacent_gids_large`` over the layout gives the sort's
+    run ids back at the sort's identity, and the JAX package's at 70 and
+    None, and the statistics over them with a strand split equal its."""
     packed, starts, ends, pos = _sort_case(two_bit)
     jpos, jpad, jgid, by_len = _jax_refinement(max_k, two_bit)
     for n_dev in (1, 2, 4):
@@ -303,11 +305,12 @@ def test_large_refinement_sort_matches_jax(max_k, two_bit):
         assert all(x.shape[0] == int((~pad).sum()) + 1 and bool(pad[-1]) for x, pad in zip(tpos, tpad))
         assert np.array_equal(tss.large_rows(tpos, tpad), jpos[~jpad])
         assert np.array_equal(tss.large_rows(tgid, tpad), jgid[~jpad])
+        assert all(max(rows) <= 2 * -(-len(pos) // n_dev) for rows in info["round_rows"][1:])
         if n_dev == J_DEV:
-            assert info["shard_rows"] == jpos.shape[1]
-            for p in range(n_dev):
-                n = int((~jpad[p]).sum())
-                assert not jpad[p][:n].any() and np.array_equal(_u64(tpos[p])[:n], jpos[p][:n])
+            (_, _), j0_pad = jss.sample_sort_positions_large_ragged(
+                jnp.asarray(packed), pos, starts, ends, 64 if two_bit else 32, j_make_mesh(J_DEV),
+                two_bit=two_bit)
+            assert info["round_rows"][0] == [int((x == 0).sum()) for x in _shards(j0_pad, J_DEV)]
         again = tss.distributed_adjacent_gids_large(packed, tpos, tpad, starts, ends, max_k, tm,
                                                     two_bit=two_bit)
         assert all(torch.equal(a[:-1], g[:-1]) for a, g in zip(again, tgid))

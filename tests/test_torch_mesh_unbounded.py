@@ -7,10 +7,13 @@ seeded genomes of a few hundred bases a record, ACGT or with N and IUPAC
 codes, with copied segments (groups whose suffixes tie for several windows)
 and a short all-'A' record:
 
-* ``sample_sort_positions_unbounded(return_ragged=True)``: every shard's
-  positions, pad flags and run ids, padded to ``info["shard_rows"]`` rows,
-  equal the JAX package's at mesh sizes 1, 2, 3 and 8 on 2-bit and 4-bit
-  keys, in suffix mode and beyond one window;
+* ``sample_sort_positions_unbounded(return_ragged=True)`` at mesh sizes 1,
+  2, 3 and 8 on 2-bit and 4-bit keys, in suffix mode and beyond one window:
+  round 0 is the JAX package's layout byte for byte; after the refinement
+  rounds, which the port balances over the shards (ROADMAP.md §C5) where
+  the JAX package's gather on the first, the compacted rows and the run
+  ids equal the JAX package's and every round leaves each shard at most
+  twice the mean rows (``_balanced``), also on a repeat-heavy genome;
   ``distributed_adjacent_gids`` over that layout gives its run ids back;
 * the checks of ``tests/test_unbounded_mesh.py``, each against the JAX
   package's single-device ``Kmers``: suffix statistics from the kept run ids
@@ -102,6 +105,12 @@ def _same_hist(a, b) -> bool:
     return np.array_equal(np.asarray(a[0]), np.asarray(b[0])) and int(a[1]) == int(b[1])
 
 
+def _balanced(rows_by_shard, n_rows: int) -> bool:
+    """The balance bound of the refinement rounds: no shard holds more than
+    twice the mean rows."""
+    return max(rows_by_shard) <= 2 * -(-n_rows // len(rows_by_shard))
+
+
 # --------------------------------------------------------------------------- #
 # the refinement sample sort's layout
 # --------------------------------------------------------------------------- #
@@ -119,11 +128,15 @@ def _layout_id(case):
 
 @pytest.mark.parametrize("case", LAYOUT_CASES, ids=_layout_id)
 def test_unbounded_layout_matches_jax(case):
-    """Per-shard positions, pads and converged run ids of the refinement
-    sort from an assigned descending index (the position is a key): each
-    shard's real rows and one pad row, which padded to ``info["shard_rows"]``
-    rows are the JAX package's layout byte for byte; the compacted rows
-    equal the single-device sort."""
+    """The refinement sort from an assigned descending index (the position
+    is a key). Round 0, the sample sort capped at the first 32-base window,
+    is the JAX package's layout byte for byte (``info["round_rows"][0]`` its
+    real rows by shard). The refinement rounds balance the rows where the
+    JAX package's capacity series gathers them on shard 0 (ROADMAP.md §C5):
+    the compacted positions and converged run ids equal the JAX package's,
+    each shard holds its real rows and one pad row, and after every round
+    no shard holds more than twice the mean; the compacted rows equal the
+    single-device sort."""
     iupac, p, mx = case
     scj, sct = _collections(_seq_list(3, iupac))
     jm, tm = _meshes(p)
@@ -141,13 +154,26 @@ def test_unbounded_layout_matches_jax(case):
         *t_args, **t_kw, return_ragged=True, info=info)
     j_pos, j_pad, j_gid = (_shards(x, p) for x in j_out)
     assert info["rounds"] >= 2 and len(info["capacity_factors"]) == info["rounds"]
-    assert info["shard_rows"] == j_pos.shape[1]
+    assert len(info["round_rows"]) == info["rounds"]
+    # round 0: the JAX package's layout byte for byte
+    j0_pos, j0_pad = jp.sample_sort_positions_ragged(
+        dj.packed if iupac else None, jnp.asarray(pos), dj.seg_starts, dj.seg_ends, 32, jm,
+        packed2=None if iupac else dj.packed2,
+    )
+    t0_pos, t0_pad = tp.sample_sort_positions_ragged(
+        t_args[0], t_args[1], dt.seg_starts, dt.seg_ends, 32, tm, packed2=t_kw["packed2"])
+    j0_pos, j0_pad = _shards(j0_pos, p), _shards(j0_pad, p) != 0
     for s in range(p):
-        n_real = int((j_pad[s] == 0).sum())
-        assert t_pad[s].numpy().tolist() == [False] * n_real + [True]
-        assert np.array_equal(j_pos[s], _jax_rows(t_pos[s], info["shard_rows"]))
-        assert np.array_equal(j_pad[s] != 0, np.arange(info["shard_rows"]) >= n_real)
-        assert np.array_equal(j_gid[s], _jax_rows(t_gid[s], info["shard_rows"]))
+        assert np.array_equal(_u32(t0_pos[s]), j0_pos[s])
+        assert np.array_equal(t0_pad[s].numpy(), j0_pad[s])
+    assert info["round_rows"][0] == [int((~x).sum()) for x in t0_pad]
+    # the refinement rounds: the JAX package's order and run ids, balanced
+    for s in range(p):
+        assert t_pad[s].numpy().tolist() == [False] * (t_pos[s].shape[0] - 1) + [True]
+    assert info["rows"] == [x.shape[0] - 1 for x in t_pos]
+    assert np.array_equal(np.concatenate([_u32(x[:-1]) for x in t_pos]), j_pos[j_pad == 0])
+    assert np.array_equal(np.concatenate([_u32(x[:-1]) for x in t_gid]), j_gid[j_pad == 0])
+    assert all(_balanced(rows, len(pos)) for rows in info["round_rows"][1:])
     # the run structure alone over the converged layout gives its run ids back
     again = tp.distributed_adjacent_gids(
         dt.packed if iupac else None, t_pos, t_pad, dt.seg_starts, dt.seg_ends, mx, tm,
@@ -159,6 +185,38 @@ def test_unbounded_layout_matches_jax(case):
     flat = tp.sample_sort_positions(
         t_args[0], t_args[1], dt.seg_starts, dt.seg_ends, mx, tm, packed2=t_kw["packed2"])
     assert np.array_equal(_u32(flat), km.kmer_sba_start_indices)
+
+
+@pytest.mark.parametrize("two_bit", [True, False])
+def test_refinement_rounds_balance_a_repeat_heavy_genome(two_bit):
+    """The genome of tests/mp_worker.py, a 40-base unit six times and a
+    37-base tail, on 4 shards: the JAX package's refinement rounds end with
+    every row on shard 0 (ROADMAP.md §C5); the port's leave each shard at
+    most twice the mean after every round, with the JAX package's order,
+    the suffix-string order and its run ids."""
+    rng = np.random.default_rng(20260817)
+    unit = "".join(rng.choice(list("ACGT"), size=40))
+    seq = unit * 6 + "".join(rng.choice(list("ACGT"), size=37))
+    scj, sct = _collections([("rep", seq)])
+    jm, tm = _meshes(4)
+    pos = np.arange(len(seq), dtype=np.uint32)
+    dj, dt = scj.device_cache("forward"), sct.device_cache("forward")
+    j_pos, j_pad, j_gid = (_shards(x, 4) for x in jp.sample_sort_positions_unbounded(
+        None if two_bit else dj.packed, jnp.asarray(pos), dj.seg_starts, dj.seg_ends, jm,
+        packed2=dj.packed2 if two_bit else None, return_ragged=True,
+    ))
+    assert (j_pad[0] == 0).sum() == len(seq) and (j_pad[1:] != 0).all()
+    info = {}
+    t_pos, t_pad, t_gid = tp.sample_sort_positions_unbounded(
+        None if two_bit else dt.packed, torch.from_numpy(pos.astype(np.int64)), dt.seg_starts,
+        dt.seg_ends, tm, packed2=dt.packed2 if two_bit else None, return_ragged=True, info=info,
+    )
+    assert info["rounds"] >= 5
+    assert all(_balanced(rows, len(seq)) for rows in info["round_rows"][1:])
+    got = np.concatenate([_u32(x[:-1]) for x in t_pos])
+    assert np.array_equal(got, j_pos[j_pad == 0])
+    assert got.tolist() == sorted(range(len(seq)), key=lambda i: seq[i:])
+    assert np.array_equal(np.concatenate([_u32(g[:-1]) for g in t_gid]), j_gid[j_pad == 0])
 
 
 @pytest.mark.parametrize("two_bit", [True, False])
