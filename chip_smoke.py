@@ -43,6 +43,18 @@ Phases, each of which raises (exit code 1) on failure:
    genome with long N runs (2% of the bases) and sparse IUPAC codes,
    through the same calls and checks (the NumPy parse is not run again); the
    sort must go through the multi-lane sort kernel.
+5b. The upload routes of a pack at 2^27 SBA bytes on both genomes, three
+   interleaved samples of each and their medians, each step timed: the
+   bytes (upload, the device bincount that answered the alphabet before,
+   the pack: the kernel at 2 bits, tensor ops at 4), the strided upload
+   (native strided pack on the host, its upload, the expansion) and, for
+   the record, a pinned-memory upload of the bytes with its pinning; the
+   bytes uploaded and the build's peak device memory; the expansion's
+   device time beside its bound; the host alphabet scan (one thread and
+   threads) beside the device bincount it replaced. The routes' packs are
+   held bitwise against each other (the 2-bit byte route is the pack
+   kernel), and the collection's default build (the bytes) and its strided
+   build against them.
 6. The general 2-bit sort (cap lane, multi-key chain) with Kmers(sc, 20, 48)
    at 2^24 bp under the same checks.
 7. The gather path at 2^22 bp, on 2-bit and on 4-bit keys: a re-sort of a
@@ -88,7 +100,9 @@ Phases, each of which raises (exit code 1) on failure:
     bytes), (31, 31), with and without track_strands_separately. A
     reverse-complement index has the forward index's histogram, and the
     both-strand histogram with the strands tracked apart is the sum of the
-    two.
+    two. At 2^24 bp a both-strand index with the strands tracked apart,
+    sorted at (20, 31), statistics at 20 and 12: the histogram and a count equal a
+    NumPy (k-mer, strand) oracle (ROADMAP.md §C7).
 
 13. Filters, on collections of their own rebuilt from the main paths' host
     arrays (own upload and pack): on phase 4's index, Kmers(sc, 31, 31) on the
@@ -272,11 +286,24 @@ from genome_kmers_tpu_torch.ops.filters import (
     NoAmbiguousBasesFilter,
     flag_plane,
 )
-from genome_kmers_tpu_torch.ops.keys import compute_valid_len, pack_rank2_words, widen_u32
-from genome_kmers_tpu_torch.ops.large import decode_strided_np, split64
+from genome_kmers_tpu_torch.ops.keys import (
+    compute_valid_len,
+    expand_strided2,
+    expand_strided4,
+    pack_rank2_words,
+    pack_rank_words,
+    widen_u32,
+)
+from genome_kmers_tpu_torch.ops.large import (
+    decode_strided_np,
+    pack_rank2_strided_np,
+    pack_rank_strided_np,
+    split64,
+)
 from genome_kmers_tpu_torch.ops.query import encode_query_words
 from genome_kmers_tpu_torch.ops.sort import sort_lanes
 from genome_kmers_tpu_torch.parallel import collectives
+from genome_kmers_tpu_torch.sequence_collection import _DeviceCache
 from genome_kmers_tpu_torch.parallel import (
     load_kmers_sharded,
     make_mesh,
@@ -322,6 +349,8 @@ ROW_LOOP_BP = 1 << 18  # phase 16: to_csv against its row loop (17 us a row on a
 EARLIER_END_TO_END = "2.58 s (ACGT), 2.50-2.83 s (IUPAC)"
 MASK_ROWS = 4096
 MAIN_RECORDS = 24
+ROUTE_SAMPLES = 3  # the upload routes: samples of each, their median reported
+STRAND_C7_BP = 1 << 24  # phase 12: tracked strands below the sorted length, against an oracle
 MAIN_LANES = 6  # the 4-bit k=31 sort: invalid, four words, position
 LANE_SORT_EARLIER_MS = 173.66  # the bitonic tile_pass design, same shape, H100 80GB HBM3 at 700 W
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -1007,6 +1036,167 @@ def check_native_parse(fasta: Path, sc, label: str, compare_plain: bool) -> None
     log(text)
 
 
+def route_build(sba: np.ndarray, bits: int, route: str):
+    """One build of the ``bits`` pack of ``sba`` on the card by ``route``,
+    each step timed to its end: "bytes" (the bytes' upload, the device
+    bincount that answered the alphabet before the host scan did, the pack:
+    the kernel at 2 bits, tensor ops at 4), "strided" (the native strided
+    pack on the host, its upload, the expansion) or "pinned", for the record
+    only (pinning the bytes, then their upload). Returns (the pack or None,
+    seconds by step, bytes uploaded, peak device memory above the start)."""
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t, pack = {}, None
+    if route == "bytes":
+        dev, t["upload"] = sync_time(lambda: torch.from_numpy(sba).to(DEVICE))
+        _, t["device bincount"] = sync_time(lambda: torch.bincount(dev, minlength=256).cpu())
+        pack, t["pack"] = sync_time(
+            lambda: pack_rank2_words_cuda(dev) if bits == 2 else pack_rank_words(dev))
+        sent = sba.nbytes
+    elif route == "strided":
+        host_pack = pack_rank2_strided_np if bits == 2 else pack_rank_strided_np
+        strided, t["host strided pack"] = sync_time(lambda: host_pack(sba))
+        dev, t["upload"] = sync_time(lambda: torch.from_numpy(strided.view(np.int32)).to(DEVICE))
+        expand = expand_strided2 if bits == 2 else expand_strided4
+        pack, t["expansion"] = sync_time(lambda: expand(dev, len(sba)))
+        sent = strided.nbytes
+    else:
+        pinned, t["pin"] = sync_time(lambda: torch.from_numpy(sba).pin_memory())
+        _, t["upload"] = sync_time(lambda: pinned.to(DEVICE, non_blocking=True))
+        sent = sba.nbytes
+    return pack, t, sent, torch.cuda.max_memory_allocated() - base
+
+
+def route_total(t: dict, route: str) -> float:
+    """A route's seconds: the bytes route without its device bincount (the
+    alphabet answer now comes from the host scan on both routes)."""
+    return sum(v for k, v in t.items() if not (route == "bytes" and k == "device bincount"))
+
+
+def route_path(host_sc, bits: int, route: str, counts31: np.ndarray):
+    """The main path's sort and statistics on a collection of its own whose
+    pack took ``route`` ("bytes": the bytes uploaded first, the default;
+    "strided": ``_build_from_strided``): (sort seconds, peak device
+    memory of the path above its start). The histogram must be
+    ``counts31``."""
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sba, seg_starts = index_sba(host_sc)
+    sc, km = from_numpy_state(sba, seg_starts, host_sc.forward_record_names, 31, 31, device=DEVICE)
+    dc = sc.device_cache("forward")
+    if route == "bytes":
+        dc.sba
+    elif bits == 2:
+        dc._packed2 = dc._build_from_strided(2)
+    else:
+        dc._packed = dc._build_from_strided(4)
+    _, t_sort = sync_time(km.sort)
+    counts, _ = km.get_kmer_group_counts(31)
+    if not np.array_equal(counts, counts31) or (dc._sba_dev is None) != (route == "strided"):
+        raise AssertionError(f"the main path by the {route} route differs from phase 4's or 5's")
+    return t_sort, torch.cuda.max_memory_allocated() - base
+
+
+def phase_upload_routes(host_acgt, host_iupac, counts: dict) -> dict:
+    """5b. The two routes of a pack at 2^27 SBA bytes, on the main paths'
+    genomes (the 2-bit pack of the ACGT genome, the 4-bit pack of the
+    IUPAC one): ``ROUTE_SAMPLES`` samples of each, interleaved, and their
+    medians; both routes' packs held bitwise against each other (the
+    2-bit byte route is the pack kernel), and the collection's own builds
+    (``_DeviceCache``: its default, the bytes, which launches the pack
+    kernel at 2 bits, and ``_build_from_strided``, which leaves the bytes
+    on the host) against them. The alphabet answer of a collection whose
+    bytes arrive unscanned (a load, interop) is timed by both means: the
+    native host scan, on one thread and on its default threads, and the
+    device bincount of the uploaded bytes it replaced. Then the main path's
+    sort and statistics by each route, with its peak device memory
+    (``route_path``). Returns the medians by genome."""
+    out = {}
+    dev = torch.device(DEVICE)
+    for host_sc, bits, name in ((host_acgt, 2, "ACGT"), (host_iupac, 4, "IUPAC")):
+        sba, seg_starts = index_sba(host_sc)
+        n = len(sba)
+        label = f"upload routes, {name} genome, {bits}-bit pack of {n} bytes"
+        samples = {"bytes": [], "strided": [], "pinned": []}
+        scans = {"one thread": [], "threads": []}
+        for i in range(ROUTE_SAMPLES):
+            reference = None
+            for route in samples:
+                pack, t, sent, peak = route_build(sba, bits, route)
+                samples[route].append((t, sent, peak))
+                if route == "bytes":
+                    reference = pack
+                elif pack is not None and not torch.equal(pack, reference):
+                    raise AssertionError(f"{label}: the {route} route's pack differs from the "
+                                         f"{'pack kernel' if bits == 2 else 'byte route'}'s")
+                del pack
+            for key, n_threads in (("one thread", 1), ("threads", None)):
+                (_, acgt), t_scan = sync_time(
+                    lambda: native.scan_alphabet_native(sba, native.ALL_BYTES, n_threads=n_threads))
+                scans[key].append(t_scan)
+                if acgt != (bits == 2):
+                    raise AssertionError(f"{label}: the host alphabet scan answers {acgt}")
+            if i == 0:
+                reset_launches()
+                default = _DeviceCache(sba, seg_starts.astype(np.uint32), dev)
+                got = default.packed2 if bits == 2 else default.packed
+                if not torch.equal(got, reference) or default._sba_dev is None or (
+                        bits == 2 and pack_rank2_words_cuda.launches != 1):
+                    raise AssertionError(f"{label}: the collection's default build differs")
+                del got, default
+                strided = _DeviceCache(sba, seg_starts.astype(np.uint32), dev)
+                got = strided._build_from_strided(bits)
+                if not torch.equal(got, reference) or strided._sba_dev is not None:
+                    raise AssertionError(f"{label}: the collection's strided build differs")
+                del got, strided
+            del reference
+        med = {}
+        for route, runs in samples.items():
+            steps = {k: float(np.median([t[k] for t, _, _ in runs])) for k in runs[0][0]}
+            med[route] = {"total": float(np.median([route_total(t, route) for t, _, _ in runs])),
+                          "steps": steps, "sent": runs[0][1],
+                          "peak": int(max(p for _, _, p in runs))}
+        scan_ms = {k: float(np.median(v)) * 1e3 for k, v in scans.items()}
+        strided_dev = torch.from_numpy(
+            (pack_rank2_strided_np if bits == 2 else pack_rank_strided_np)(sba).view(np.int32)).to(dev)
+        expand = expand_strided2 if bits == 2 else expand_strided4
+        expand_ms = cuda_ms(lambda: expand(strided_dev, n), reps=10, warmup=2)
+        bound_ms = (strided_dev.numel() * 4 + 4 * n) / HBM_BYTES_PER_S * 1e3
+        del strided_dev
+        torch.cuda.empty_cache()
+        byte_total = med["bytes"]["total"]
+        strided_total = med["strided"]["total"]
+        for route, m in med.items():
+            log(f"{label}: {route} route median of {ROUTE_SAMPLES}: {m['total'] * 1e3:.3f} ms (samples "
+                + ", ".join(f"{route_total(t, route) * 1e3:.3f}" for t, _, _ in samples[route])
+                + "; step medians " + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in m["steps"].items())
+                + f" ms), {m['sent']} bytes uploaded, build peak {m['peak']} bytes "
+                f"({m['peak'] / 2**20:.1f} MiB)")
+        log(f"{label}: expansion alone {expand_ms:.4f} ms of device time (CUDA events) against its bound "
+            f"{bound_ms:.4f} ms (n/{32 // bits} bytes read, 4n written at 3.35 TB/s); bytes route with "
+            f"its device bincount {(byte_total + med['bytes']['steps']['device bincount']) * 1e3:.3f} ms; "
+            f"pinned upload with its pinning {med['pinned']['total'] * 1e3:.3f} ms (for the record)")
+        log(f"{label}: alphabet answer of unscanned bytes, medians of {ROUTE_SAMPLES}: host scan "
+            f"{scan_ms['one thread']:.3f} ms on one thread, {scan_ms['threads']:.3f} ms on its threads "
+            f"(samples " + ", ".join(f"{t * 1e3:.3f}" for t in scans["threads"]) + "); device bincount "
+            f"of the uploaded bytes {med['bytes']['steps']['device bincount'] * 1e3:.3f} ms")
+        log(f"{label}: the strided route is {'faster' if strided_total < byte_total else 'slower'} "
+            f"here ({strided_total * 1e3:.3f} against {byte_total * 1e3:.3f} ms); the collection "
+            f"packs the bytes at both widths; packs bitwise equal")
+        paths = {route: route_path(host_sc, bits, route, counts[name]) for route in ("bytes", "strided")}
+        log(f"{label}: the main path's sort and statistics by route: "
+            + ", ".join(f"{route} sort {t:.4f} s, path peak {p} bytes ({p / 2**30:.3f} GiB)"
+                        for route, (t, p) in paths.items())
+            + f"; the strided route's peak is {(paths['bytes'][1] - paths['strided'][1]) / 2**20:.1f} "
+            "MiB lower")
+        out[name] = {"bytes_ms": byte_total * 1e3, "strided_ms": strided_total * 1e3,
+                     "pinned_ms": med["pinned"]["total"] * 1e3, "expand_ms": expand_ms,
+                     "expand_bound_ms": bound_ms, "scan_ms": scan_ms}
+    return out
+
+
 def profile_main_calls(fasta: Path, out_dir: Path) -> None:
     """A warm second run of the main path's calls under torch.profiler: the
     device time by kernel, as a table in ``out_dir`` and its head here."""
@@ -1406,7 +1596,39 @@ def phase_strands(rng) -> dict:
         log(f"strands at {total_bp} bp, sort times (s): "
             + ", ".join(f"{name} {t:.4f}" for name, t in times.items())
             + f"; histograms agree across the strands ({pack_rank2_words_cuda.launches} pack launches)")
+    strands_tracked_below_the_sort(rng)
     return launches
+
+
+def strands_tracked_below_the_sort(rng) -> None:
+    """A both-strand index with the strands tracked apart, sorted at (20,
+    31), statistics at 20 and at 12 (ROADMAP.md §C7): every group is a
+    (k-mer, strand) pair, held against a NumPy oracle (np.unique of each
+    row's 2-bit k-mer code and its strand bit)."""
+    records = synthetic_records(rng, STRAND_C7_BP, 24, short_lens=(31, 40))
+    sc = collection_of(records, "both")
+    km = index_of(sc, 20, 31, True)
+    _, t_sort = sync_time(km.sort)
+    pos = km.kmer_sba_start_indices.astype(np.int64)
+    win = kmer_windows(sc, pos, 20, km)
+    is_rc = pos >= km._revcomp_offset()
+    for k in (20, 12):
+        label = f"strands tracked apart, (20, 31) at {STRAND_C7_BP} bp, statistics at {k}"
+        (counts, total), t_stats = sync_time(lambda: km.get_kmer_group_counts(k))
+        count2 = km.get_kmer_count(k, min_group_size=2)
+        code = np.zeros(len(pos), dtype=np.uint64)
+        for j in range(k):
+            code = (code << np.uint64(2)) | RANK2_TABLE[win[:, j]].astype(np.uint64)
+        _, sizes = np.unique((code << np.uint64(1)) | is_rc.astype(np.uint64), return_counts=True)
+        want = np.bincount(np.minimum(sizes, 1000000), minlength=1000001)
+        if not (np.array_equal(counts, want) and total == len(km)
+                and count2 == int(sizes[sizes >= 2].sum())):
+            raise AssertionError(f"{label}: the statistics differ from the (string, strand) oracle")
+        # the JAX package's rule: a cut at every strand change in sorted order
+        cut = np.concatenate([[True], (code[1:] != code[:-1]) | (is_rc[1:] != is_rc[:-1])])
+        log(f"{label}: sort {t_sort:.4f} s, statistics {t_stats:.4f} s; {len(sizes)} groups and "
+            f"{int(sizes[sizes >= 2].sum())} k-mers in groups of 2 or more, equal to the oracle "
+            f"(a cut at every strand change would give {int(cut.sum())} groups)")
 
 
 def library_filters():
@@ -3305,6 +3527,7 @@ def main() -> None:
         sort_launches, sc_iupac, counts31_iupac, pos_iupac = phase_main_path(
             rng, Path(tmp), True, args.profile)
     torch.cuda.empty_cache()
+    phase_upload_routes(sc_acgt, sc_iupac, {"ACGT": counts31, "IUPAC": counts31_iupac})
     phase_general(rng)
     phase_gather_path(rng)
     phase_oracle(rng)

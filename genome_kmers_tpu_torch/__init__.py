@@ -33,6 +33,8 @@ from .large_kmers import LargeKmers
 from .ops.filters import VectorizedFilter
 from .sequence_collection import SequenceCollection
 
+__version__ = "0.1.0"
+
 __all__ = [
     "Kmers",
     "LargeKmers",

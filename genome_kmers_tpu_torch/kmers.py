@@ -95,6 +95,7 @@ from .ops.groups import (
     lanes_sizes_digest,
     selection_masks,
     sizes_digest,
+    strand_order,
 )
 from .ops.keys import (
     build_key2_words,
@@ -1127,7 +1128,7 @@ class Kmers:
             or (kmer_len is not None and kmer_len <= self.max_kmer_len)
         ):
             return None
-        _, _, boundary = self._boundary_parts(kmer_len, kmer_filter_keep_all)
+        order, _, boundary = self._boundary_parts(kmer_len, kmer_filter_keep_all)
         dc = self._dc()
         positions = self._device_positions()
         valid_len = compute_valid_len(positions, dc.seg_starts, dc.seg_ends)
@@ -1135,7 +1136,9 @@ class Kmers:
             self._host_sba(), positions, valid_len, sba_dev=lambda: dc.sba, scans=dc
         )
         kmer_filter_func.check_batch(ctx)
-        return boundary, kmer_filter_func.mask_pure(ctx)
+        mask = kmer_filter_func.mask_pure(ctx)
+        # tracked strands: the boundary is in (string, strand) order
+        return boundary, mask if order is None else mask[order]
 
     def _boundary_parts(self, kmer_len, kmer_filter_func):
         """(survivor index numbers or None, surviving positions,
@@ -1185,11 +1188,17 @@ class Kmers:
                 packed, surv_pos, cap, kmer_len, packed2=packed2, uniform_cap=uniform
             )
         if self.track_strands_separately:
-            # the strand joins the group identity: within a run of equal
-            # strings every "+" entry (index < offset) comes before every
-            # "-" entry, so the per-strand groups are contiguous
+            # the strand joins the group identity: each group's "+" rows
+            # go before its "-" rows (ops/groups.strand_order), and the rows
+            # come back in that order with their index numbers. At the
+            # sort's own uniform length they are already in that order.
             is_rc = surv_pos >= self._revcomp_offset()
-            boundary[1:] |= is_rc[1:] != is_rc[:-1]
+            if kmer_len is not None and kmer_len == self.max_kmer_len <= self.min_kmer_len:
+                boundary[1:] |= is_rc[1:] != is_rc[:-1]
+                return surv_nums, surv_pos, boundary
+            order, boundary = strand_order(boundary, is_rc)
+            surv_nums = order if surv_nums is None else surv_nums[order]
+            surv_pos = surv_pos[order]
         return surv_nums, surv_pos, boundary
 
     def _group_arrays(self, kmer_len, kmer_filter_func, min_group_size, max_group_size,

@@ -38,6 +38,7 @@ from .ops.large import (
     pack_rank2_strided_np,
     pack_rank_strided_np,
 )
+from .ops.groups import strand_order
 from .ops.keys import widen_u32
 
 _ACGT = b"ACGT"
@@ -57,6 +58,27 @@ def _as_bytes(seq) -> bytes:
 def _real(per_shard: list, is_pad: list) -> np.ndarray:
     """The real rows of a per-shard array, in global order, on the host."""
     return np.concatenate([x[~pad].cpu().numpy() for x, pad in zip(per_shard, is_pad)])
+
+
+def _strand_groups(pos, boundary, surv, strand_split: int, min_group_size: int,
+                   max_group_size):
+    """The (string, strand) groups of sorted host rows whose ``boundary``
+    marks the string groups: (order, boundary, size, qualifies), each
+    group's rows stably re-ordered "+" first by ``ops/groups.strand_order``
+    (a count and a scatter, no sort; ``order`` the sorted row of each
+    place), the first row of every strand half, its survivor count there
+    and whether that count is in [max(min, 1), max]."""
+    order, out = strand_order(torch.from_numpy(boundary),
+                              torch.from_numpy(pos >= np.uint64(strand_split)))
+    order, out = order.numpy(), out.numpy()
+    size = np.zeros(len(pos), dtype=np.int64)
+    b_idx = np.flatnonzero(out)
+    if len(b_idx):
+        size[b_idx] = np.add.reduceat(surv[order].astype(np.int64), b_idx)
+    qualifies = out & (size >= max(min_group_size, 1))
+    if max_group_size is not None:
+        qualifies &= size <= max_group_size
+    return order, out, size, qualifies
 
 
 class LargeKmers:
@@ -625,9 +647,12 @@ class LargeKmers:
     # ------------------------------------------------------------------ #
 
     def _rows_for_arrays(self, kmer_len, kmer_filter_func, min_group_size, max_group_size):
-        """Host per-row arrays in global sorted order, pads removed:
-        (positions, survivor mask, boundary, rows a group, boundary rows,
-        expanded group sizes, group qualifies)."""
+        """Host per-row arrays in group order, pads removed: (row numbers
+        in the sorted order, positions, survivor mask, boundary, rows a
+        group, boundary rows, expanded group sizes, group qualifies). Group
+        order is the sorted order, except that with
+        ``track_strands_separately`` each group's "+" rows go before its "-"
+        rows (``_strand_groups``)."""
         from .parallel.large import distributed_group_size_histogram_large_ragged
 
         mask = self._filter_mask(kmer_filter_func, kmer_len)
@@ -639,19 +664,24 @@ class LargeKmers:
             max_group_size=max_group_size, max_counts_bin=1, two_bit=self.two_bit,
             sorted_words=lanes, built_k=self._lanes_k if lanes is not None else None,
             mask=mask, return_rows=True, ext_gid=idk["ext_gid"],
-            strand_split=self._strand_split(),
-        )
+        )  # string groups: the strand halves are taken on the host below
         pos = _real(positions, is_pad).view(np.uint64)
         boundary = _real(rows["boundary"], is_pad)
         size = _real(rows["size"], is_pad)
         qualifies = _real(rows["qualifies"], is_pad)
         surv = np.ones(len(pos), dtype=bool) if mask is None else _real(mask, is_pad)
         assert len(pos) == n_real
+        nums = np.arange(len(pos), dtype=np.int64)
+        if self._track_strands:
+            nums, boundary, size, qualifies = _strand_groups(
+                pos, boundary, surv, self._strand_split(), min_group_size, max_group_size
+            )
+            pos, surv = pos[nums], surv[nums]
         b_idx = np.flatnonzero(boundary)
         counts_per_group = np.diff(np.concatenate([b_idx, [len(pos)]]))
         gst = np.repeat(size[b_idx], counts_per_group)
         gq = np.repeat(qualifies[b_idx], counts_per_group)
-        return pos, surv, boundary, counts_per_group, b_idx, gst, gq
+        return nums, pos, surv, boundary, counts_per_group, b_idx, gst, gq
 
     def get_kmers(
         self,
@@ -720,7 +750,7 @@ class LargeKmers:
         row's index in the sorted order. Host memory O(rows)."""
         self._require_sorted("get_kmers_arrays")
         kmer_len = self._check_kmer_len(kmer_len)
-        pos, surv, boundary, counts_per_group, b_idx, gst, gq = self._rows_for_arrays(
+        nums, pos, surv, boundary, counts_per_group, b_idx, gst, gq = self._rows_for_arrays(
             kmer_len, kmer_filter_func, min_group_size, max_group_size
         )
         svc = np.cumsum(surv.astype(np.int64))
@@ -732,7 +762,7 @@ class LargeKmers:
         sel = np.flatnonzero(yielded)
         gst_sel = gst[sel].astype(np.int64)
         gsy = gst_sel if yield_first_n is None else np.minimum(gst_sel, np.int64(yield_first_n))
-        return sel.astype(np.int64), pos[sel], gsy, gst_sel
+        return nums[sel], pos[sel], gsy, gst_sel
 
     def get_kmers_full_arrays(
         self,

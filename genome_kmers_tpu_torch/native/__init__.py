@@ -12,7 +12,7 @@ Each function here has a plain NumPy version that gives the same bytes and
 that the tests hold it against: ``io/fasta.parse_fasta_bytes`` for the
 parse, ``decode_rows_plain`` / ``decode_rows_var_plain`` for the row
 decoders, ``ops/large.pack_strided_plain`` for the strided pack, a table gather and a flip (``ops/encoding.py``) for the reverse
-complement, ``np.bincount`` for the alphabet check. The parse falls back to
+complement, ``scan_alphabet_plain`` for the alphabet scan. The parse falls back to
 its NumPy version in one case only, the one the native parse reports: more
 records than ``max(1024, len(data) // 8)``.
 
@@ -38,6 +38,7 @@ GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-pthread"]
 _MT_THRESHOLD = 8 << 20  # parse buffers of 8 MB and more with threads
 _ROW_THREADS_BYTES = 4 << 20  # decode with threads from 4 MB of output on
 _PACK_THREADS_BYTES = 4 << 20  # strided pack with threads from 4 MB of input on
+_SCAN_THREADS_BYTES = 4 << 20  # alphabet scan with threads from 4 MB on
 
 
 def _host_cpu() -> bytes:
@@ -77,7 +78,7 @@ def _lib() -> ctypes.CDLL:
     signatures = {
         "gk_fasta_stats": (i64, [u8p, i64, i64p, i64]),
         "gk_fasta_fill": (i64, [u8p, i64, u8p, i64, i64p, i64p]),
-        "gk_validate_alphabet": (i64, [u8p, i64, u8p]),
+        "gk_validate_alphabet": (i64, [u8p, i64, u8p, i64, i64p]),
         "gk_reverse_complement": (None, [u8p, i64, u8p, u8p]),
         "gk_chunk_bounds": (None, [u8p, i64, i64, i64p]),
         "gk_fasta_stats_mt": (i64, [u8p, i64, i64, i64p, i64p, i64p, i64p, i64p, i64p, i64]),
@@ -205,12 +206,41 @@ def _parse_threaded(arr: np.ndarray, n_chunks: int):
     return sba[:sba_len], _seg_starts(seq_lens), spans
 
 
-def validate_alphabet_native(sba: np.ndarray, allowed_bytes) -> int:
-    """The first byte value of ``sba`` outside ``allowed_bytes``, or -1."""
+ACGT_BYTES = frozenset(b"ACGT$")  # the alphabet of the 2-bit keys
+ALL_BYTES = frozenset(range(256))
+
+
+def scan_alphabet_native(sba: np.ndarray, allowed_bytes, n_threads=None) -> tuple[int, bool]:
+    """One pass over ``sba``: (the first byte value outside
+    ``allowed_bytes``, or -1; whether every byte lies in {A, C, G, T, $}),
+    the second False once an offending byte is found. With ``ALL_BYTES``
+    allowed it is the alphabet answer alone. Threads (at most 8) from 4 MB
+    of input on, unless ``n_threads`` is given."""
     table = np.zeros(256, dtype=np.uint8)
     table[list(allowed_bytes)] = 1
     src = np.ascontiguousarray(sba, dtype=np.uint8)
-    return int(_lib().gk_validate_alphabet(_u8(src), src.size, _u8(table)))
+    if n_threads is None:
+        n_threads = 1 if src.size < _SCAN_THREADS_BYTES else min(os.cpu_count() or 1, 8)
+    outside = np.zeros(1, dtype=np.int64)
+    first = int(_lib().gk_validate_alphabet(_u8(src), src.size, _u8(table), n_threads,
+                                            _i64(outside)))
+    return first, not outside[0]
+
+
+def scan_alphabet_plain(sba: np.ndarray, allowed_bytes) -> tuple[int, bool]:
+    """The plain version of ``scan_alphabet_native``: a scan for the first
+    offending byte and a ``np.bincount``."""
+    src = np.asarray(sba, dtype=np.uint8)
+    bad = np.flatnonzero(~np.isin(src, np.fromiter(allowed_bytes, dtype=np.int64)))
+    if len(bad):
+        return int(src[bad[0]]), False
+    present = set(np.flatnonzero(np.bincount(src, minlength=256)).tolist())
+    return -1, present <= ACGT_BYTES
+
+
+def validate_alphabet_native(sba: np.ndarray, allowed_bytes) -> int:
+    """The first byte value of ``sba`` outside ``allowed_bytes``, or -1."""
+    return scan_alphabet_native(sba, allowed_bytes)[0]
 
 
 def reverse_complement_native(sba: np.ndarray, table: np.ndarray) -> np.ndarray:

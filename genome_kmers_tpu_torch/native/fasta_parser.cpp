@@ -277,13 +277,71 @@ void gk_fasta_fill_mt(const uint8_t* data, int64_t n, int64_t n_chunks,
     for (auto& t : ts) t.join();
 }
 
-// Validate alphabet against an allowed-bytes table (256 entries, 1 = ok).
-// Returns the first offending byte value, or -1 if all allowed.
-int64_t gk_validate_alphabet(const uint8_t* sba, int64_t n,
-                             const uint8_t* allowed) {
-    for (int64_t i = 0; i < n; i++) {
-        if (!allowed[sba[i]]) return sba[i];
+namespace {
+
+// One chunk [lo, hi) of the alphabet scan: the index of its first byte of
+// class bit 1 (not allowed), or hi, and the class bits of the bytes before it.
+void scan_alphabet_chunk(const uint8_t* sba, int64_t lo, int64_t hi,
+                         const uint8_t* cls, int64_t* first_bad, uint8_t* seen_out) {
+    uint8_t seen = 0;
+    int64_t i = lo;
+    // blocks of 64 bytes with no branch inside; the block holding the first
+    // offending byte is walked again byte by byte below
+    for (; i + 64 <= hi; i += 64) {
+        uint8_t block = 0;
+        for (int j = 0; j < 64; j++) block |= cls[sba[i + j]];
+        if (block & 2) break;
+        seen |= block;
     }
+    for (; i < hi; i++) {
+        const uint8_t c = cls[sba[i]];
+        if (c & 2) break;
+        seen |= c;
+    }
+    *first_bad = i;
+    *seen_out = seen;
+}
+
+}  // namespace
+
+// Validate alphabet against an allowed-bytes table (256 entries, 1 = ok).
+// Returns the first offending byte value, or -1 if all allowed.  The same
+// pass sets *outside_acgt to 1 when a byte outside {A, C, G, T, $} was seen
+// (the 2-bit keys need none), else 0; after an offending byte it is 1.
+// n_threads equal chunks are scanned at once; the first chunk holding an
+// offending byte gives it.
+int64_t gk_validate_alphabet(const uint8_t* sba, int64_t n,
+                             const uint8_t* allowed, int64_t n_threads,
+                             int64_t* outside_acgt) {
+    // byte class: bit 0 = outside ACGT$, bit 1 = not allowed
+    uint8_t cls[256];
+    for (int b = 0; b < 256; b++) {
+        const bool acgt = b == 'A' || b == 'C' || b == 'G' || b == 'T' || b == '$';
+        cls[b] = static_cast<uint8_t>((acgt ? 0 : 1) | (allowed[b] ? 0 : 2));
+    }
+    if (n_threads < 1) n_threads = 1;
+    std::vector<int64_t> bounds(n_threads + 1), bad(n_threads);
+    std::vector<uint8_t> seen(n_threads);
+    for (int64_t t = 0; t <= n_threads; t++) bounds[t] = n * t / n_threads;
+    if (n_threads == 1) {
+        scan_alphabet_chunk(sba, 0, n, cls, &bad[0], &seen[0]);
+    } else {
+        std::vector<std::thread> ts;
+        for (int64_t t = 0; t < n_threads; t++) {
+            ts.emplace_back(scan_alphabet_chunk, sba, bounds[t], bounds[t + 1], cls,
+                            &bad[t], &seen[t]);
+        }
+        for (auto& th : ts) th.join();
+    }
+    uint8_t all = 0;
+    for (int64_t t = 0; t < n_threads; t++) {
+        if (bad[t] < bounds[t + 1]) {
+            *outside_acgt = 1;
+            return sba[bad[t]];
+        }
+        all |= seen[t];
+    }
+    *outside_acgt = all & 1;
     return -1;
 }
 

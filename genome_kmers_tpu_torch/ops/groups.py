@@ -34,6 +34,42 @@ def group_geometry(boundary: torch.Tensor):
     return start, end, end - start, rank
 
 
+def strand_order(boundary: torch.Tensor, is_rc: torch.Tensor):
+    """The (string, strand) groups of a both-strand index whose strands are
+    tracked apart. ``boundary`` marks the groups at the query's length,
+    ``is_rc`` the "-" rows. Returns ``(order, boundary)``: each group's rows
+    stably re-ordered "+" rows first (``order[j]`` is the row that goes to
+    place j; a group keeps its place), and the first row of every strand
+    half in that order, empty halves dropped.
+
+    Within a group of equal full sort keys the "+" rows already come first
+    (ties go by position, and "+" positions are the smaller), so at the
+    sort's own compare length ``order`` is the identity. Below it, rows of
+    different full strings interleave the strands, which a cut at every
+    strand change would split. A count and one scatter, no sort."""
+    n = boundary.shape[0]
+    dev = boundary.device
+    if n == 0:
+        return torch.zeros(0, dtype=torch.int64, device=dev), boundary
+    plus = (~is_rc).to(torch.int64)
+    plus_before = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(plus, dim=0, out=plus_before[1:])
+    starts = torch.nonzero(boundary).flatten()
+    ends = torch.cat([starts[1:], starts.new_full((1,), n)])
+    n_plus = plus_before[ends] - plus_before[starts]
+    gid = torch.cumsum(boundary, dim=0) - 1
+    start = starts[gid]
+    plus_rank = plus_before[:-1] - plus_before[start]
+    rank = torch.arange(n, dtype=torch.int64, device=dev) - start
+    dest = torch.where(is_rc, start + n_plus[gid] + rank - plus_rank, start + plus_rank)
+    order = torch.empty(n, dtype=torch.int64, device=dev)
+    order[dest] = torch.arange(n, dtype=torch.int64, device=dev)
+    out = boundary.clone()
+    split = starts + n_plus
+    out[split[(n_plus > 0) & (split < ends)]] = True
+    return order, out
+
+
 def group_sizes_at_boundaries(boundary: torch.Tensor) -> torch.Tensor:
     """size[i] = group size where boundary[i] is True, else 0.
 
@@ -154,12 +190,14 @@ def _lanes_filtered_core(words, cap, positions, params, flags_fn, kmer_len: int,
     """(boundary, survivor sizes, error fold) of a filter evaluated on the
     retained sorted key lanes (ops/filters lanes flags: no genome read).
     ``strand_split`` is the first position of the reverse-complement half
-    when the strands are tracked apart, else None."""
+    when the strands are tracked apart, else None: the groups are then
+    (string, strand) (``strand_order``), and the boundary and sizes are
+    in that order."""
     mask, errs = flags_fn(words, cap, positions, params)
     boundary = boundaries_from_sorted_lanes(words, cap, kmer_len, two_bit)
     if strand_split is not None:
-        is_rc = positions >= strand_split
-        boundary[1:] |= is_rc[1:] != is_rc[:-1]
+        order, boundary = strand_order(boundary, positions >= strand_split)
+        mask = mask[order]
     surv = survivor_sizes_at_boundaries(boundary, mask)
     return boundary, surv, fold_err_conditions(errs, positions)
 

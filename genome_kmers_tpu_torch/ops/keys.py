@@ -198,3 +198,60 @@ def build_key2_words(packed2, positions, cap_len, n_words: int, offset: int = 0)
     """``n_words`` 2-bit key words for each position (int32 bit patterns);
     the cap itself must ride as a separate key lane."""
     return _gathered_words(packed2, positions, cap_len, n_words, offset, BASES_PER_WORD2)
+
+
+# --------------------------------------------------------------------------- #
+# strided-pack expansion: per-position words from a host-built strided pack
+# (ops/large.pack_rank{2,}_strided_np), which is 1/4 (2-bit) or 1/2 (4-bit)
+# the bytes of the SBA, so uploading it instead of the bytes cuts the
+# host-to-device copy accordingly. A funnel shift of two adjacent words:
+# out[i] = S[i / bpw] << r | S[i / bpw + 1] >> (32 - r).
+# --------------------------------------------------------------------------- #
+
+
+_EXPAND_STEP = 1 << 24  # positions a step of the expansion: int64 temporaries of 256 MB
+
+
+def _expand_strided(packed_s: torch.Tensor, n: int, per_word: int) -> torch.Tensor:
+    """``n`` per-position words (int32 bit patterns) from a strided pack
+    of int32 bit patterns, ``per_word`` bases a word. A step of words, seen
+    as ``(words, per_word)`` positions, is one broadcast of the words
+    against the field offsets; the shifts are done in int64 and the result
+    is cut to its low 32 bits by a shift up and an arithmetic shift down,
+    which leaves the int32 bit pattern. Steps of ``_EXPAND_STEP``
+    positions bound the int64 temporaries."""
+    nw = -(-n // per_word)
+    if packed_s.shape[0] < nw + 1:
+        raise ValueError(
+            f"a strided pack of {n} bases needs {nw + 1} words (a trailing zero word), "
+            f"got {packed_s.shape[0]}"
+        )
+    sh = torch.arange(per_word, dtype=torch.int64, device=packed_s.device) * (32 // per_word)
+    out = torch.empty(n, dtype=torch.int32, device=packed_s.device)
+    step = _EXPAND_STEP // per_word
+    for w0 in range(0, nw, step):
+        w1 = min(w0 + step, nw)
+        word = widen_u32(packed_s[w0:w1]).unsqueeze(1) << sh
+        # b >> 32 is 0 for a uint32 value: no special case at sh == 0
+        word |= widen_u32(packed_s[w0 + 1 : w1 + 1]).unsqueeze(1) >> (32 - sh)
+        word <<= 32
+        word >>= 32
+        p0, p1 = w0 * per_word, min(w1 * per_word, n)
+        out[p0:p1] = word.reshape(-1)[: p1 - p0]
+    return out
+
+
+def expand_strided2(packed2_s: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-position 2-bit words from a strided pack (16 bases a word):
+    bit-identical to ``pack_rank2_words`` of the original bytes, zero ranks
+    past ``n`` included, which the pack's trailing zero word (the host
+    packers append 8) gives. Plain tensor ops, as the JAX package computes
+    the expansion outside any kernel."""
+    return _expand_strided(packed2_s, n, BASES_PER_WORD2)
+
+
+def expand_strided4(packed_s: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-position 4-bit words from a strided pack (8 bases a word):
+    bit-identical to ``pack_rank_words`` of the original bytes (the same
+    trailing-zero-word requirement)."""
+    return _expand_strided(packed_s, n, BASES_PER_WORD)

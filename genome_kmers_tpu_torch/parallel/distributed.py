@@ -287,11 +287,16 @@ def _dist_sizes_digest(words_fn, positions, cap_len, is_pad, min_gs, max_gs, str
     (they encode the ends of the k-mers too), else the key words
     (``words_fn(i, positions, caps, n_words)`` of local shard i, or the retained
     ``sorted_words`` masked to ``keep_bits`` bits of the last word) and the
-    cap on 2-bit keys; and the strand where ``strand_split`` is given."""
-    n_dev = mesh_size(mesh)
+    cap on 2-bit keys.
+
+    Where ``strand_split`` is given (rows at or past it are "-" k-mers) a
+    group is (string, strand): its "+" and its "-" counted rows are counted
+    apart over the same boundaries and halo arithmetic, so a strand half
+    may straddle a shard edge. ``size`` and ``qualifies`` of a shard are
+    then its "+" halves followed by its "-" halves (twice its rows, each
+    half at its group's first row); empty halves never qualify."""
     valid = [~pad for pad in is_pad]
     counted = valid if mask is None else [m & v for m, v in zip(mask, valid)]
-    all_counted = all_gather([c.sum() for c in counted], mesh)
     lanes = []
     for i in range(len(valid)):
         if ext_gid is not None:
@@ -305,19 +310,39 @@ def _dist_sizes_digest(words_fn, positions, cap_len, is_pad, min_gs, max_gs, str
                 if keep_bits < 32:
                     words[-1] = _masked(words[-1], (0xFFFFFFFF << (32 - keep_bits)) & 0xFFFFFFFF)
             shard = tuple(words) + ((cap,) if two_bit else ())
-        if strand_split is not None:
-            shard += (positions[i] >= strand_split,)
         lanes.append(shard)
     eqs = _halo_adjacent_eq(lanes, valid, mesh)
     del lanes
-    starts, vbs, firsts, boundaries = [], [], [], []
+    boundaries = [~eq & v for eq, v in zip(eqs, valid)]
+    if strand_split is None:
+        size, qualifies, totals = _counted_sizes(boundaries, counted, positions, min_gs, max_gs,
+                                                 mesh)
+    else:
+        is_rc = [pos >= strand_split for pos in positions]
+        halves = [
+            _counted_sizes(boundaries, [c & (r == rc) for c, r in zip(counted, is_rc)],
+                           positions, min_gs, max_gs, mesh)
+            for rc in (False, True)
+        ]
+        size = [torch.cat(pair) for pair in zip(halves[0][0], halves[1][0])]
+        qualifies = [torch.cat(pair) for pair in zip(halves[0][1], halves[1][1])]
+        totals = [a + b for a, b in zip(halves[0][2], halves[1][2])]
+    return size, qualifies, int(psum(totals, mesh)[0]), boundaries
+
+
+def _counted_sizes(boundaries, counted, positions, min_gs, max_gs, mesh):
+    """(size, qualifies, per-shard totals) of ``_dist_sizes_digest`` for
+    one set of counted rows: a group's size is its counted rows, read in
+    counted-row coordinates (the rows of all shards before it), so a group
+    may straddle shard edges."""
+    n_dev = mesh_size(mesh)
+    all_counted = all_gather([c.sum() for c in counted], mesh)
+    starts, vbs, firsts = [], [], []
     for i, p in enumerate(mesh.shard_ids):
-        boundary = ~eqs[i] & valid[i]
-        boundaries.append(boundary)
         c = counted[i].to(torch.int64)
         offset = all_counted[i][:p].sum()
         vidx = offset + torch.cumsum(c, dim=0) - c  # counted rows before each row, all shards
-        b_idx = torch.nonzero(boundary).flatten()
+        b_idx = torch.nonzero(boundaries[i]).flatten()
         vb = vidx[b_idx]
         starts.append(b_idx)
         vbs.append(vb)
@@ -332,7 +357,7 @@ def _dist_sizes_digest(words_fn, positions, cap_len, is_pad, min_gs, max_gs, str
         next_v = torch.cat([vbs[i][1:], after.view(1)])
         size = torch.zeros(positions[i].shape[0], dtype=torch.int64, device=dev)
         size[starts[i]] = torch.minimum(next_v, total_counted) - vbs[i]
-        q = torch.zeros_like(valid[i])
+        q = torch.zeros_like(boundaries[i])
         q[starts[i]] = True
         q &= size >= max(min_gs, 1)  # groups with no counted row never existed for the walk
         if max_gs is not None:
@@ -340,7 +365,7 @@ def _dist_sizes_digest(words_fn, positions, cap_len, is_pad, min_gs, max_gs, str
         sizes.append(size)
         qualifies.append(q)
         totals.append(torch.where(q, size, 0).sum())
-    return sizes, qualifies, int(psum(totals, mesh)[0]), boundaries
+    return sizes, qualifies, totals
 
 
 def distributed_hist_from_sizes(size: list, qualifies: list, max_counts_bin: int, mesh: Mesh):
@@ -408,7 +433,9 @@ def distributed_group_size_histogram_ragged(
     (``kmer_len`` at most their built length); ``mask``, a sharded
     survivor mask, makes the sizes count survivors in unfiltered group
     identity; ``strand_split`` keeps the two strands of a both-strand index
-    apart (positions at or past it are "-" k-mers). ``ext_gid``, sharded
+    apart (positions at or past it are "-" k-mers): a group is then
+    (string, strand), and a shard's sizes are its "+" halves followed by its
+    "-" halves (``_dist_sizes_digest``). ``ext_gid``, sharded
     run ids (``sample_sort.distributed_adjacent_gids`` or the converged ids
     of ``sample_sort_positions_unbounded``), are the group identity alone:
     then ``kmer_len`` may be None or beyond one compare window and the

@@ -81,14 +81,19 @@ def distributed_group_size_histogram_large_ragged(
     the reference's walk); ``ext_gid``, run ids per shard, are the group
     identity at ``kmer_len`` None or beyond one window; ``strand_split``, a
     position, keeps the rows at or past it (the "-" strand) in groups of
-    their own.
+    their own: a group is (string, strand).
 
     Returns ``(counts, total)``: counts a host uint64 array of length
     ``max_counts_bin + 1`` (sizes past the top bin counted in it), total a
     Python int. With ``return_rows`` also ``{"boundary", "size",
     "qualifies"}``, per shard, aligned with the layout: the first row of
     every group, its size (survivors where masked) and whether it
-    qualifies."""
+    qualifies. The rows are those of string groups: with ``strand_split``
+    a shard's sizes hold its "+" halves, then its "-" halves, which no row
+    of the layout lines up with, so ``return_rows`` raises there (take the
+    strand halves from the string groups' rows instead)."""
+    if return_rows and strand_split is not None:
+        raise ValueError("return_rows gives the rows of string groups: pass no strand_split")
     limit = 64 if two_bit else 32
     if ext_gid is None and (kmer_len is None or kmer_len > limit):
         raise NotImplementedError(

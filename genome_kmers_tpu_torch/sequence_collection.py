@@ -4,11 +4,19 @@ Counterpart of ``genome_kmers_tpu/sequence_collection.py``. The host side
 is the same code with the same error strings: records joined by '$' into
 one ASCII "sequence byte array" (SBA), uint32 segment starts, record names
 in read order; the FASTA parse, the alphabet check and the reverse
-complement of a large SBA run in the native library (``native/``). The device side is a ``_DeviceCache`` of torch tensors
-on the collection's explicit ``device``: the segment starts and ends, the
-2-bit pack of an ACGT genome, built on a CUDA device by the hand written
-kernel ``kernels/pack2.py``, the 4-bit pack that any genome has, and the
-filters' genome scans and flag planes (ops/filters.py).
+complement of a large SBA run in the native library (``native/``); the
+alphabet scan also answers whether the genome is ACGT only. The device side
+is a ``_DeviceCache`` of torch tensors on the collection's explicit
+``device``: the segment starts and ends, the 2-bit pack of an ACGT genome,
+the 4-bit pack that any genome has, and the filters' genome scans and flag
+planes (ops/filters.py). The packs are built from the uploaded bytes: the
+2-bit pack by the hand-written kernel ``kernels/pack2.py`` on a CUDA
+device, the 4-bit pack by tensor ops. ``_DeviceCache._build_from_strided``
+is the strided upload of the JAX package: the host packs the bytes
+strided (``ops/large.pack_rank{2,}_strided_np``, 1/4 or 1/2 the bytes),
+uploads that and expands it on the device (``ops/keys.expand_strided2/4``)
+to the same words, the bytes never crossing. Timed on an H100 it lost to
+the bytes at 2 bits and tied at 4 (PERF.md §6), so no path takes it.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ import torch
 
 from .io.fasta import _get_fasta_record_name, parse_fasta_file
 from .kernels.pack2 import pack_rank2_words_cuda
-from .native import validate_alphabet_native
+from .native import ALL_BYTES, scan_alphabet_native
 from .ops.encoding import COMPLEMENT_TABLE, reverse_complement_bytes
 from .ops.filters import (
     _gc_cumsum_ranks2,
@@ -34,7 +42,14 @@ from .ops.filters import (
     _run_lengths_ranks4,
     no_ambiguous_scan,
 )
-from .ops.keys import compute_seg_ends, pack_rank_words, valid_len_all
+from .ops.keys import (
+    compute_seg_ends,
+    expand_strided2,
+    expand_strided4,
+    pack_rank_words,
+    valid_len_all,
+)
+from .ops.large import pack_rank2_strided_np, pack_rank_strided_np
 
 
 def resolve_device(device) -> torch.device:
@@ -127,13 +142,15 @@ class _DeviceCache:
     """Lazily built device tensors of one strand's SBA: the raw bytes, the
     segment starts and ends (int64), the 2-bit and 4-bit packs (int32 bit
     patterns of uint32 words), and the filters' genome scans (int32) and
-    flag planes (uint8)."""
+    flag planes (uint8). ``acgt_only`` seeds the alphabet answer where the
+    collection's scan already knows it."""
 
-    def __init__(self, sba: np.ndarray, seg_starts: np.ndarray, device: torch.device):
+    def __init__(self, sba: np.ndarray, seg_starts: np.ndarray, device: torch.device,
+                 acgt_only=None):
         self._sba_np = sba
         self._seg_starts_np = seg_starts
         self.device = device
-        self._is_acgt_only = None
+        self._is_acgt_only = acgt_only
         self._sba_dev = None
         self._packed = None
         self._packed2 = None
@@ -158,14 +175,26 @@ class _DeviceCache:
     @property
     def is_acgt_only(self) -> bool:
         """True when the SBA alphabet is a subset of {A,C,G,T,$}, which the
-        2-bit keys need. Counted on the device from the uploaded bytes (a
-        host ``np.bincount`` of 2^27 bytes took 0.6 s beside an H100 80GB
-        HBM3 at 700 W)."""
+        2-bit keys need: the answer of the collection's alphabet scan where
+        it seeded one, else one native scan of the host bytes on up to 8
+        threads (no device pass: the strided upload never needs the bytes
+        on the device)."""
         if self._is_acgt_only is None:
-            counts = torch.bincount(self.sba, minlength=256).cpu().numpy()
-            present = set(np.flatnonzero(counts))
-            self._is_acgt_only = present <= {ord(c) for c in "ACGT$"}
+            self._is_acgt_only = scan_alphabet_native(self._sba_np, ALL_BYTES)[1]
         return self._is_acgt_only
+
+    def _build_from_strided(self, bits: int) -> torch.Tensor:
+        """Per-position packed words through the strided upload: the host
+        packs the SBA strided (``bits`` 2 or 4 a base), the pack is
+        uploaded, and the device expands it; the bytes stay on the host.
+        Equal to ``packed2`` / ``packed`` bit for bit. A failure of any step
+        raises: no other route is tried."""
+        n = len(self._sba_np)
+        if bits == 2:
+            strided, expand = pack_rank2_strided_np(self._sba_np), expand_strided2
+        else:
+            strided, expand = pack_rank_strided_np(self._sba_np), expand_strided4
+        return expand(torch.from_numpy(strided.view(np.int32)).to(self.device), n)
 
     @property
     def packed(self) -> torch.Tensor:
@@ -286,6 +315,11 @@ class SequenceCollection:
         self._fasta_file_path = None
         self._device = {}
         self._both_concat = None
+        # (ACGT only, the host SBAs it holds for): the answer of the
+        # alphabet scan at construction, which every strand shares (the
+        # complement maps ACGT$ onto itself)
+        self._alphabet = None
+        self._scanned_acgt = None  # the answer of the last alphabet scan
 
         self._initialize_mapping_arrays()
 
@@ -359,8 +393,25 @@ class SequenceCollection:
                 arrays = self.both_concat_arrays()
             else:
                 raise ValueError(f"sba_strand ({sba_strand}) not recognized")
-            self._device[sba_strand] = _DeviceCache(*arrays, self.device)
+            sources = {"forward": (self.forward_sba,), "reverse_complement": (self.revcomp_sba,),
+                       "both_concat": (self.forward_sba, self.revcomp_sba)}[sba_strand]
+            self._device[sba_strand] = _DeviceCache(
+                *arrays, self.device, acgt_only=self._known_acgt(*sources)
+            )
         return self._device[sba_strand]
+
+    def _known_acgt(self, *sbas):
+        """The alphabet scan's answer where every one of the host ``sbas``
+        is an array it holds for, else None (an SBA set from outside, as
+        ``interop`` does, is scanned when asked)."""
+        if self._alphabet is None:
+            return None
+        answer, known = self._alphabet
+        return answer if all(any(a is k for k in known) for a in sbas) else None
+
+    def _keep_alphabet(self, acgt_only: bool) -> None:
+        self._alphabet = (acgt_only, tuple(
+            a for a in (self.forward_sba, self.revcomp_sba) if a is not None))
 
     # ------------------------------------------------------------------ #
     # dunder / info
@@ -457,10 +508,13 @@ class SequenceCollection:
         return _get_fasta_record_name(line)
 
     def _validate_alphabet(self, sba: np.ndarray) -> None:
-        """Reject bytes outside IUPAC + '$'. The native scan checks; only
-        when it finds an offending byte does ``np.bincount`` run, because
-        the message lists every offending byte value."""
-        if validate_alphabet_native(sba, self._allowed_uint8) < 0:
+        """Reject bytes outside IUPAC + '$', and keep in ``_scanned_acgt``
+        whether every byte is one of ACGT$ (the 2-bit keys' alphabet), in
+        one native scan; only when it finds an offending byte does
+        ``np.bincount`` run, because the message lists every offending byte
+        value."""
+        first_bad, self._scanned_acgt = scan_alphabet_native(sba, self._allowed_uint8)
+        if first_bad < 0:
             return
         counts = np.bincount(sba, minlength=256)
         values_not_allowed = {int(v) for v in np.flatnonzero(counts)} - self._allowed_uint8
@@ -505,6 +559,7 @@ class SequenceCollection:
             self.reverse_complement()
 
         self._strands_loaded = strands_to_load
+        self._keep_alphabet(self._scanned_acgt)
 
     @staticmethod
     def _get_required_sba_length_from_sequence_list(sequence_list) -> int:
@@ -587,6 +642,7 @@ class SequenceCollection:
             self.revcomp_record_names.reverse()
 
         self._strands_loaded = strands_to_load
+        self._keep_alphabet(self._scanned_acgt)
 
     # ------------------------------------------------------------------ #
     # strand manipulation
@@ -596,6 +652,8 @@ class SequenceCollection:
         if self._strands_loaded == "both":
             raise ValueError(f"self._strands_loaded ({self._strands_loaded}) cannot be 'both'")
         self._invalidate_device_cache()
+        acgt_only = self._known_acgt(
+            self.forward_sba if self._strands_loaded == "forward" else self.revcomp_sba)
 
         if self._strands_loaded == "forward":
             self.revcomp_sba = reverse_complement_bytes(self.forward_sba)
@@ -619,6 +677,8 @@ class SequenceCollection:
             self.forward_record_names.reverse()
             self.revcomp_record_names = None
             self._strands_loaded = "forward"
+        if acgt_only is not None:
+            self._keep_alphabet(acgt_only)
 
     @staticmethod
     def _get_opposite_strand_sba_index(sba_idx: int, sba_len: int) -> int:
@@ -884,6 +944,7 @@ class SequenceCollection:
                 self._fasta_file_path = Path(self._fasta_file_path)
             self._initialize_mapping_arrays()
             self._invalidate_device_cache()
+            self._alphabet = None  # the loaded arrays were not scanned
 
     def _save_shelve(self, save_file_path) -> None:
         with shelve.open(save_file_path, protocol=pickle.DEFAULT_PROTOCOL) as db:
@@ -908,3 +969,4 @@ class SequenceCollection:
             self._fasta_file_path = db["seq_coll._fasta_file_path"]
             self._initialize_mapping_arrays()
             self._invalidate_device_cache()
+            self._alphabet = None  # the loaded arrays were not scanned

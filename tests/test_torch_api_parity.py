@@ -255,3 +255,7 @@ def test_mapping_attributes_match_jax():
     assert np.array_equal(sc._uint8_to_u1_mapping, jsc._uint8_to_u1_mapping)
     assert sc._uint8_to_u1_mapping.dtype == jsc._uint8_to_u1_mapping.dtype
     assert sc._u1_to_uint8_mapping == jsc._u1_to_uint8_mapping
+
+
+def test_version_matches_jax():
+    assert gt.__version__ == gj.__version__ == "0.1.0"

@@ -29,6 +29,7 @@ from genome_kmers_tpu.parallel import make_mesh as j_make_mesh
 from genome_kmers_tpu_torch.interop import large_from_numpy_state
 from genome_kmers_tpu_torch.ops import filters as tf
 from genome_kmers_tpu_torch.parallel import make_mesh
+from test_torch_strand_tracked import both_sba, tracked_hist, tracked_walk
 
 SHARDS = (1, 2, 4)
 J_DEV = 1  # the JAX mesh of the references
@@ -137,21 +138,51 @@ def test_sort_and_statistics_match_jax(two_bit, mn, mx):
                 assert got == w
 
 
+def _tracked_want(j, t, name: str, kmer_len):
+    """The oracle's answer on a strand-tracked both-strand index, whose
+    groups are (string, strand) (tests/test_torch_strand_tracked.py); the
+    record columns of each row are the JAX package's."""
+    pos, split = j.sorted_positions(), t._strand_split()
+    sba = both_sba(_records(True))
+    if name == "count":
+        return tracked_hist(sba, pos, split, kmer_len)[1]
+    if name == "full yields":
+        info = {r[0]: r[1:5] for r in j.get_kmers(kmer_len, kmer_info_to_yield="full")}
+        return [(n, *info[n], y, g)
+                for n, y, g in tracked_walk(sba, pos, split, kmer_len, yield_first_n=1)]
+    every = j.get_kmers_full_arrays(kmer_len, one_based_seq_index=name == "full arrays, 1-based")
+    place = {int(n): i for i, n in enumerate(every["kmer_num"])}
+    walk = tracked_walk(sba, pos, split, kmer_len)
+    out = {key: col[[place[n] for n, _, _ in walk]] for key, col in every.items()}
+    out["group_size_yielded"] = np.array([y for _, y, _ in walk], dtype=out["group_size_yielded"].dtype)
+    out["group_size_total"] = np.array([g for _, _, g in walk], dtype=out["group_size_total"].dtype)
+    return out
+
+
 @pytest.mark.parametrize("track,mx", [(False, 31), (True, 31), (True, None)])
 def test_both_strands_match_jax(track, mx):
     """A both-strand index, with and without strand-split groups: counts,
-    full-info arrays (strand "-", forward coordinates) and yields."""
+    full-info arrays (strand "-", forward coordinates) and yields. Tracked,
+    at a length other than the sort's own, a group is (string, strand),
+    which the JAX package splits at every strand change (ROADMAP.md §C7):
+    there the port is held to the string oracle."""
     j, t = _pair(True, 8 if mx else 1, mx, both=True, track=track)
     calls = [
-        lambda k: k.get_kmer_group_counts(mx, max_counts_bin=9),
-        lambda k: k.get_kmer_count(8),
-        lambda k: k.get_kmers_full_arrays(None, one_based_seq_index=True),
-        lambda k: list(k.get_kmers(None, kmer_info_to_yield="full", yield_first_n=1)),
-        lambda k: k.get_kmers_full_arrays(8),
+        ("hist", mx, lambda k: k.get_kmer_group_counts(mx, max_counts_bin=9)),
+        ("count", 8, lambda k: k.get_kmer_count(8)),
+        ("full arrays, 1-based", None,
+         lambda k: k.get_kmers_full_arrays(None, one_based_seq_index=True)),
+        ("full yields", None,
+         lambda k: list(k.get_kmers(None, kmer_info_to_yield="full", yield_first_n=1))),
+        ("full arrays", 8, lambda k: k.get_kmers_full_arrays(8)),
     ]
-    want = [_outcome(lambda c=c: c(j)) for c in calls]
+    want = [_outcome(lambda c=c: c(j)) for _, _, c in calls]
+    for i, (name, kmer_len, _) in enumerate(calls):
+        raised = isinstance(want[i], tuple) and name != "hist"
+        if track and kmer_len != mx and not raised:
+            want[i] = _tracked_want(j, t, name, kmer_len)
     for _ in _each_mesh(t):
-        for c, w in zip(calls, want):
+        for (_, _, c), w in zip(calls, want):
             assert _equal(_outcome(lambda: c(t)), w)
 
 
