@@ -232,7 +232,29 @@ Phases, each of which raises (exit code 1) on failure:
     mean rows a shard. Each rank prints its seconds, peak device memory and
     kernel launches by step (the exchange's host staging under Gloo
     included, with the bytes staged); the launches go into the kernels
-    line under the runs' names.
+    line under the runs' names. On the ranks of (b) also phase 20 (d): the
+    odd-even merge sort of every (31, 31) start of the ACGT genome at 2^27
+    over the 4 Gloo ranks, each rank's positions against phase 4's.
+
+20. The opt-in sorts (the JAX package's routes off every default), on
+    phase 4's and phase 5's collections and positions, (31, 31) at 2^27
+    SBA bytes, each output held bit for bit against phase 4's or 5's
+    positions, warm medians of 3 beside the default route of the same
+    positions. (a) ``ops.hybrid.hybrid_sort_positions`` of every start of
+    the IUPAC genome (``uniform_cap``; ``packed2_any`` built by the pack
+    kernel on the first call): its ambiguous share, its ms cold and warm
+    and by step (split, majority 2-bit sort, minority 4-bit sort, insertion
+    ranks, interleave), beside the 4-bit ``sort_positions`` of the same
+    positions and ``Kmers.sort()``. (b) ``ops.chunked.sort_positions_chunked``
+    at the default 2^24 rows a chunk on both genomes (a collection of its
+    own a genome, its upload and pack counted with the path), ms and peak
+    memory beside one ``sort_positions``. (c)
+    ``parallel.distributed_sort_positions`` on 4 shards of cuda:0 and on
+    ``make_mesh(1)``, both genomes (the collections of (b)), ms, launches
+    (one local sort a shard and one merge a paired shard a phase, all
+    through the lane sort) and peak memory beside the sample sort of the
+    same positions to its layout on the same mesh. Launches of both kernels
+    by path.
 
 ``--profile DIR`` adds a warm second run of phase 5's calls and of phase 9's,
 and a canonical dense-route call and a count_queries call of phase 14 on
@@ -301,16 +323,23 @@ from genome_kmers_tpu_torch.ops.large import (
     split64,
 )
 from genome_kmers_tpu_torch.ops.query import encode_query_words
-from genome_kmers_tpu_torch.ops.sort import sort_lanes
+from genome_kmers_tpu_torch.ops import hybrid
+from genome_kmers_tpu_torch.ops.chunked import sort_positions_chunked
+from genome_kmers_tpu_torch.ops.keys import cap_lengths
+from genome_kmers_tpu_torch.ops.sort import sort_lanes, sort_positions
 from genome_kmers_tpu_torch.parallel import collectives
 from genome_kmers_tpu_torch.sequence_collection import _DeviceCache
 from genome_kmers_tpu_torch.parallel import (
+    distributed_sort_positions,
     load_kmers_sharded,
     make_mesh,
     make_mesh2,
+    sample_sort_positions,
+    sample_sort_positions_ragged,
     sample_sort_positions_unbounded,
     save_kmers_sharded,
 )
+from genome_kmers_tpu_torch.parallel.sample_sort import ragged_rows
 
 DEVICE = "cuda"
 SEED = 20261016
@@ -3208,6 +3237,25 @@ def rank_run_nccl(rank: int, world: int, tmp: Path) -> dict:
     return out
 
 
+def rank_oddeven(sc, mesh, out: dict) -> None:
+    """The odd-even merge sort of every (31, 31) start of a rank's ACGT
+    collection over the process mesh; records the seconds, the rows'
+    digest, the launches, the staging and the peak in ``out["oddeven"]``."""
+    dc = sc.device_cache("forward")
+    pos = torch.from_numpy(gkt.Kmers(sc, 31, 31).kmer_sba_start_indices.astype(np.int64)).to(dc.device)
+    reset_launches()
+    collectives.reset_traffic()
+    torch.cuda.reset_peak_memory_stats()
+    got, seconds = sync_time(lambda: distributed_sort_positions(
+        None, pos, dc.seg_starts, dc.seg_ends, 31, mesh, packed2=dc.packed2))
+    out["oddeven"] = {
+        "seconds": seconds, "rows": digest(got.cpu().numpy().astype(np.uint32)),
+        "launches": {"pack_rank2_words_cuda": pack_rank2_words_cuda.launches,
+                     "sort_lanes_cuda": sort_lanes_cuda.launches},
+        "traffic": dict(collectives.TRAFFIC), "peak": torch.cuda.max_memory_allocated(),
+    }
+
+
 def rank_run_gloo4(rank: int, world: int, tmp: Path) -> dict:
     """(b) and (d): 4 ranks over Gloo, one shard of the card each."""
     mesh = make_mesh(devices=[f"{DEVICE}:0"])
@@ -3237,7 +3285,10 @@ def rank_run_gloo4(rank: int, world: int, tmp: Path) -> dict:
                 "sort_lanes_cuda": sort_lanes_cuda.launches},
             "rows": digest(lk.sorted_positions().astype(np.uint32)),
             "counts": lk.get_kmer_group_counts(31)[0].astype(np.int64)}
-        del sc, lk
+        del lk
+        if key == "ACGT":  # the odd-even merge sort over the same ranks (phase 20 (d))
+            rank_oddeven(sc, mesh, out)
+        del sc
         torch.cuda.empty_cache()
     # (d) suffix mode at PROCESS_SUFFIX_BP, the refinement rounds balanced
     sc, km = rank_collection(tmp, "suffix", 1, None)
@@ -3469,6 +3520,16 @@ def phase_process_mesh(host_acgt, host_iupac, positions, counts, rng_seed: int) 
                 out[name][label] = n
             out["sort_lanes_cuda"][f"{label}, LargeKmers"] = sum_launches(
                 results, f"{key} large")["sort_lanes_cuda"]
+        label = f"odd-even merge sort (phase 20 (d)), Gloo {MESH_SHARDS} ranks x 1 shard, ACGT 2^27 (31, 31)"
+        for rank, r in enumerate(results):
+            res = r["oddeven"]
+            if res["rows"] != digest(positions["ACGT"]):
+                raise AssertionError(f"{label}: rank {rank}'s positions differ from phase 4's")
+            log(f"{label}, rank {rank}: {res['seconds']:.4f} s, equal to phase 4's positions; "
+                f"collectives {res['traffic']['collectives']}, {res['traffic']['staged_bytes']} bytes "
+                f"staged between card and host in {res['traffic']['staging_seconds']:.4f} s; peak "
+                f"{res['peak'] / 2**30:.3f} GiB; launches {res['launches']}")
+        out["sort_lanes_cuda"][label] = sum(r["oddeven"]["launches"]["sort_lanes_cuda"] for r in results)
         label = f"process mesh (d) Gloo {MESH_SHARDS} ranks, ACGT suffix mode at {PROCESS_SUFFIX_BP} bp"
         want_index, (want_counts, want_total) = suffix_ref
         if not np.array_equal(np.load(tmp / "suffix-index.npy"), want_index):
@@ -3511,6 +3572,222 @@ def phase_process_mesh(host_acgt, host_iupac, positions, counts, rng_seed: int) 
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 20: the opt-in sorts
+# --------------------------------------------------------------------------- #
+
+OPT_IN_REPS = 3  # warm calls of each timed sort; their median is reported
+
+
+def warm_median(fn, reps: int = OPT_IN_REPS):
+    """(the last output, the median seconds of ``reps`` calls), host clock
+    after a synchronise."""
+    times, out = [], None
+    for _ in range(reps):
+        out = None  # the previous call's output is not held during the next
+        out, t = sync_time(fn)
+        times.append(t)
+    return out, float(np.median(times))
+
+
+def warm_median_peak(fn, reps: int = OPT_IN_REPS):
+    """``warm_median`` and the peak device memory of those calls above what
+    was held before them."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, t = warm_median(fn, reps)
+    return out, t, torch.cuda.max_memory_allocated() - held
+
+
+def starts_of(sc) -> torch.Tensor:
+    """Every (31, 31) start of the collection, ascending, int64 on the card."""
+    pos = gkt.Kmers(sc, 31, 31).kmer_sba_start_indices
+    return torch.from_numpy(pos.astype(np.int64)).to(DEVICE)
+
+
+def check_positions(got: torch.Tensor, want: np.ndarray, label: str) -> None:
+    if not np.array_equal(got.cpu().numpy(), want):
+        raise AssertionError(f"{label}: the sorted positions differ from the main path's")
+
+
+def fresh_collection(host_sc):
+    """A collection of its own (its own upload and pack to come) from the
+    host arrays."""
+    sba, seg_starts = index_sba(host_sc)
+    sc, _ = from_numpy_state(sba, seg_starts, host_sc.forward_record_names, 31, 31, device=DEVICE)
+    return sc
+
+
+def opt_in_hybrid(host_iupac, expected: np.ndarray) -> dict:
+    """(a): the hybrid sort of every (31, 31) start of the IUPAC main path,
+    its steps, and the 4-bit routes; returns the launches of its path."""
+    label = "hybrid sort, IUPAC main path 2^27 (31, 31)"
+    dc = host_iupac.device_cache("forward")
+    pos = starts_of(host_iupac)
+    caps = lambda p: hybrid._caps_of(p, dc.seg_starts, dc.seg_ends, 31)  # noqa: E731
+
+    def run():  # packed2_any is built on the first call, by the pack kernel
+        return hybrid.hybrid_sort_positions(dc.packed, dc.packed2_any, pos, dc.seg_starts,
+                                            dc.seg_ends, 31, dc.next_amb, uniform_cap=True)
+
+    _ = dc.packed, dc.next_amb  # the main path's, built before
+    reset_launches()
+    got, t_cold = sync_time(run)
+    launches = {"pack_rank2_words_cuda": pack_rank2_words_cuda.launches,
+                "sort_lanes_cuda": sort_lanes_cuda.launches}
+    check_positions(got, expected, label)
+    if launches["pack_rank2_words_cuda"] != 1 or launches["sort_lanes_cuda"] != 2:
+        raise AssertionError(f"{label}: expected one pack and two lane sorts, got {launches}")
+    _, t_warm, peak = warm_median_peak(run)
+    # step by step
+    (m_pos, a_pos), t_split = warm_median(
+        lambda: hybrid._split(pos, hybrid.ambiguity_mask(dc.next_amb, pos, caps(pos))))
+    m_sorted, t_major = warm_median(lambda: sort_positions(
+        None, m_pos, caps(m_pos), 31, packed2=dc.packed2_any, uniform_cap=True)[0])
+    a_sorted, t_minor = warm_median(lambda: sort_positions(dc.packed, a_pos, caps(a_pos), 31)[0])
+    ins, t_ins = warm_median(lambda: hybrid._insertion_ranks_impl(
+        dc.packed, m_sorted, caps(m_sorted), a_sorted, caps(a_sorted), 4))
+    merged, t_inter = warm_median(lambda: hybrid._interleave(m_sorted, a_sorted, ins))
+    check_positions(merged, expected, f"{label}, step by step")
+    share = a_pos.shape[0] / pos.shape[0]
+    del m_pos, a_pos, m_sorted, a_sorted, ins, merged
+    # the 4-bit routes: the gather sort of the same positions, and Kmers.sort()
+    four, t_four = warm_median(lambda: sort_positions(dc.packed, pos, caps(pos), 31)[0])
+    check_positions(four, expected, f"{label}, 4-bit gather sort")
+    del four
+
+    def kmers_sort():
+        km = gkt.Kmers(host_iupac, 31, 31)
+        km.sort()
+        return km
+
+    km, t_kmers = warm_median(kmers_sort)
+    if not np.array_equal(km.kmer_sba_start_indices, expected):
+        raise AssertionError(f"{label}: Kmers.sort() differs from the main path's")
+    del km, pos
+    torch.cuda.empty_cache()
+    log(f"{label}: ambiguous windows {share:.6f} of {len(expected)}; hybrid_sort_positions "
+        f"{t_cold * 1e3:.3f} ms cold (packed2_any built in it), {t_warm * 1e3:.3f} ms warm "
+        f"(median of {OPT_IN_REPS}), equal to phase 5's positions; steps (warm medians, ms): split "
+        f"{t_split * 1e3:.3f}, majority 2-bit sort {t_major * 1e3:.3f}, minority 4-bit sort "
+        f"{t_minor * 1e3:.3f}, insertion ranks {t_ins * 1e3:.3f}, interleave {t_inter * 1e3:.3f}; "
+        f"4-bit sort_positions of the same positions {t_four * 1e3:.3f} ms, Kmers.sort() "
+        f"{t_kmers * 1e3:.3f} ms; launches {launches}; peak device memory of the warm calls "
+        f"{peak / 2**30:.3f} GiB above the collection and the positions")
+    return launches
+
+
+def opt_in_chunked(dc, pos: torch.Tensor, expected: np.ndarray, key: str) -> dict:
+    """(b): the chunked sort at the default chunk_rows, beside one sort of
+    the same positions; returns the launches counted since the caller set
+    them to 0 (the collection's own pack, on 2-bit keys, included)."""
+    label = f"chunked sort, {key} 2^27 (31, 31), chunk_rows 2^24"
+    two_bit = dc.is_acgt_only
+    packed, packed2 = (None, dc.packed2) if two_bit else (dc.packed, None)
+    cap_fn = lambda p: cap_lengths(compute_valid_len(p, dc.seg_starts, dc.seg_ends), 31)  # noqa: E731
+
+    def chunked():
+        return sort_positions_chunked(packed, pos, cap_fn, 31, packed2=packed2, uniform_cap=two_bit)
+
+    def one_sort():
+        return sort_positions(packed, pos, cap_fn(pos), 31, packed2=packed2, uniform_cap=two_bit)[0]
+
+    got, t_cold = sync_time(chunked)
+    launches = {"pack_rank2_words_cuda": pack_rank2_words_cuda.launches,
+                "sort_lanes_cuda": sort_lanes_cuda.launches}
+    check_positions(got, expected, label)
+    n_chunks = -(-pos.shape[0] // (1 << 24))
+    if launches["sort_lanes_cuda"] < 2 * n_chunks + 1 or (two_bit and launches["pack_rank2_words_cuda"] < 1):
+        raise AssertionError(f"{label}: a kernel of the path did not launch ({launches})")
+    del got
+    _, t_warm, peak = warm_median_peak(chunked)
+    one, t_one_cold = sync_time(one_sort)
+    check_positions(one, expected, f"{label}, one sort")
+    del one
+    _, t_one, peak_one = warm_median_peak(one_sort)
+    log(f"{label}: {n_chunks} chunks; sort_positions_chunked {t_cold * 1e3:.3f} ms cold, "
+        f"{t_warm * 1e3:.3f} ms warm (median of {OPT_IN_REPS}), peak device memory "
+        f"{peak / 2**30:.3f} GiB above the collection and the positions; one sort_positions of "
+        f"the same positions {t_one * 1e3:.3f} ms warm ({t_one_cold * 1e3:.3f} ms cold), peak "
+        f"{peak_one / 2**30:.3f} GiB; both equal to the main path's positions; launches {launches}")
+    return launches
+
+
+def opt_in_oddeven(dc, pos: torch.Tensor, expected: np.ndarray, key: str, mesh,
+                   mesh_name: str) -> dict:
+    """(c): the odd-even merge sort, beside the sample sort of the same
+    positions on the same mesh; returns the launches of its sort."""
+    label = f"odd-even merge sort, {mesh_name}, {key} 2^27 (31, 31)"
+    two_bit = dc.is_acgt_only
+    packed, packed2 = (None, dc.packed2) if two_bit else (dc.packed, None)
+
+    def oddeven():
+        return distributed_sort_positions(packed, pos, dc.seg_starts, dc.seg_ends, 31, mesh,
+                                          packed2=packed2)
+
+    def sample():  # the sample sort's layout on the shards, as Kmers.sort(mesh=) keeps it
+        return sample_sort_positions_ragged(packed, pos, dc.seg_starts, dc.seg_ends, 31, mesh,
+                                            packed2=packed2, uniform_cap=two_bit)
+
+    reset_launches()
+    got, t_cold = sync_time(oddeven)
+    launches = {"pack_rank2_words_cuda": pack_rank2_words_cuda.launches,
+                "sort_lanes_cuda": sort_lanes_cuda.launches}
+    check_positions(got, expected, label)
+    n_dev = mesh.n_shards
+    merges = sum(2 * (n_dev // 2) if phase % 2 == 0 else 2 * ((n_dev - 1) // 2)
+                 for phase in range(n_dev))
+    if launches["sort_lanes_cuda"] != n_dev + merges:
+        raise AssertionError(f"{label}: expected {n_dev} local sorts and {merges} merges through "
+                             f"the lane sort, got {launches}")
+    del got
+    _, t_warm, peak = warm_median_peak(oddeven)
+    (rag_pos, rag_pad), t_sample_cold = sync_time(sample)
+    if not np.array_equal(ragged_rows(rag_pos, rag_pad), expected):
+        raise AssertionError(f"{label}, sample sort: the real rows differ from the main path's")
+    del rag_pos, rag_pad
+    _, t_sample, peak_sample = warm_median_peak(sample)
+    log(f"{label}: distributed_sort_positions {t_cold * 1e3:.3f} ms cold, {t_warm * 1e3:.3f} ms "
+        f"warm (median of {OPT_IN_REPS}), peak {peak / 2**30:.3f} GiB above the collection and "
+        f"the positions, equal to the main path's positions; the sample sort (phase 15's route) "
+        f"of the same positions to its layout on the shards {t_sample * 1e3:.3f} ms warm "
+        f"({t_sample_cold * 1e3:.3f} ms cold), peak {peak_sample / 2**30:.3f} GiB; launches {launches}")
+    return launches
+
+
+def phase_opt_in_sorts(host_acgt, host_iupac, positions: dict) -> dict:
+    """Phase 20: the hybrid sort on the IUPAC main path, the chunked sort
+    and the odd-even merge sort on both main-path genomes at 2^27, each
+    held against phases 4's and 5's positions. Returns the launches of both
+    kernels by path."""
+    t0 = time.perf_counter()
+    out = {"pack_rank2_words_cuda": {}, "sort_lanes_cuda": {}}
+
+    def record(label: str, launches: dict, pack_too: bool) -> None:
+        out["sort_lanes_cuda"][label] = launches["sort_lanes_cuda"]
+        if pack_too:
+            out["pack_rank2_words_cuda"][label] = launches["pack_rank2_words_cuda"]
+
+    record("hybrid sort, IUPAC 2^27 (31, 31)", opt_in_hybrid(host_iupac, positions["IUPAC"]), True)
+    m4 = make_mesh(MESH_SHARDS, devices=[f"{DEVICE}:0"] * MESH_SHARDS)
+    m1 = make_mesh(1)
+    for key, host_sc in (("ACGT", host_acgt), ("IUPAC", host_iupac)):
+        # a collection of its own: the chunked path counts its upload and pack
+        reset_launches()
+        sc = fresh_collection(host_sc)
+        dc = sc.device_cache("forward")
+        pos = starts_of(sc)
+        record(f"chunked sort, {key} 2^27 (31, 31)",
+               opt_in_chunked(dc, pos, positions[key], key), key == "ACGT")
+        for mesh, name in ((m4, f"make_mesh({MESH_SHARDS}) of one card"), (m1, "make_mesh(1)")):
+            record(f"odd-even sort, {name}, {key} 2^27 (31, 31)",
+                   opt_in_oddeven(dc, pos, positions[key], key, mesh, name), False)
+        del sc, dc, pos
+        torch.cuda.empty_cache()
+    log(f"opt-in sorts phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -3548,6 +3825,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     process_launches = phase_process_mesh(sc_acgt, sc_iupac, {"ACGT": pos_acgt, "IUPAC": pos_iupac},
                                           {"ACGT": counts31, "IUPAC": counts31_iupac}, SEED + 19)
+    torch.cuda.empty_cache()
+    opt_in_launches = phase_opt_in_sorts(sc_acgt, sc_iupac, {"ACGT": pos_acgt, "IUPAC": pos_iupac})
     del sc_acgt, sc_iupac, pos_acgt, pos_iupac, suffix_ref, beyond_ref
     torch.cuda.empty_cache()
     window_launches = phase_window_rounds(rng)
@@ -3571,7 +3850,8 @@ def main() -> None:
                                  **mesh_launches["pack_rank2_words_cuda"],
                                  **persistence_launches,
                                  **mesh17_launches["pack_rank2_words_cuda"],
-                                 **process_launches["pack_rank2_words_cuda"]},
+                                 **process_launches["pack_rank2_words_cuda"],
+                                 **opt_in_launches["pack_rank2_words_cuda"]},
             **pack_timing,
         },
         {
@@ -3590,7 +3870,8 @@ def main() -> None:
                                  **mesh_launches["sort_lanes_cuda"],
                                  **mesh17_launches["sort_lanes_cuda"],
                                  **large_launches,
-                                 **process_launches["sort_lanes_cuda"]},
+                                 **process_launches["sort_lanes_cuda"],
+                                 **opt_in_launches["sort_lanes_cuda"]},
             **sort_timing,
         },
     ]}))

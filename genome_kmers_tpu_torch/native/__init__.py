@@ -93,6 +93,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def get_lib() -> ctypes.CDLL:
+    """The loaded native library, built at first use. Raises RuntimeError
+    where it cannot be built or loaded (the JAX package's returns None)."""
+    return _lib()
+
+
 def _u8(arr: np.ndarray):
     return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
 

@@ -88,3 +88,16 @@ def reverse_complement_bytes(sba: np.ndarray) -> np.ndarray:
     if sba.size >= 1 << 16:
         return reverse_complement_native(sba, COMPLEMENT_TABLE)
     return COMPLEMENT_TABLE[sba][::-1].copy()
+
+
+def pack_rank_words_np(sba: np.ndarray) -> np.ndarray:
+    """Host (NumPy) 4-bit pack: P[i] = ranks of bytes i..i+7 packed
+    big-endian into a uint32; positions past the end of the array pack as
+    rank 0, as '$' does. Equal to ``ops/keys.pack_rank_words``."""
+    n = len(sba)
+    padded = np.zeros(n + BASES_PER_WORD - 1, dtype=np.uint32)
+    padded[:n] = RANK_TABLE[sba]
+    out = np.zeros(n, dtype=np.uint32)
+    for j in range(BASES_PER_WORD):
+        out |= padded[j : j + n] << np.uint32(4 * (BASES_PER_WORD - 1 - j))
+    return out

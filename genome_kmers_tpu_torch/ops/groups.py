@@ -119,11 +119,28 @@ def lanes_sizes_digest(
     return sizes_digest(boundary, min_group_size, max_group_size)
 
 
+def clipped_counts(qualifies, clipped, max_counts_bin: int) -> torch.Tensor:
+    """counts[s] = number of rows with ``qualifies`` and clipped size s
+    (``clipped`` <= max_counts_bin wherever ``qualifies``): one
+    ``torch.bincount``, where the JAX package picks a compare or a
+    scatter-add by the bin count."""
+    return torch.bincount(clipped[qualifies], minlength=max_counts_bin + 1)
+
+
 def hist_from_sizes(size, qualifies, max_counts_bin: int) -> torch.Tensor:
     """counts[s] = number of qualifying groups of size s, sizes above
     ``max_counts_bin`` folded into the top bin."""
-    clipped = torch.clamp_max(size, max_counts_bin)[qualifies]
-    return torch.bincount(clipped, minlength=max_counts_bin + 1)
+    return clipped_counts(qualifies, torch.clamp_max(size, max_counts_bin), max_counts_bin)
+
+
+def group_size_histogram(boundary, size, min_group_size: int, max_group_size,
+                         max_counts_bin: int):
+    """(histogram, total) over the groups with min_group_size <= size <=
+    max_group_size (None: no upper bound): counts[s] = groups of size s,
+    sizes above ``max_counts_bin`` in the top bin, and the k-mers of those
+    groups."""
+    qualifies = _qualifies(boundary, size, min_group_size, max_group_size)
+    return hist_from_sizes(size, qualifies, max_counts_bin), _total(size, qualifies)
 
 
 def lanes_group_total(

@@ -58,6 +58,11 @@ def _mask_table(per_word: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(masks.view(np.int32), device=device)
 
 
+def ascii_to_ranks(sba_u8: torch.Tensor) -> torch.Tensor:
+    """The 4-bit ranks (uint8) of ASCII bytes."""
+    return torch.as_tensor(RANK_TABLE, device=sba_u8.device)[sba_u8.to(torch.int64)]
+
+
 def _pack_ranks(sba_u8: torch.Tensor, rank_table: np.ndarray, per_word: int) -> torch.Tensor:
     """out[i] = ranks of bytes i..i+per_word-1, packed big-endian into a
     uint32 (32 // per_word bits a rank), as its int32 bit pattern; positions

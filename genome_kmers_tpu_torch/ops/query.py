@@ -90,21 +90,23 @@ def _lex_less(a: tuple, b: tuple) -> torch.Tensor:
     return lt
 
 
-def _bound_search(packed, sorted_pos, cap_len, q_words, n_words: int, n_rounds: int, upper: bool):
-    """Lower (or upper) bound of every query in the sorted key space: the
-    first row whose key is >= (or >) the query. Each round gathers the
-    probed rows' positions and caps and builds their key words."""
-    n = sorted_pos.shape[0]
-    lo = torch.zeros(q_words[0].shape[0], dtype=torch.int64, device=sorted_pos.device)
+def _bound_search(rows_at, q_key: tuple, n: int, n_rounds: int, upper: bool = False):
+    """Lower (or upper) bound of every query key among ``n`` sorted rows:
+    the first row whose key is >= (or >) the query, by ``n_rounds`` rounds
+    of a binary search of all queries together. ``rows_at(indices)`` gives
+    the keys of the sorted rows at ``indices`` as a tuple of int64 lanes,
+    in the form of ``q_key`` (uint32 words as their values): a round reads
+    one row a query, so no key of the whole index is built."""
+    lo = torch.zeros(q_key[0].shape[0], dtype=torch.int64, device=q_key[0].device)
     hi = torch.full_like(lo, n)
+    if n == 0:
+        return lo
     for _ in range(n_rounds):
         active = lo < hi
         mid = (lo + hi) >> 1
-        probe = torch.clamp_max(mid, n - 1)
-        words = build_key_words(packed, sorted_pos[probe], cap_len[probe], n_words)
-        words = tuple(widen_u32(w) for w in words)
+        key = rows_at(torch.clamp_max(mid, n - 1))
         # move right while key[mid] <= query (upper) or key[mid] < query
-        go_right = ~_lex_less(q_words, words) if upper else _lex_less(words, q_words)
+        go_right = ~_lex_less(q_key, key) if upper else _lex_less(key, q_key)
         lo = torch.where(active & go_right, mid + 1, lo)
         hi = torch.where(active & ~go_right, mid, hi)
     return lo
@@ -127,6 +129,11 @@ def count_queries(packed, sorted_positions, cap_len, q_words: tuple, kmer_len: i
     n_rounds = max(1, math.ceil(math.log2(n)) + 1)
     dev = sorted_positions.device
     q = tuple(torch.from_numpy(w.astype(np.int64)).to(dev) for w in q_words)
-    lo = _bound_search(packed, sorted_positions, cap_len, q, n_words, n_rounds, upper=False)
-    hi = _bound_search(packed, sorted_positions, cap_len, q, n_words, n_rounds, upper=True)
+
+    def rows_at(probe):
+        words = build_key_words(packed, sorted_positions[probe], cap_len[probe], n_words)
+        return tuple(widen_u32(w) for w in words)
+
+    lo = _bound_search(rows_at, q, n, n_rounds)
+    hi = _bound_search(rows_at, q, n, n_rounds, upper=True)
     return (hi - lo).cpu().numpy().astype(np.uint32)

@@ -9,10 +9,8 @@ their ``*_large*`` variants over a strided pack and int64 positions, which
 functions over lists of per-shard tensors (``collectives.py``): plain moves
 within one process, a ``torch.distributed`` process group (NCCL on cards,
 Gloo through the host) where the mesh spans processes, the counterpart of
-the JAX package's ``jax.distributed`` meshes.
-
-Not ported here: the odd-even merge sort ``distributed_sort_positions``
-(ROADMAP.md: not to be ported).
+the JAX package's ``jax.distributed`` meshes. ``distributed_sort_positions``
+is the JAX package's opt-in odd-even merge sort of a 1-D mesh.
 """
 
 from .checkpoint import (
@@ -30,6 +28,7 @@ from .distributed import (
     distributed_group_size_histogram,
     distributed_group_size_histogram_ragged,
     distributed_hist_from_sizes,
+    distributed_sort_positions,
     make_mesh,
     mesh_lanes_filter_flags,
     mesh_size,
@@ -69,6 +68,7 @@ __all__ = [
     "distributed_group_size_histogram_large_ragged",
     "distributed_group_size_histogram_ragged",
     "distributed_hist_from_sizes",
+    "distributed_sort_positions",
     "large_lanes_filter_flags",
     "load_kmers_sharded",
     "load_large_kmers",

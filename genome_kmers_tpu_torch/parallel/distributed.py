@@ -32,7 +32,11 @@ its shards are taken in row-major order, so everything here is the same on
 both shapes; only the exchange of the sample sort differs
 (``collectives.all_to_all``).
 
-Not ported here: the odd-even merge sort (``distributed_sort_positions``).
+``distributed_sort_positions`` is the JAX package's odd-even merge sort
+(1-D meshes only): a local sort of each shard's block, then as many
+odd-even phases as shards, each a pairwise exchange of whole blocks and a
+lane sort of the 2m rows of a pair. The sample sort (``sample_sort.py``)
+is the route of ``Kmers.sort(mesh=...)``; this one is opt-in.
 """
 
 from __future__ import annotations
@@ -43,11 +47,28 @@ import os
 import torch
 import torch.distributed as dist
 
+from ..kernels.lane_sort import sort_lanes_cuda
 from ..ops.groups import fold_err_conditions
-from ..ops.keys import build_key2_words, build_key_words, cap_lengths, compute_valid_len
+from ..ops.keys import (
+    build_key2_words,
+    build_key_words,
+    cap_lengths,
+    compute_valid_len,
+    u32_bits_as_int32,
+    widen_u32,
+)
 from ..ops.sort import _masked
 from ..sequence_collection import resolve_device
-from .collectives import all_gather, gather_host, psum, put_sharded, replicate
+from .collectives import (  # noqa: F401 - hier_shape: the JAX package's home of it
+    all_gather,
+    all_gather_shards,
+    all_to_all,
+    gather_host,
+    hier_shape,
+    psum,
+    put_sharded,
+    replicate,
+)
 
 AXIS = "kmers"  # mesh axis name: position-sharded data parallelism
 _PAD_POS = 0xFFFFFFF0  # padding position of an evenly sharded index (JAX ops/sort._PAD_POS)
@@ -207,6 +228,114 @@ def _words_for(packed, positions, cap_len, n_words, two_bit, offset: int = 0):
     if two_bit:
         return build_key2_words(packed, positions, cap_len, n_words, offset)
     return build_key_words(packed, positions, cap_len, n_words, offset)
+
+
+def _oddeven_phase(ops: list, mesh: Mesh, phase: int) -> list:
+    """One phase of the block odd-even transposition. Even phases pair the
+    shards (0, 1), (2, 3), ...; odd phases (1, 2), (3, 4), .... Each pair
+    exchanges whole blocks (``all_to_all``: the block to the partner, an
+    empty block to every other shard), merges the 2m rows with one lane
+    sort, and the lower shard of the pair keeps the lower half. Shards left
+    unpaired (the ends of the chain) keep their rows. After as many phases
+    as shards the blocks are in global order."""
+    n_dev = mesh.n_shards
+    pairs = []
+    for g in mesh.shard_ids:
+        if phase % 2 == 0:
+            partner, is_low = g ^ 1, g % 2 == 0
+        else:
+            partner, is_low = (g + 1, True) if g % 2 == 1 else (g - 1, False)
+        pairs.append((partner if 0 <= partner < n_dev else None, is_low))
+    blocks = []
+    for lanes, (partner, _) in zip(ops, pairs):
+        empty = lanes[0].new_empty((0, len(lanes)))
+        row = [empty] * n_dev
+        if partner is not None:
+            row[partner] = torch.stack(lanes, dim=1)
+        blocks.append(row)
+    received = all_to_all(blocks, mesh)
+    del blocks
+    out = []
+    for lanes, (partner, is_low), got in zip(ops, pairs, received):
+        if partner is None:
+            out.append(lanes)
+            continue
+        m = lanes[0].shape[0]
+        other = got[partner]
+        merged = sort_lanes_cuda(tuple(torch.cat([a, other[:, j]]) for j, a in enumerate(lanes)))
+        # a copy of the half kept, so that the merge's buffer is freed
+        out.append(tuple((x[:m] if is_low else x[m:]).clone() for x in merged))
+    return out
+
+
+def _dist_sort_local(genome, positions, cap_len, is_pad, n_words, two_bit) -> tuple:
+    """A shard's local sort. Lanes, all of them keys: (is_pad, words...,
+    cap, position). The cap makes a shorter equal prefix smaller on 2-bit
+    keys and changes nothing on 4-bit keys (equal words imply equal caps).
+    Pad rows hold distinct positions, so every row differs from every
+    other, as the lane sort kernel needs."""
+    words = _words_for(genome, positions, cap_len, n_words, two_bit)
+    return sort_lanes_cuda(
+        (is_pad.to(torch.int32),) + words
+        + (cap_len.to(torch.int32), u32_bits_as_int32(positions))
+    )
+
+
+def distributed_sort_positions(
+    packed,
+    positions: torch.Tensor,
+    seg_starts,
+    seg_ends,
+    max_kmer_len: int,
+    mesh: Mesh,
+    packed2=None,
+) -> torch.Tensor:
+    """Globally sort k-mer start positions (int64, any order) over the mesh
+    by the odd-even merge sort: each shard sorts its block of the evenly
+    sharded index, then as many odd-even phases as shards
+    (``_oddeven_phase``). The counterpart of the JAX package's
+    ``shard_map`` sort, whose pairwise ``ppermute`` is here an
+    ``all_to_all`` with one non-empty block a shard, so the same code runs
+    within one process and over a ``torch.distributed`` group.
+
+    Caps come from the segment extents. Requires a bounded
+    ``max_kmer_len``: <= 32 bases on 4-bit keys (``packed``), <= 64 with
+    ``packed2`` (the 2-bit pack of an ACGT genome). A 1-D mesh only. Returns
+    the sorted int64 positions, pads removed, compacted on the input's
+    device (as ``sample_sort.sample_sort_positions`` gives them)."""
+    limit = 64 if packed2 is not None else 32
+    if max_kmer_len is None or max_kmer_len > limit:
+        raise NotImplementedError(
+            f"distributed sort requires max_kmer_len <= {limit} bases"
+            " (64 with the 2-bit ACGT fast path)"
+        )
+    if len(mesh.axis_names) != 1:
+        raise NotImplementedError(
+            "the odd-even merge sort is 1-D-mesh only (its ppermute ring "
+            "has no hierarchical form); use the sample sort for 2-D meshes"
+        )
+    two_bit = packed2 is not None
+    n = positions.shape[0]
+    n_dev = mesh_size(mesh)
+    n_words = _cdiv(max_kmer_len, 16 if two_bit else 8)
+    cap_len = cap_lengths(compute_valid_len(positions, seg_starts, seg_ends), max_kmer_len)
+    # pads: flagged, cap 0, and positions that differ from each other
+    n_all = _cdiv(max(n, 1), n_dev) * n_dev
+    pad_pos = _PAD_POS - torch.arange(n_all - n, dtype=torch.int64, device=positions.device)
+    pos_s = put_sharded(torch.cat([positions, pad_pos]), mesh)
+    cap_s = put_sharded(_pad_to_multiple(cap_len, n_dev, 0), mesh)
+    pad_s = put_sharded(torch.arange(n_all, device=positions.device) >= n, mesh)
+    del cap_len
+    genome = replicate(packed2 if two_bit else packed, mesh)
+    ops = [_dist_sort_local(g, p, c, d, n_words, two_bit)
+           for g, p, c, d in zip(genome, pos_s, cap_s, pad_s)]
+    del pos_s, cap_s, pad_s
+    for phase in range(n_dev):
+        ops = _oddeven_phase(ops, mesh, phase)
+    # pads sort after every real row, so the real rows in shard order are
+    # the sorted positions
+    rows = all_gather_shards([widen_u32(lanes[-1])[lanes[0] == 0] for lanes in ops], mesh)
+    return torch.cat([r.to(positions.device) for r in rows])
 
 
 def _last_rows(shard: tuple, n_valid: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..ops.keys import build_key_words, cap_lengths, compute_valid_len, widen_u32
-from ..ops.query import _lex_less, encode_query2_words, encode_query_words
+from ..ops.query import _bound_search, encode_query2_words, encode_query_words
 from .collectives import psum, replicate
 from .sample_sort import strided_keys
 
@@ -38,24 +38,13 @@ def _local_counts(words_fn, positions, cap_len, is_pad, q_words: tuple, n_words:
     q_key = (torch.zeros_like(q_words[0]),) + q_words
     pad = is_pad.to(torch.int64)
 
-    def bound(upper: bool):
-        lo = torch.zeros_like(q_words[0])
-        hi = torch.full_like(lo, n)
-        for _ in range(n_rounds):
-            active = lo < hi
-            mid = (lo + hi) >> 1
-            probe = torch.clamp_max(mid, n - 1)
-            words = words_fn(positions[probe], cap_len[probe], n_words)
-            key = (pad[probe],) + tuple(widen_u32(w) for w in words)
-            if cap_key:
-                key += (cap_len[probe],)
-            # move right while key[mid] <= query (upper) or key[mid] < query
-            go_right = ~_lex_less(q_key, key) if upper else _lex_less(key, q_key)
-            lo = torch.where(active & go_right, mid + 1, lo)
-            hi = torch.where(active & ~go_right, mid, hi)
-        return lo
+    def rows_at(probe):
+        words = words_fn(positions[probe], cap_len[probe], n_words)
+        key = (pad[probe],) + tuple(widen_u32(w) for w in words)
+        return key + (cap_len[probe],) if cap_key else key
 
-    return bound(True) - bound(False)
+    return (_bound_search(rows_at, q_key, n, n_rounds, upper=True)
+            - _bound_search(rows_at, q_key, n, n_rounds))
 
 
 def distributed_count_queries(

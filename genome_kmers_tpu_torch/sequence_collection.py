@@ -154,6 +154,7 @@ class _DeviceCache:
         self._sba_dev = None
         self._packed = None
         self._packed2 = None
+        self._packed2_any = None
         self._seg_starts_dev = None
         self._seg_ends_dev = None
         self._vl_genome = None
@@ -213,6 +214,19 @@ class _DeviceCache:
         if self._packed2 is None:
             self._packed2 = pack_rank2_words_cuda(self.sba)
         return self._packed2
+
+    @property
+    def packed2_any(self) -> torch.Tensor:
+        """2-bit packed words whatever the alphabet, for the hybrid sort
+        (``ops/hybrid.py``), whose 2-bit stream never reads past a window
+        free of non-ACGT bases: ``packed2`` on an ACGT genome, else the same
+        pack of the bytes with every other byte ranked 0, built once (the
+        pack kernel on a CUDA device)."""
+        if self.is_acgt_only:
+            return self.packed2
+        if self._packed2_any is None:
+            self._packed2_any = pack_rank2_words_cuda(self.sba)
+        return self._packed2_any
 
     @property
     def seg_starts(self) -> torch.Tensor:

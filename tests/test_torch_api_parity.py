@@ -6,16 +6,23 @@
 the A10 export methods (ported since; held against the JAX package), and
 the collection-side module functions
 and attributes (``bisect_right``, ``reverse_complement_sba``, the mapping
-arrays). Modelled on the JAX package's own tests of these methods
+arrays), the coverage of the JAX package (by AST: every public
+module-level function and class has a counterpart of the same name in the
+port's module of the same name, but for a short list of JAX/XLA-specific
+helpers and the Pallas entry points), the signatures of the opt-in sorts
+and ``runtime.enable_persistent_compilation_cache``. Modelled on the JAX package's own tests of these methods
 (``tests/test_kmers.py``, ``tests/test_strand.py``,
 ``tests/test_reference_goldens.py``, ``tests/test_sequence_collection.py``).
 Tolerance: exact equality.
 """
 
+import ast
 import bisect
+from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import genome_kmers_tpu as gj
 import genome_kmers_tpu_torch as gt
@@ -259,3 +266,158 @@ def test_mapping_attributes_match_jax():
 
 def test_version_matches_jax():
     assert gt.__version__ == gj.__version__ == "0.1.0"
+
+
+# --------------------------------------------------------------------------- #
+# coverage of the JAX package
+# --------------------------------------------------------------------------- #
+
+REPO = Path(__file__).resolve().parents[1]
+_PAIRS64 = ("uint32 (hi, lo) pair arithmetic: the JAX package runs without 64-bit integers; "
+            "the port's positions are int64 tensors (ops/large.split64 / fuse64 make the lanes)")
+# the JAX package's public functions and classes that the port has no
+# counterpart of, each with its reason
+JAX_ONLY = {
+    "ops.pallas_kernels.pack_rank2_words_pallas":
+        "Pallas entry point: kernels/pack2.py (csrc/pack2.cu) replaces it",
+    "ops.pallas_sort.bitonic_sort_tile":
+        "Pallas entry point: kernels/lane_sort.py (csrc/lane_sort.cu) replaces it",
+    "parallel.distributed.put_global": "places an array on a jax.sharding.NamedSharding",
+    "parallel.distributed.mesh_pspec": "a jax PartitionSpec",
+    "parallel.distributed.mesh_axes": "the axis names of jax collectives in shard_map",
+    "ops.groups.adaptive_bin_count":
+        "power-of-two bin counts, so that XLA reuses a compile; the port's histogram is one bincount",
+    **{f"ops.large.{name}": _PAIRS64 for name in (
+        "add64", "add64_u32", "sub64", "less64", "lesseq64", "min64", "lexmin2", "lexmax2",
+        "pairsum_small", "searchsorted64_right", "build_dense_positions_pairs", "split64_np",
+        "fuse64_np")},
+}
+
+
+def _module_files(root: Path) -> dict:
+    """Dotted module name (relative to the package) -> its source file."""
+    out = {}
+    for path in sorted(root.rglob("*.py")):
+        parts = path.relative_to(root).with_suffix("").parts
+        out[".".join(parts[:-1] if parts[-1] == "__init__" else parts)] = path
+    return out
+
+
+def _public_defs(path: Path) -> dict:
+    """The public module-level functions and classes of a source file."""
+    return {node.name: node for node in ast.parse(path.read_text()).body
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and not node.name.startswith("_")}
+
+
+def _bound_names(path: Path) -> set:
+    """Every name a source file binds at module level: definitions, imports,
+    assignments."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0] for a in node.names)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+    return names
+
+
+JAX_MODULES = _module_files(REPO / "genome_kmers_tpu")
+PORT_MODULES = _module_files(REPO / "genome_kmers_tpu_torch")
+
+
+@pytest.mark.parametrize("module", sorted(JAX_MODULES))
+def test_port_covers_the_jax_module(module):
+    """Each public function and class of the JAX package's module has a
+    counterpart of its name in the port's module of the same name, or is in
+    ``JAX_ONLY``."""
+    wanted = {name for name in _public_defs(JAX_MODULES[module])
+              if f"{module}.{name}" not in JAX_ONLY}
+    if not wanted:
+        return
+    assert module in PORT_MODULES, f"the port has no module {module}"
+    missing = wanted - _bound_names(PORT_MODULES[module])
+    assert not missing, f"{module}: no counterpart of {sorted(missing)}"
+
+
+def test_jax_only_list_is_current():
+    """Every exception names a public definition of the JAX package that the
+    port indeed lacks."""
+    for qualified in JAX_ONLY:
+        module, name = qualified.rsplit(".", 1)
+        assert name in _public_defs(JAX_MODULES[module]), qualified
+        assert module not in PORT_MODULES or name not in _bound_names(PORT_MODULES[module]), qualified
+
+
+def _signature(path: Path, name: str) -> tuple:
+    args = _public_defs(path)[name].args
+    defaults = [ast.unparse(d) for d in args.defaults]
+    names = [a.arg for a in args.args]
+    return names, dict(zip(names[len(names) - len(defaults):], defaults))
+
+
+@pytest.mark.parametrize("qualified", [
+    "ops.hybrid.ambiguity_mask",
+    "ops.hybrid.hybrid_sort_positions", "ops.chunked.sort_positions_chunked",
+    "parallel.distributed.distributed_sort_positions",
+    "runtime.enable_persistent_compilation_cache",
+])
+def test_opt_in_sorts_keep_the_jax_signatures(qualified):
+    module, name = qualified.rsplit(".", 1)
+    assert _signature(PORT_MODULES[module], name) == _signature(JAX_MODULES[module], name)
+
+
+def test_persistent_compilation_cache_moves_the_build_dir(tmp_path):
+    """``enable_persistent_compilation_cache(dir)`` points the libraries'
+    paths under ``dir`` and builds nothing; twice is safe; a failed build
+    there still raises; without an argument the default comes back."""
+    from genome_kmers_tpu_torch import runtime
+    from genome_kmers_tpu_torch.kernels import build
+
+    default = build.BUILD_DIR
+    source = build.CSRC / "pack2.cu"
+    cache = tmp_path / "cache"
+    try:
+        runtime.enable_persistent_compilation_cache(str(cache))
+        runtime.enable_persistent_compilation_cache(str(cache))
+        assert build.hashed_library_path(source).parent == cache.resolve()
+        assert build.library_path("lane_sort.cu").parent == cache.resolve()
+        assert not cache.exists()
+        with pytest.raises(RuntimeError, match="failed to build"):
+            build.compile_library(source, ["false"], build.library_path("pack2.cu"))
+        assert list(cache.iterdir()) == []
+    finally:
+        runtime.enable_persistent_compilation_cache()
+    assert build.BUILD_DIR == default == runtime.DEFAULT_BUILD_DIR
+    assert build.hashed_library_path(source).parent == default
+
+
+def test_small_counterparts_match_jax():
+    """The helpers the coverage test asked for: the host 4-bit pack, the
+    rank table lookup, the clipped histogram with its total, and the native
+    library's loader."""
+    import jax.numpy as jnp
+
+    from genome_kmers_tpu.ops import encoding as je
+    from genome_kmers_tpu.ops import groups as jg
+    from genome_kmers_tpu.ops import keys as jk
+    from genome_kmers_tpu_torch import native
+    from genome_kmers_tpu_torch.ops import encoding as te
+    from genome_kmers_tpu_torch.ops import groups as tg
+    from genome_kmers_tpu_torch.ops import keys as tk
+
+    rng = np.random.default_rng(12)
+    sba = np.frombuffer(b"$ACGTRYSWKMBDHVN", dtype=np.uint8)[rng.integers(0, 16, 300)]
+    assert np.array_equal(te.pack_rank_words_np(sba), je.pack_rank_words_np(sba))
+    assert np.array_equal(tk.ascii_to_ranks(torch.from_numpy(sba)).numpy(),
+                          np.asarray(jk.ascii_to_ranks(jnp.asarray(sba))))
+    boundary = rng.random(200) < 0.3
+    boundary[0] = True
+    jb, tb = jnp.asarray(boundary), torch.from_numpy(boundary)
+    jsize, tsize = jg.group_sizes_at_boundaries(jb), tg.group_sizes_at_boundaries(tb)
+    for mn, mx, bins in ((1, None, 5), (2, 4, 3)):
+        want = jg.group_size_histogram(jb, jsize, mn, jnp.uint32(0xFFFFFFFF if mx is None else mx), bins)
+        got = tg.group_size_histogram(tb, tsize, mn, mx, bins)
+        assert np.array_equal(got[0].numpy(), np.asarray(want[0])) and got[1] == int(want[1])
+    assert native.get_lib() is native.get_lib()

@@ -15,7 +15,7 @@ mesh of as many shards while the ranks run.
 ``test_process_mesh_matches_single_process``: on an IUPAC (k = 5) and an
 ACGT (k = 9) genome of three records, the gather, dense, hierarchical
 (``make_mesh2(ranks, 2)``: a node is a rank), canonical (gather and dense)
-sample sorts; the ragged histogram at (1, None) and (2, 4); count queries;
+sample sorts; the odd-even merge sort; the ragged histogram at (1, None) and (2, 4); count queries;
 ``Kmers.sort(mesh=)`` with its statistics, four library filters, queries
 and canonical statistics; a sharded index saved on the full mesh and
 loaded onto one shard per rank, and ``save_kmers_sharded`` /
@@ -134,6 +134,8 @@ def _checks(mesh, mesh2, mesh_one, out_dir: Path) -> dict:
         lanes(f"{name}/gather/lanes", rl)
         host(f"{name}/gather/rows", tss.ragged_rows(rp, rd, mesh))
         host(f"{name}/sorted", _np(tp.sample_sort_positions(
+            packed, pos, ss, se, k, mesh, packed2=packed2)))
+        host(f"{name}/oddeven", _np(tp.distributed_sort_positions(
             packed, pos, ss, se, k, mesh, packed2=packed2)))
         for mn, mx in ((1, None), (2, 4)):
             counts, total = tp.distributed_group_size_histogram_ragged(
@@ -408,6 +410,7 @@ def test_process_mesh_matches_single_process(tmp_path, n_ranks, n_local):
         _, _, _, oracle_sorted = expected_kmers(seqs, 1, k)
         assert got[f"{name}/kmers/index"].tolist() == oracle_sorted
         assert np.array_equal(got[f"{name}/gather/rows"], jkm.kmer_sba_start_indices)
+        assert np.array_equal(got[f"{name}/oddeven"], jkm.kmer_sba_start_indices)
         assert np.array_equal(got[f"{name}/ckpt/kmers"], jkm.kmer_sba_start_indices)
         restored = np.concatenate(got[f"{name}/ckpt/restored"])[: got[f"{name}/ckpt/n_real"]]
         layout = np.concatenate(got[f"{name}/gather/pos"]).astype(np.uint32)  # pads included

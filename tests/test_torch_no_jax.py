@@ -25,7 +25,9 @@ REPO = Path(__file__).resolve().parents[1]
      "genome_kmers_tpu_torch.parallel.checkpoint", "genome_kmers_tpu_torch.parallel.hier",
      "genome_kmers_tpu_torch.profiling",
      "genome_kmers_tpu_torch.io.csv_out", "genome_kmers_tpu_torch.large_kmers",
-     "genome_kmers_tpu_torch.ops.large", "genome_kmers_tpu_torch.parallel.large"],
+     "genome_kmers_tpu_torch.ops.large", "genome_kmers_tpu_torch.parallel.large",
+     "genome_kmers_tpu_torch.ops.hybrid", "genome_kmers_tpu_torch.ops.chunked",
+     "genome_kmers_tpu_torch.runtime"],
 )
 def test_import_loads_no_jax(module):
     code = (
