@@ -256,6 +256,23 @@ Phases, each of which raises (exit code 1) on failure:
     same positions to its layout on the same mesh. Launches of both kernels
     by path.
 
+21. The repo's entry points on the card, the scripts' functions called in
+    this process (any CSV to a temporary directory): (a) the three sweeps
+    of ``tools/torch_run_soak.py`` at its defaults (150 oracle cases, 40
+    mesh cases on 2-8 shards of cuda:0, 60 filtered cases), no case may
+    fail, the seconds and the launches of both kernels of each sweep; (b)
+    ``tools/torch_run_applications.py``'s unique_vs_k at 4.6 Mbp, ks
+    8-55, sorted once and per k: the rows equal, and at k <= 31 equal to a
+    NumPy count of every window's key; (c) its group_size_dist at 46 Mbp,
+    k=31, the script's defaults: histogram and total equal to the NumPy
+    count, the sort's and the statistics call's seconds, the
+    ``torch.bincount``'s device ms (torch.profiler) and the peak memory;
+    then the same genome with six N runs (2% of the bases) sorted at (31,
+    31) through the lane sort, beside phase 5's sort; (d)
+    ``tools/torch_run_e2e_validation.py`` at the ecoli and chr21 scales:
+    ingest Mbp/s, sort + statistics cold and warm, queries, counts equal
+    to NumPy's.
+
 ``--profile DIR`` adds a warm second run of phase 5's calls and of phase 9's,
 and a canonical dense-route call and a count_queries call of phase 14 on
 each genome, under torch.profiler and writes the device time by kernel to
@@ -274,6 +291,7 @@ import json
 import math
 import pickle
 import socket
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -979,6 +997,11 @@ def reset_launches() -> None:
     sort_lanes_cuda.launches = 0
 
 
+def launches_now() -> dict:
+    return {"pack_rank2_words_cuda": pack_rank2_words_cuda.launches,
+            "sort_lanes_cuda": sort_lanes_cuda.launches}
+
+
 def run_main_calls(fasta: Path):
     """The main path's calls, each timed to its end on the card. Returns
     (collection, index, times in seconds)."""
@@ -1038,6 +1061,7 @@ def phase_main_path(rng, tmp: Path, iupac: bool, profile_dir):
     counts = check_sorted_index(km, valid_starts(records_of(sc), 31), label)
     check_words_against_genome(km, sc, rng, label)
     positions = km.kmer_sba_start_indices.copy()  # the mesh phase's reference
+    MAIN_SORTS["IUPAC" if iupac else "ACGT"] = (times["sort"], len(km))
     del km
     if iupac and profile_dir is not None:
         profile_main_calls(fasta, Path(profile_dir))  # warm: the allocator keeps the memory
@@ -1468,8 +1492,7 @@ def phase_suffix_main(host_sc, main_counts31, rng, profile_dir):
     torch.cuda.reset_peak_memory_stats()
     held_before = torch.cuda.memory_allocated()
     sc, km, rounds, times, counts, counts31 = run_suffix_calls(host_sc)
-    launches = {"pack_rank2_words_cuda": pack_rank2_words_cuda.launches,
-                "sort_lanes_cuda": sort_lanes_cuda.launches}
+    launches = launches_now()
     peak = torch.cuda.max_memory_allocated()
     log(f"{label} times (s): " + ", ".join(f"{name} {t:.4f}" for name, t in times.items()))
     log(f"{label}: {rounds.summary()}")
@@ -2545,8 +2568,7 @@ def mesh_suffix_acgt(host_sc, reference, m4, adjacent) -> dict:
         raise AssertionError(f"{label}: the real rows are not phase 9's sorted suffixes")
     if km._dist_cache.gid_full is None or any(p.device.type != DEVICE for p in km._dist_cache.positions):
         raise AssertionError(f"{label}: the layout keeps no run ids, or is not on the card")
-    launches = {"pack_rank2_words_cuda": pack_rank2_words_cuda.launches,
-                "sort_lanes_cuda": sort_lanes_cuda.launches}
+    launches = launches_now()
     peak = torch.cuda.max_memory_allocated()
     before, adjacent.calls = sort_lanes_cuda.launches, 0
     (counts, total), t_none = sync_time(lambda: km.get_kmer_group_counts(None, mesh=m4))
@@ -3208,8 +3230,7 @@ def rank_sort(sc, km, mesh, out: dict, label: str) -> None:
     (_, seconds) = sync_time(lambda: km.sort(mesh=mesh, on_step=steps, mesh_info=info))
     out[label] = {
         "seconds": seconds, "steps": steps.steps, "info": info,
-        "launches": {"pack_rank2_words_cuda": pack_rank2_words_cuda.launches,
-                     "sort_lanes_cuda": sort_lanes_cuda.launches},
+        "launches": launches_now(),
         "traffic": dict(collectives.TRAFFIC), "peak": torch.cuda.max_memory_allocated(),
         "layout": layout_digests(km._dist_cache.positions, km._dist_cache.is_pad),
         "on_card": all(p.device.type == DEVICE for p in km._dist_cache.positions),
@@ -3250,8 +3271,7 @@ def rank_oddeven(sc, mesh, out: dict) -> None:
         None, pos, dc.seg_starts, dc.seg_ends, 31, mesh, packed2=dc.packed2))
     out["oddeven"] = {
         "seconds": seconds, "rows": digest(got.cpu().numpy().astype(np.uint32)),
-        "launches": {"pack_rank2_words_cuda": pack_rank2_words_cuda.launches,
-                     "sort_lanes_cuda": sort_lanes_cuda.launches},
+        "launches": launches_now(),
         "traffic": dict(collectives.TRAFFIC), "peak": torch.cuda.max_memory_allocated(),
     }
 
@@ -3280,9 +3300,7 @@ def rank_run_gloo4(rank: int, world: int, tmp: Path) -> dict:
         steps = RankSteps()
         (_, t_large) = sync_time(lambda: lk.sort(mesh, on_step=steps))
         out[f"{key} large"] = {
-            "seconds": t_large, "steps": steps.steps, "launches": {
-                "pack_rank2_words_cuda": pack_rank2_words_cuda.launches,
-                "sort_lanes_cuda": sort_lanes_cuda.launches},
+            "seconds": t_large, "steps": steps.steps, "launches": launches_now(),
             "rows": digest(lk.sorted_positions().astype(np.uint32)),
             "counts": lk.get_kmer_group_counts(31)[0].astype(np.int64)}
         del lk
@@ -3306,8 +3324,7 @@ def rank_run_gloo4(rank: int, world: int, tmp: Path) -> dict:
     out["suffix"] = {
         "seconds": seconds, "steps": steps.steps, "info": info, "rounds": len(rounds.rounds),
         "round_seconds": [t for _, t, _ in rounds.rounds],
-        "launches": {"pack_rank2_words_cuda": pack_rank2_words_cuda.launches,
-                     "sort_lanes_cuda": sort_lanes_cuda.launches},
+        "launches": launches_now(),
         "traffic": dict(collectives.TRAFFIC), "peak": torch.cuda.max_memory_allocated(),
         "counts": counts, "total": total,
     }
@@ -3634,8 +3651,7 @@ def opt_in_hybrid(host_iupac, expected: np.ndarray) -> dict:
     _ = dc.packed, dc.next_amb  # the main path's, built before
     reset_launches()
     got, t_cold = sync_time(run)
-    launches = {"pack_rank2_words_cuda": pack_rank2_words_cuda.launches,
-                "sort_lanes_cuda": sort_lanes_cuda.launches}
+    launches = launches_now()
     check_positions(got, expected, label)
     if launches["pack_rank2_words_cuda"] != 1 or launches["sort_lanes_cuda"] != 2:
         raise AssertionError(f"{label}: expected one pack and two lane sorts, got {launches}")
@@ -3694,8 +3710,7 @@ def opt_in_chunked(dc, pos: torch.Tensor, expected: np.ndarray, key: str) -> dic
         return sort_positions(packed, pos, cap_fn(pos), 31, packed2=packed2, uniform_cap=two_bit)[0]
 
     got, t_cold = sync_time(chunked)
-    launches = {"pack_rank2_words_cuda": pack_rank2_words_cuda.launches,
-                "sort_lanes_cuda": sort_lanes_cuda.launches}
+    launches = launches_now()
     check_positions(got, expected, label)
     n_chunks = -(-pos.shape[0] // (1 << 24))
     if launches["sort_lanes_cuda"] < 2 * n_chunks + 1 or (two_bit and launches["pack_rank2_words_cuda"] < 1):
@@ -3732,8 +3747,7 @@ def opt_in_oddeven(dc, pos: torch.Tensor, expected: np.ndarray, key: str, mesh,
 
     reset_launches()
     got, t_cold = sync_time(oddeven)
-    launches = {"pack_rank2_words_cuda": pack_rank2_words_cuda.launches,
-                "sort_lanes_cuda": sort_lanes_cuda.launches}
+    launches = launches_now()
     check_positions(got, expected, label)
     n_dev = mesh.n_shards
     merges = sum(2 * (n_dev // 2) if phase % 2 == 0 else 2 * ((n_dev - 1) // 2)
@@ -3788,6 +3802,272 @@ def phase_opt_in_sorts(host_acgt, host_iupac, positions: dict) -> dict:
     log(f"opt-in sorts phase: {time.perf_counter() - t0:.1f} s")
     return out
 
+# --------------------------------------------------------------------------- #
+# phase 21: the repo's entry points on the card
+# --------------------------------------------------------------------------- #
+
+TOOLS = Path(__file__).resolve().parent / "tools"
+ENTRY_SOAK_CASES = {"oracle": 150, "mesh": 40, "filtered": 60}  # tools/run_soak.py's defaults
+ENTRY_APPS_BP = 4_600_000  # unique_vs_k at the E. coli scale
+ENTRY_KS = [8, 12, 16, 21, 25, 31, 41, 55]
+ENTRY_GSD_BP = 46_000_000  # group_size_dist at the chr21 scale (docs/applications.md)
+ENTRY_GSD_K = 31
+ENTRY_NRUN_WARM = 5  # warm samples of each N-run sort in (c)
+ENTRY_E2E_SCALES = ("ecoli", "chr21")
+MAIN_SORTS = {}  # phases 4 and 5: (sort() seconds, k-mers) of the main path, by genome
+
+
+def load_tool(name: str):
+    """A script of ``tools/`` (not a package) as a module."""
+    spec = importlib.util.spec_from_file_location(name, TOOLS / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def check_launched(launches: dict, kernels, label: str) -> None:
+    for name in kernels:
+        if launches[name] < 1:
+            raise AssertionError(f"{label}: {name} did not launch ({launches})")
+
+
+def window_keys2(seq: np.ndarray, k: int) -> np.ndarray:
+    """The 2k-bit key (uint64) of every k-base window of an ACGT genome."""
+    codes = RANK2_TABLE[seq].astype(np.uint64)
+    n = len(seq) - k + 1
+    keys = np.zeros(n, dtype=np.uint64)
+    for j in range(k):
+        keys <<= np.uint64(2)
+        keys |= codes[j : j + n]
+    return keys
+
+
+def window_group_sizes(seq: np.ndarray, k: int) -> np.ndarray:
+    """The size of every group of equal k-base windows (NumPy oracle)."""
+    return np.unique(window_keys2(seq, k), return_counts=True)[1]
+
+
+def entry_soak(soak) -> dict:
+    """(a): the three sweeps of tools/torch_run_soak.py at its defaults; any
+    failing case fails the phase. Returns the launches of each sweep."""
+    out = {}
+    sweeps = (("oracle", soak.oracle_soak, {}),
+              ("mesh", soak.mesh_soak, {}),
+              ("filtered", soak.filtered_soak, {}))
+    for name, sweep, kwargs in sweeps:
+        n = ENTRY_SOAK_CASES[name]
+        reset_launches()
+        t0 = time.perf_counter()
+        fails = sweep(n, DEVICE, **kwargs)
+        dt = time.perf_counter() - t0
+        launches = launches_now()
+        label = f"{name} soak ({n} cases)"
+        if fails:
+            raise AssertionError(f"{label}: {len(fails)} failing cases: {fails}")
+        log(f"{label}: {n}/{n} ok in {dt:.2f} s; launches: pack {launches['pack_rank2_words_cuda']}, "
+            f"lane sort {launches['sort_lanes_cuda']}")
+        check_launched(launches, ("pack_rank2_words_cuda", "sort_lanes_cuda"), label)
+        out[label] = launches
+    return out
+
+
+def entry_unique_vs_k(apps, tmp: Path) -> dict:
+    """(b): unique_vs_k at the E. coli scale, sorted once and per k, the
+    rows equal to each other and at k <= 31 to a NumPy oracle."""
+    seq = apps.uniform_genome(ENTRY_APPS_BP)
+    seq_arr = np.frombuffer(seq.encode(), dtype=np.uint8)
+    out = {}
+    reset_launches()
+    once, t_sort = apps.unique_vs_k(seq, ENTRY_KS, DEVICE)
+    out[f"unique_vs_k sorted once, {ENTRY_APPS_BP} bp"] = launches_now()
+    reset_launches()
+    per_k, _ = apps.unique_vs_k(seq, ENTRY_KS, DEVICE, per_k_sort=True)
+    out[f"unique_vs_k sorted per k, {ENTRY_APPS_BP} bp"] = launches_now()
+    label = f"unique_vs_k at {ENTRY_APPS_BP} bp, ks {ENTRY_KS}"
+    if [r[:5] for r in once] != [r[:5] for r in per_k]:
+        raise AssertionError(f"{label}: the rows sorted once differ from those sorted per k")
+    for row in once:
+        k = row[0]
+        if k > 31:
+            continue
+        sizes = window_group_sizes(seq_arr, k)
+        total = int(sizes.sum())
+        unique = int((sizes == 1).sum())
+        want = (k, total, len(sizes), unique, round(unique / total, 6))
+        if tuple(row[:5]) != want:
+            raise AssertionError(f"{label}: row {row[:5]} differs from the NumPy oracle's {want}")
+    apps.write_csv(str(tmp / "unique_vs_k.csv"), apps.UNIQUE_VS_K_COLUMNS, once)
+    for path_label, launches in out.items():
+        check_launched(launches, ["pack_rank2_words_cuda"], path_label)
+    log(f"{label}: sort (8, 55) once {t_sort:.4f} s; statistics a k (s): "
+        + ", ".join(f"{r[0]} {r[5]:.3f}" for r in once)
+        + "; sort + statistics per k (s): " + ", ".join(f"{r[0]} {r[5]:.3f}" for r in per_k)
+        + f"; rows equal, and at k <= 31 equal to the NumPy oracle; launches {out}")
+    return out
+
+
+def bincount_device_ms(fn) -> str:
+    """The device ms of the ``torch.bincount`` kernels of one call of
+    ``fn``, from torch.profiler, or "not measured" where it saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    def device_us(e) -> float:
+        us = getattr(e, "device_time_total", None)
+        return e.cuda_time_total if us is None else us
+
+    events = prof.key_averages()
+    us = sum(device_us(e) for e in events if e.key == "aten::bincount")
+    if us:
+        return f"{us / 1e3:.3f}"
+    kernels = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -device_us(e))
+    log("  no device time under aten::bincount; kernels: " + ", ".join(e.key[:60] for e in kernels[:8]))
+    return "not measured"
+
+
+def entry_group_size_dist(apps, tmp: Path) -> dict:
+    """(c): group_size_dist at the chr21 scale and k=31 with the script's
+    defaults, held to a NumPy oracle; then the same genome with N runs
+    sorted through the lane sort beside a control of the same size and N
+    runs without the repeat families."""
+    args = apps.parse_args(["--app", "group_size_dist", "--bp", str(ENTRY_GSD_BP),
+                            "--ks", str(ENTRY_GSD_K)])  # the script's defaults otherwise
+    seq, planted = apps.make_repeat_genome(args.bp, args.repeat_families, args.repeat_copies_max,
+                                           args.repeat_elem_len, args.mutation_rate, seed=args.bp)
+    label = (f"group_size_dist at {ENTRY_GSD_BP} bp, k={ENTRY_GSD_K}, {len(planted)} families "
+             f"(copies {min(planted)}-{max(planted)}), cold and warm")
+    out = {}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    # twice, each a collection of its own: the first sort and statistics of
+    # this size in the process pay a first-use cost that the second does not
+    cold = apps.group_size_dist(seq, ENTRY_GSD_K, args.max_counts_bin, DEVICE)
+    del cold["kmers"]
+    res = apps.group_size_dist(seq, ENTRY_GSD_K, args.max_counts_bin, DEVICE)
+    out[label] = launches_now()
+    peak = torch.cuda.max_memory_allocated() - held
+    check_launched(out[label], ["pack_rank2_words_cuda"], label)
+    apps.write_csv(str(tmp / "group_size_dist.csv"), apps.GROUP_SIZE_COLUMNS, res["rows"])
+    seq_arr = np.frombuffer(seq.encode(), dtype=np.uint8)
+    del seq
+    sizes = window_group_sizes(seq_arr, ENTRY_GSD_K)
+    want = np.bincount(np.minimum(sizes, args.max_counts_bin), minlength=args.max_counts_bin + 1)
+    for run in (cold, res):
+        if not (np.array_equal(run["hist"], want) and run["total"] == int(sizes.sum())):
+            raise AssertionError(f"{label}: the histogram or total differs from the NumPy oracle")
+    km = res["kmers"]
+    bincount_ms = bincount_device_ms(
+        lambda: km.get_kmer_group_counts(ENTRY_GSD_K, max_counts_bin=args.max_counts_bin))
+    log(f"{label}: sort cold {cold['sort_seconds']:.4f} s, warm {res['sort_seconds']:.4f} s; "
+        f"get_kmer_group_counts cold {cold['stats_seconds']:.4f} s, warm {res['stats_seconds']:.4f} s "
+        f"(torch.bincount {bincount_ms} device ms), peak device memory {peak} bytes "
+        f"({peak / 2**30:.3f} GiB); {int(want[2:].sum())} groups of size > 1, largest "
+        f"{int(sizes.max())}; equal to the NumPy oracle")
+    del km, res, cold, sizes
+    torch.cuda.empty_cache()
+
+    # the same genome with six N runs (2% of the bases, as phase 5's): 4-bit
+    # keys of a repeat-heavy genome through the lane sort, beside a control of
+    # the same size: the same background and N runs without the families
+    background, _ = apps.make_repeat_genome(args.bp, 0, args.repeat_copies_max,
+                                            args.repeat_elem_len, args.mutation_rate, seed=args.bp)
+    genomes = {"repeat families": seq_arr.copy(),
+               "control, no families": np.frombuffer(background.encode(), dtype=np.uint8).copy()}
+    del background
+    run = ENTRY_GSD_BP // 300
+    rng = np.random.default_rng(ENTRY_GSD_BP)
+    for start in rng.integers(0, ENTRY_GSD_BP - run, size=6):
+        for genome in genomes.values():
+            genome[start : start + run] = ord("N")
+    labels = {name: f"N-run sort of the group_size_dist genome, {name}, {ENTRY_GSD_BP} bp (31, 31), "
+              "6 lanes" for name in genomes}
+    collections = {name: collection_of([("chr1", genome)]) for name, genome in genomes.items()}
+    for sc in collections.values():
+        sc.device_cache("forward").packed
+    times = {name: [] for name in genomes}
+    launches = {name: dict.fromkeys(launches_now(), 0) for name in genomes}
+    indexes = {}
+    # one cold sort and ENTRY_NRUN_WARM warm ones of each, taken in turn
+    for _ in range(1 + ENTRY_NRUN_WARM):
+        for name, sc in collections.items():
+            reset_launches()
+            km = gkt.Kmers(sc, ENTRY_GSD_K, ENTRY_GSD_K)
+            _, t = sync_time(km.sort)
+            times[name].append(t)
+            for kernel, n in launches_now().items():
+                launches[name][kernel] += n
+            indexes[name] = km
+            del km
+    for name, sc in collections.items():
+        km, label = indexes[name], labels[name]
+        out[label] = launches[name]
+        check_launched(out[label], ["sort_lanes_cuda"], label)
+        if km._lanes_cache["two_bit"]:
+            raise AssertionError(f"{label}: took 2-bit keys")
+        check_sorted_index(km, valid_starts(records_of(sc), ENTRY_GSD_K), label)
+        warm = times[name][1:]
+        log(f"{label}: sort cold {times[name][0]:.4f} s, warm median {statistics.median(warm):.4f} s = "
+            f"{len(km) / statistics.median(warm) / 1e6:.1f} M k-mers/s (warm samples "
+            + ", ".join(f"{t:.4f}" for t in warm) + f"); launches {out[label]}")
+    t5, n5 = MAIN_SORTS["IUPAC"]
+    ratio = statistics.median(times["repeat families"][1:]) / statistics.median(
+        times["control, no families"][1:])
+    log(f"N-run sorts at {ENTRY_GSD_BP} bp: repeat families / control warm median {ratio:.4f}; "
+        f"phase 5's IUPAC sort (2^27 bytes, no repeat families) {t5:.4f} s = "
+        f"{n5 / t5 / 1e6:.1f} M k-mers/s")
+    del km, sc, indexes, collections, genomes
+    torch.cuda.empty_cache()
+    return out
+
+
+def entry_e2e(e2e) -> dict:
+    """(d): the end-to-end validation at the E. coli and chr21 scales."""
+    out = {}
+    for scale in ENTRY_E2E_SCALES:
+        n_bp, k = e2e.SCALES[scale]
+        reset_launches()
+        res = e2e.run_e2e(n_bp, k, DEVICE)
+        label = f"E2E {scale} ({n_bp} bp, k={k})"
+        sizes = window_group_sizes(e2e.synthetic_genome(n_bp), k)
+        if (res["distinct"], res["unique"]) != (len(sizes), int((sizes == 1).sum())):
+            raise AssertionError(f"{label}: distinct {res['distinct']}, unique {res['unique']} differ "
+                                 f"from the NumPy oracle's {len(sizes)}, {int((sizes == 1).sum())}")
+        del sizes
+        out[label] = launches_now()
+        check_launched(out[label], ["pack_rank2_words_cuda"], label)
+        log(f"{label}: ingest {n_bp / res['ingest_seconds'] / 1e6:.1f} Mbp/s "
+            f"({res['ingest_seconds']:.4f} s), sort + statistics cold {res['cold_seconds']:.4f} s, "
+            f"warm {res['warm_seconds']:.4f} s = {res['n_kmers'] / res['warm_seconds'] / 1e6:.1f} M "
+            f"k-mers/s end to end; queries {res['query_seconds']:.4f} s, counts {res['query_counts']} "
+            f"equal to NumPy's; total {res['total']}, distinct {res['distinct']}, unique "
+            f"{res['unique']}, equal to the NumPy oracle; launches {out[label]}")
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_entry_points() -> dict:
+    """Phase 21: tools/torch_run_soak.py, torch_run_applications.py and
+    torch_run_e2e_validation.py in-process on the card. Returns the
+    launches of both kernels by path."""
+    t0 = time.perf_counter()
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths.update(entry_soak(load_tool("torch_run_soak")))
+        apps = load_tool("torch_run_applications")
+        paths.update(entry_unique_vs_k(apps, Path(tmp)))
+        paths.update(entry_group_size_dist(apps, Path(tmp)))
+    paths.update(entry_e2e(load_tool("torch_run_e2e_validation")))
+    log(f"entry points phase: {time.perf_counter() - t0:.1f} s")
+    return {name: {label: launches[name] for label, launches in paths.items()}
+            for name in ("pack_rank2_words_cuda", "sort_lanes_cuda")}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -3831,6 +4111,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     window_launches = phase_window_rounds(rng)
     strand_launches = phase_strands(rng)
+    torch.cuda.empty_cache()
+    entry_launches = phase_entry_points()
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
     log(f"card: {smi}")
@@ -3851,7 +4133,8 @@ def main() -> None:
                                  **persistence_launches,
                                  **mesh17_launches["pack_rank2_words_cuda"],
                                  **process_launches["pack_rank2_words_cuda"],
-                                 **opt_in_launches["pack_rank2_words_cuda"]},
+                                 **opt_in_launches["pack_rank2_words_cuda"],
+                                 **entry_launches["pack_rank2_words_cuda"]},
             **pack_timing,
         },
         {
@@ -3871,7 +4154,8 @@ def main() -> None:
                                  **mesh17_launches["sort_lanes_cuda"],
                                  **large_launches,
                                  **process_launches["sort_lanes_cuda"],
-                                 **opt_in_launches["sort_lanes_cuda"]},
+                                 **opt_in_launches["sort_lanes_cuda"],
+                                 **entry_launches["sort_lanes_cuda"]},
             **sort_timing,
         },
     ]}))

@@ -40,6 +40,22 @@ def test_import_loads_no_jax(module):
     assert proc.returncode == 0, proc.stderr
 
 
+@pytest.mark.parametrize(
+    "script", ["torch_run_soak", "torch_run_applications", "torch_run_e2e_validation"])
+def test_tool_import_loads_no_jax(script):
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('{script}', 'tools/{script}.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "banned = ('jax', 'genome_kmers_tpu')\n"
+        "assert 'genome_kmers_tpu_torch' in sys.modules\n"
+        "assert not any(m in banned or m.startswith(tuple(b + '.' for b in banned))"
+        " for m in sys.modules)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_chip_smoke_fails_without_cuda():
     code = (
         "import runpy, torch\n"
