@@ -273,6 +273,24 @@ Phases, each of which raises (exit code 1) on failure:
     ingest Mbp/s, sort + statistics cold and warm, queries, counts equal
     to NumPy's.
 
+22. The JAX package's call contracts, run after phase 20 on phases 4's and
+    5's collections: (a) ``sort_positions_dense`` by the JAX defaults (a
+    4-bit pack, positions alone) on phase 5's IUPAC pack at 2^27 SBA
+    bytes, then with ``return_lanes=True``, then ``Kmers.sort()``: one
+    lane sort launch each, the positions bitwise equal to each other and
+    to phase 5's, the kept lanes equal; (b) ``sort_positions`` with
+    ``return_lanes`` False and True on the gather path, the (31, 31)
+    starts below 2^22 of both genomes in descending order: one launch
+    each, the positions bitwise equal to each other and in phase 4's or
+    5's order; (c) ``Kmers.sort(mesh=)`` of both genomes on 4 shards of
+    cuda:0, then ``distributed_group_size_histogram_ragged`` over its
+    layout with and without ``return_digest``: the same counts and total,
+    phases 4's and 5's histograms, ``hi`` the last nonzero bin, and at a
+    ``max_counts_bin`` below it ``hi`` clipped and the top bin folded; with
+    ``return_sizes`` the JAX digest ``[total, largest size, the counts
+    folded at 256 bins]``. Each call's device ms (CUDA events) beside the
+    card's name and power limit.
+
 ``--profile DIR`` adds a warm second run of phase 5's calls and of phase 9's,
 and a canonical dense-route call and a count_queries call of phase 14 on
 each genome, under torch.profiler and writes the device time by kernel to
@@ -344,10 +362,11 @@ from genome_kmers_tpu_torch.ops.query import encode_query_words
 from genome_kmers_tpu_torch.ops import hybrid
 from genome_kmers_tpu_torch.ops.chunked import sort_positions_chunked
 from genome_kmers_tpu_torch.ops.keys import cap_lengths
-from genome_kmers_tpu_torch.ops.sort import sort_lanes, sort_positions
+from genome_kmers_tpu_torch.ops.sort import sort_lanes, sort_positions, sort_positions_dense
 from genome_kmers_tpu_torch.parallel import collectives
 from genome_kmers_tpu_torch.sequence_collection import _DeviceCache
 from genome_kmers_tpu_torch.parallel import (
+    distributed_group_size_histogram_ragged,
     distributed_sort_positions,
     load_kmers_sharded,
     make_mesh,
@@ -357,6 +376,7 @@ from genome_kmers_tpu_torch.parallel import (
     sample_sort_positions_unbounded,
     save_kmers_sharded,
 )
+from genome_kmers_tpu_torch.parallel.distributed import _SPEC_HIST_BINS as SPEC_HIST_BINS
 from genome_kmers_tpu_torch.parallel.sample_sort import ragged_rows
 
 DEVICE = "cuda"
@@ -3660,8 +3680,8 @@ def opt_in_hybrid(host_iupac, expected: np.ndarray) -> dict:
     (m_pos, a_pos), t_split = warm_median(
         lambda: hybrid._split(pos, hybrid.ambiguity_mask(dc.next_amb, pos, caps(pos))))
     m_sorted, t_major = warm_median(lambda: sort_positions(
-        None, m_pos, caps(m_pos), 31, packed2=dc.packed2_any, uniform_cap=True)[0])
-    a_sorted, t_minor = warm_median(lambda: sort_positions(dc.packed, a_pos, caps(a_pos), 31)[0])
+        None, m_pos, caps(m_pos), 31, packed2=dc.packed2_any, uniform_cap=True))
+    a_sorted, t_minor = warm_median(lambda: sort_positions(dc.packed, a_pos, caps(a_pos), 31))
     ins, t_ins = warm_median(lambda: hybrid._insertion_ranks_impl(
         dc.packed, m_sorted, caps(m_sorted), a_sorted, caps(a_sorted), 4))
     merged, t_inter = warm_median(lambda: hybrid._interleave(m_sorted, a_sorted, ins))
@@ -3669,7 +3689,7 @@ def opt_in_hybrid(host_iupac, expected: np.ndarray) -> dict:
     share = a_pos.shape[0] / pos.shape[0]
     del m_pos, a_pos, m_sorted, a_sorted, ins, merged
     # the 4-bit routes: the gather sort of the same positions, and Kmers.sort()
-    four, t_four = warm_median(lambda: sort_positions(dc.packed, pos, caps(pos), 31)[0])
+    four, t_four = warm_median(lambda: sort_positions(dc.packed, pos, caps(pos), 31))
     check_positions(four, expected, f"{label}, 4-bit gather sort")
     del four
 
@@ -3707,7 +3727,7 @@ def opt_in_chunked(dc, pos: torch.Tensor, expected: np.ndarray, key: str) -> dic
         return sort_positions_chunked(packed, pos, cap_fn, 31, packed2=packed2, uniform_cap=two_bit)
 
     def one_sort():
-        return sort_positions(packed, pos, cap_fn(pos), 31, packed2=packed2, uniform_cap=two_bit)[0]
+        return sort_positions(packed, pos, cap_fn(pos), 31, packed2=packed2, uniform_cap=two_bit)
 
     got, t_cold = sync_time(chunked)
     launches = launches_now()
@@ -4068,6 +4088,157 @@ def phase_entry_points() -> dict:
             for name in ("pack_rank2_words_cuda", "sort_lanes_cuda")}
 
 
+# --------------------------------------------------------------------------- #
+# phase 22: the JAX package's call contracts on the card
+# --------------------------------------------------------------------------- #
+
+
+def event_ms(fn):
+    """(``fn``'s output, the device ms of that one call from CUDA events)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def one_launch(fn, label: str):
+    """``event_ms(fn)``, failing unless the call launched the lane sort
+    exactly once."""
+    before = sort_lanes_cuda.launches
+    out, ms = event_ms(fn)
+    if sort_lanes_cuda.launches != before + 1:
+        raise AssertionError(f"{label}: {sort_lanes_cuda.launches - before} lane sort launches, "
+                             f"not 1")
+    return out, ms
+
+
+def contract_dense(host_iupac, expected: np.ndarray, smi: str) -> None:
+    """(a): ``sort_positions_dense`` by the JAX defaults (4-bit pack, no
+    lanes) on phase 5's IUPAC pack, against the lanes call and Kmers.sort()."""
+    label = "contracts (a), IUPAC 2^27 (31, 31) sort_positions_dense"
+    dc = host_iupac.device_cache("forward")
+    args = (dc.packed, dc.seg_starts, dc.seg_ends, len(expected), 31, 31)
+    alone, ms_alone = one_launch(lambda: sort_positions_dense(*args), f"{label}, JAX defaults")
+    (pos, lanes), ms_lanes = one_launch(
+        lambda: sort_positions_dense(*args, return_lanes=True),
+        f"{label}, return_lanes=True")
+    km = gkt.Kmers(host_iupac, 31, 31)
+    _, ms_kmers = one_launch(km.sort, f"{label}, Kmers.sort()")
+    if not isinstance(alone, torch.Tensor) or alone.dtype != torch.int64:
+        raise AssertionError(f"{label}: the JAX defaults did not return int64 positions alone")
+    if not (torch.equal(alone, pos) and torch.equal(alone, km._pos_dev)
+            and same_lanes(lanes, km._lanes_cache)):
+        raise AssertionError(f"{label}: the positions or lanes differ between the calls")
+    check_positions(alone, expected, label)
+    log(f"{label}, JAX defaults (two_bit=False, return_lanes=False): {ms_alone:.3f} ms, "
+        f"1 lane sort launch, int64 positions equal to phase 5's [{smi}]")
+    log(f"{label}, return_lanes=True: {ms_lanes:.3f} ms, 1 lane sort launch, positions "
+        f"bitwise equal to the defaults' [{smi}]")
+    log(f"{label}: Kmers.sort() {ms_kmers:.3f} ms, 1 lane sort launch, index and kept lanes "
+        f"bitwise equal [{smi}]")
+
+
+def contract_gather(host_sc, expected: np.ndarray, key: str, smi: str) -> None:
+    """(b): ``sort_positions`` without and with lanes on the gather path:
+    the starts below GATHER_BP of a main-path genome, descending."""
+    label = f"contracts (b), gather path {key} (31, 31) at {GATHER_BP} bp sort_positions"
+    dc = host_sc.device_cache("forward")
+    want = expected[expected < GATHER_BP]
+    inp = torch.from_numpy(np.sort(want)[::-1].astype(np.int64)).to(DEVICE)
+    cap = cap_lengths(compute_valid_len(inp, dc.seg_starts, dc.seg_ends), 31)
+    packs = (None, dc.packed2) if key == "ACGT" else (dc.packed, None)
+
+    def call(lanes: bool):
+        return sort_positions(packs[0], inp, cap, 31, packed2=packs[1], uniform_cap=True,
+                              return_lanes=lanes)
+
+    alone, ms_alone = one_launch(lambda: call(False), f"{label}, return_lanes=False")
+    (pos, _), ms_lanes = one_launch(lambda: call(True), f"{label}, return_lanes=True")
+    if not (isinstance(alone, torch.Tensor) and torch.equal(alone, pos)):
+        raise AssertionError(f"{label}: return_lanes=False differs from the lanes call")
+    check_positions(alone, want, label)
+    log(f"{label}: {len(want)} rows, return_lanes=False {ms_alone:.3f} ms, return_lanes=True "
+        f"{ms_lanes:.3f} ms, 1 lane sort launch each, positions bitwise equal to each other "
+        f"and to phase {4 if key == 'ACGT' else 5}'s [{smi}]")
+
+
+def contract_digest(host_sc, key: str, counts31: np.ndarray, mesh, smi: str) -> int:
+    """(c): ``distributed_group_size_histogram_ragged(return_digest=True)``
+    over the 4-shard layout of ``Kmers.sort(mesh=)``; returns the sort's
+    lane sort launches."""
+    label = f"contracts (c), mesh of {MESH_SHARDS} {key} 2^27 (31, 31) return_digest"
+    before = sort_lanes_cuda.launches
+    km = gkt.Kmers(host_sc, 31, 31)
+    km.sort(mesh=mesh)
+    launches = sort_lanes_cuda.launches - before
+    if launches < MESH_SHARDS:
+        raise AssertionError(f"{label}: the mesh sort launched the lane sort {launches} times")
+    dist, dc = km._dist_cache, host_sc.device_cache("forward")
+    two_bit = dc.packed2 is not None
+    args = (None if two_bit else dc.packed, dist.positions, dist.is_pad, dc.seg_starts,
+            dc.seg_ends, 31, mesh)
+    kwargs = {"packed2": dc.packed2 if two_bit else None, "sorted_words": dist.lanes}
+    (counts, total), ms_plain = event_ms(
+        lambda: distributed_group_size_histogram_ragged(*args, **kwargs))
+    (d_counts, d_total, hi), ms_digest = event_ms(
+        lambda: distributed_group_size_histogram_ragged(*args, return_digest=True, **kwargs))
+    nonzero = torch.nonzero(counts).flatten()
+    last = int(nonzero[-1]) if nonzero.numel() else 0
+    if not (torch.equal(d_counts, counts) and d_total == total):
+        raise AssertionError(f"{label}: counts or total differ from the call without the digest")
+    if not (hi.dim() == 0 and hi.dtype == torch.int64 and hi.device == mesh.devices[0]):
+        raise AssertionError(f"{label}: hi is not a 0-dim int64 tensor on the mesh's first device")
+    if int(hi) != last:
+        raise AssertionError(f"{label}: hi {int(hi)} is not the last nonzero bin {last}")
+    if not (np.array_equal(counts.cpu().numpy(), counts31) and total == km._dist_cache.n_real):
+        raise AssertionError(f"{label}: the histogram differs from the main path's")
+    clip = max(last // 2, 1)
+    (c_counts, _, c_hi), ms_clip = event_ms(lambda: distributed_group_size_histogram_ragged(
+        *args, max_counts_bin=clip, return_digest=True, **kwargs))
+    folded = counts31[: clip + 1].copy()
+    folded[clip] += counts31[clip + 1 :].sum()
+    if int(c_hi) != min(last, clip) or not np.array_equal(c_counts.cpu().numpy(), folded):
+        raise AssertionError(f"{label}: at max_counts_bin={clip} hi or the counts are wrong")
+    (_, _, digest), ms_sizes = event_ms(lambda: distributed_group_size_histogram_ragged(
+        *args, return_sizes=True, **kwargs))
+    digest = digest.cpu().numpy()
+    spec = counts31[: SPEC_HIST_BINS + 1].copy()
+    spec[SPEC_HIST_BINS] += counts31[SPEC_HIST_BINS + 1 :].sum()
+    largest_ok = digest[1] >= last if last == len(counts31) - 1 else digest[1] == last
+    if not (digest[0] == total and largest_ok and np.array_equal(digest[2:], spec)):
+        raise AssertionError(f"{label}: the return_sizes digest is not [total, largest size, "
+                             f"the counts folded at {SPEC_HIST_BINS}]")
+    log(f"{label}: counts and total equal to the call without it ({ms_plain:.3f} ms) and to "
+        f"phase {4 if two_bit else 5}'s, hi {int(hi)} = the last nonzero bin, {ms_digest:.3f} ms; "
+        f"at max_counts_bin={clip} hi {int(c_hi)} and the folded counts, {ms_clip:.3f} ms; "
+        f"return_sizes digest [total, largest size {int(digest[1])}, the counts folded at "
+        f"{SPEC_HIST_BINS}], {ms_sizes:.3f} ms [{smi}]")
+    del km
+    return launches
+
+
+def phase_api_contracts(host_acgt, host_iupac, positions: dict, counts: dict, smi: str) -> dict:
+    """Phase 22: the JAX package's call contracts that the port took in,
+    on phases 4's and 5's collections. Returns the lane sort's launches by
+    path."""
+    t0 = time.perf_counter()
+    reset_launches()
+    contract_dense(host_iupac, positions["IUPAC"], smi)
+    for key, host_sc in (("ACGT", host_acgt), ("IUPAC", host_iupac)):
+        contract_gather(host_sc, positions[key], key, smi)
+    out = {"API contracts: sort_positions_dense and sort_positions": sort_lanes_cuda.launches}
+    m4 = make_mesh(MESH_SHARDS, devices=[f"{DEVICE}:0"] * MESH_SHARDS)
+    for key, host_sc in (("ACGT", host_acgt), ("IUPAC", host_iupac)):
+        out[f"API contracts: mesh sort of {key} 2^27 for return_digest"] = contract_digest(
+            host_sc, key, counts[key], m4, smi)
+    torch.cuda.empty_cache()
+    log(f"API contracts phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR", default=None,
@@ -4107,6 +4278,8 @@ def main() -> None:
                                           {"ACGT": counts31, "IUPAC": counts31_iupac}, SEED + 19)
     torch.cuda.empty_cache()
     opt_in_launches = phase_opt_in_sorts(sc_acgt, sc_iupac, {"ACGT": pos_acgt, "IUPAC": pos_iupac})
+    contract_launches = phase_api_contracts(sc_acgt, sc_iupac, {"ACGT": pos_acgt, "IUPAC": pos_iupac},
+                                            {"ACGT": counts31, "IUPAC": counts31_iupac}, smi)
     del sc_acgt, sc_iupac, pos_acgt, pos_iupac, suffix_ref, beyond_ref
     torch.cuda.empty_cache()
     window_launches = phase_window_rounds(rng)
@@ -4155,6 +4328,7 @@ def main() -> None:
                                  **large_launches,
                                  **process_launches["sort_lanes_cuda"],
                                  **opt_in_launches["sort_lanes_cuda"],
+                                 **contract_launches,
                                  **entry_launches["sort_lanes_cuda"]},
             **sort_timing,
         },

@@ -88,6 +88,8 @@ from .ops.groups import (
     filtered_group_total,
     filtered_sizes_digest,
     group_geometry,
+    group_sizes_at_boundaries,
+    group_total_count,
     hist_from_sizes,
     lanes_filtered_sizes_digest,
     lanes_filtered_total,
@@ -119,7 +121,6 @@ from .parallel import (
     distributed_adjacent_gids,
     distributed_count_queries,
     distributed_group_size_histogram_ragged,
-    distributed_hist_from_sizes,
     mesh_lanes_filter_flags,
     sample_sort_canonical_dense_ragged,
     sample_sort_canonical_ragged,
@@ -1214,7 +1215,9 @@ class Kmers:
             return (np.zeros(0, dtype=np.int64), empty_u32, np.zeros(0, dtype=bool),
                     empty_u32, empty_u32)
         _, _, size, rank = group_geometry(boundary)
-        yielded, gsy = selection_masks(size, rank, min_group_size, max_group_size, yield_first_n)
+        yielded, gsy = selection_masks(
+            boundary, size, rank, min_group_size, max_group_size, yield_first_n
+        )
         nums = np.arange(m, dtype=np.int64) if surv_nums is None else surv_nums.cpu().numpy()
         return (
             nums,
@@ -1455,7 +1458,8 @@ class Kmers:
         _, _, boundary = self._boundary_parts(kmer_len, kmer_filter_func)
         if boundary.shape[0] == 0:
             return 0
-        return sizes_digest(boundary, min_group_size, max_group_size)[2]
+        return group_total_count(boundary, group_sizes_at_boundaries(boundary), min_group_size,
+                                 max_group_size)
 
     def get_kmer_group_counts(
         self,
@@ -1506,7 +1510,9 @@ class Kmers:
             _, _, boundary = self._boundary_parts(kmer_len, kmer_filter_func)
             if boundary.shape[0] == 0:
                 return np.zeros(max_counts_bin + 1, dtype=np.int64), 0
-            size, qualifies, total = sizes_digest(boundary, min_group_size, max_group_size)
+            size, qualifies, total = sizes_digest(
+                boundary, group_sizes_at_boundaries(boundary), min_group_size, max_group_size
+            )
         counts = hist_from_sizes(size, qualifies, max_counts_bin)
         return counts.cpu().numpy().astype(np.int64), total
 
@@ -1600,13 +1606,12 @@ class Kmers:
                 packed, rag_pos, rag_pad, dc.seg_starts, dc.seg_ends, kmer_len, mesh,
                 packed2=packed2,
             )
-        size, qualifies, total = distributed_group_size_histogram_ragged(
+        counts, total = distributed_group_size_histogram_ragged(
             packed, rag_pos, rag_pad, dc.seg_starts, dc.seg_ends, kmer_len, mesh,
-            min_group_size=min_group_size, max_group_size=max_group_size, packed2=packed2,
-            strand_split=strand_split, sorted_words=sorted_words, mask=mask,
-            return_sizes=True, ext_gid=ext_gid,
+            min_group_size=min_group_size, max_group_size=max_group_size,
+            max_counts_bin=max_counts_bin, packed2=packed2, strand_split=strand_split,
+            sorted_words=sorted_words, mask=mask, ext_gid=ext_gid,
         )
-        counts = distributed_hist_from_sizes(size, qualifies, max_counts_bin, mesh)
         return counts.cpu().numpy().astype(np.int64), total
 
     def _mesh_filter_masks(self, kmer_filter_func, positions, is_pad, mesh) -> list:
@@ -1780,6 +1785,7 @@ class Kmers:
                 self._pos_dev, self._lanes_cache = sort_positions_dense(
                     dc.packed2 if use2 else dc.packed, dc.seg_starts, dc.seg_ends,
                     n, self.min_kmer_len, self.max_kmer_len, two_bit=use2,
+                    uniform_cap=uniform, return_lanes=True,
                 )
             else:
                 # ACGT genomes take the 2-bit rounds (half the key lanes)
@@ -1805,7 +1811,8 @@ class Kmers:
             packed = dc.packed if packed2 is None else None
             self._pos_dev, self._lanes_cache = sort_positions(
                 packed, positions, cap_lengths(valid_len, self.max_kmer_len),
-                self.max_kmer_len, packed2=packed2, uniform_cap=uniform, on_round=on_round,
+                self.max_kmer_len, packed2=packed2, uniform_cap=uniform, return_lanes=True,
+                on_round=on_round,
             )
         self._pos_host = None
         self._init_geometry = None  # no longer describes the (sorted) order
@@ -2022,11 +2029,10 @@ class Kmers:
                 packed, self._device_positions(), dc.seg_starts, dc.seg_ends, kmer_len, mesh,
                 two_bit=two_bit,
             )
-        size, qualifies, total = distributed_group_size_histogram_ragged(
+        counts, total = distributed_group_size_histogram_ragged(
             None if two_bit else packed, pos, pad, dc.seg_starts, dc.seg_ends, kmer_len, mesh,
-            packed2=dc.packed2, sorted_words=words, return_sizes=True,
+            max_counts_bin=max_counts_bin, packed2=dc.packed2, sorted_words=words,
         )
-        counts = distributed_hist_from_sizes(size, qualifies, max_counts_bin, mesh)
         return counts.cpu().numpy().astype(np.int64), total
 
     # ------------------------------------------------------------------ #

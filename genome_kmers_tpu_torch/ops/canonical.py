@@ -211,22 +211,25 @@ def canonical_sizes_digest4(packed, positions, valid_len, k: int):
     )
 
 
-def canonical_sizes_digest_dense(packed, seg_starts, seg_ends, min_kmer_len: int, k: int,
+def canonical_sizes_digest_dense(packed2, seg_starts, seg_ends, min_kmer_len: int, k: int,
                                  two_bit: bool = True):
     """``canonical_sizes_digest`` over the fresh index (every position with
     valid_len >= min_kmer_len) without a gather: the forward words of every
     SBA position are shifted slices of the pack and valid_len comes from the
-    segment table. Rows that are not full-length k-mer starts of the index
-    (separators, short tails) carry the invalid lane with zeroed words."""
-    length = packed.shape[0]
+    segment table. ``packed2`` is the 2-bit pack when ``two_bit``, else the
+    4-bit pack (the parameter keeps the JAX package's name). Rows that are
+    not full-length k-mer starts of the index (separators, short tails)
+    carry the invalid lane with zeroed words."""
+    length = packed2.shape[0]
     vl = valid_len_all(seg_starts, seg_ends, length)
     valid = vl >= max(k, min_kmer_len)
     del vl
     cap = torch.where(valid, k, 0)
     if two_bit:
-        fwd = build_key2_words_dense(packed, cap, -(-k // BASES_PER_WORD2))
+        fwd = build_key2_words_dense(packed2, cap, -(-k // BASES_PER_WORD2))
     else:
-        fwd = tuple(widen_u32(w) for w in build_key_words_dense(packed, cap, -(-k // BASES_PER_WORD)))
+        fwd = tuple(widen_u32(w)
+                    for w in build_key_words_dense(packed2, cap, -(-k // BASES_PER_WORD)))
     del cap
     return _canonical_sizes_tail((~valid).to(torch.int64), fwd, k, two_bit=two_bit)
 

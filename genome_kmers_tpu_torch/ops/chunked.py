@@ -52,7 +52,7 @@ def sort_positions_chunked(
     n = positions.shape[0]
     if n <= chunk_rows:
         return sort_positions(packed, positions, cap_fn(positions), max_kmer_len,
-                              packed2=packed2, uniform_cap=uniform_cap)[0]
+                              packed2=packed2, uniform_cap=uniform_cap)
     two_bit = packed2 is not None
     limit = 64 if two_bit else 32
     if max_kmer_len is None or max_kmer_len > limit:
@@ -71,7 +71,7 @@ def sort_positions_chunked(
 
     def sort(p):
         return sort_positions(packed, p, cap_fn(p), max_kmer_len,
-                              packed2=packed2, uniform_cap=uniform_cap)[0]
+                              packed2=packed2, uniform_cap=uniform_cap)
 
     # 1. sort the chunks (the last may be shorter)
     chunks = [sort(positions[c * chunk_rows : (c + 1) * chunk_rows]) for c in range(n_chunks)]

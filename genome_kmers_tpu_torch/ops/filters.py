@@ -72,8 +72,8 @@ class FilterContext:
     layouts carry pad rows, whose positions stand in for no k-mer. The mask
     (``mask_pure``) is computed for every row regardless."""
 
-    def __init__(self, sba_u8: np.ndarray, positions, valid_len, sba_dev=None, scans=None,
-                 valid_rows=None):
+    def __init__(self, sba_u8: np.ndarray, positions, valid_len, sba_dev=None, valid_rows=None,
+                 scans=None):
         self.sba_np = sba_u8
         self.sba_len = int(len(sba_u8))
         self._sba_dev = sba_dev
@@ -698,7 +698,11 @@ class KmerFilter:
     as a mask over a batch of positions.
 
     ``batch_mask`` = ``check_batch`` (may raise the reference's ValueError)
-    + ``mask_pure`` (the bool mask, on the positions' device)."""
+    + ``mask_pure`` (the bool mask, on the positions' device). ``batchable``
+    marks, as in the JAX package, a filter that takes a whole batch; every
+    subclass inherits it."""
+
+    batchable = True
 
     def __call__(self, sba, sba_strand, kmer_sba_start_idx) -> bool:
         raise NotImplementedError

@@ -103,20 +103,20 @@ def group_total_count(boundary, size, min_group_size: int, max_group_size) -> in
     return _total(size, _qualifies(boundary, size, min_group_size, max_group_size))
 
 
-def sizes_digest(boundary, min_group_size: int, max_group_size):
-    """Sizes and the qualifying mask over a boundary mask. Returns (size,
-    qualifies, total)."""
-    size = group_sizes_at_boundaries(boundary)
+def sizes_digest(boundary, size, min_group_size: int, max_group_size):
+    """The qualifying mask and total over a boundary mask and its sizes
+    (``group_sizes_at_boundaries``). Returns (size, qualifies, total)."""
     qualifies = _qualifies(boundary, size, min_group_size, max_group_size)
     return size, qualifies, _total(size, qualifies)
 
 
 def lanes_sizes_digest(
-    words, cap, kmer_len: int, min_group_size: int, max_group_size, two_bit: bool = True
+    words, cap, kmer_len: int, min_group_size: int, max_group_size, two_bit: bool
 ):
     """``sizes_digest`` over the boundaries of retained sorted key lanes."""
     boundary = boundaries_from_sorted_lanes(words, cap, kmer_len, two_bit)
-    return sizes_digest(boundary, min_group_size, max_group_size)
+    return sizes_digest(boundary, group_sizes_at_boundaries(boundary), min_group_size,
+                        max_group_size)
 
 
 def clipped_counts(qualifies, clipped, max_counts_bin: int) -> torch.Tensor:
@@ -144,7 +144,7 @@ def group_size_histogram(boundary, size, min_group_size: int, max_group_size,
 
 
 def lanes_group_total(
-    words, cap, min_group_size: int, max_group_size, kmer_len: int, two_bit: bool = True
+    words, cap, min_group_size: int, max_group_size, kmer_len: int, two_bit: bool
 ) -> int:
     """Reduce-only sibling of ``lanes_sizes_digest`` for count queries."""
     boundary = boundaries_from_sorted_lanes(words, cap, kmer_len, two_bit)
@@ -179,12 +179,14 @@ def survivor_sizes_at_boundaries(boundary: torch.Tensor, mask: torch.Tensor) -> 
     return surv
 
 
-def fold_err_conditions(errs, positions):
+def fold_err_conditions(errs, positions, valid=None):
     """Fold a filter's per-row raise conditions to ``[any, cond_id,
     first_bad_position]``, a 3-element int64 tensor naming the earliest
     offending row in index (sorted) order, the row the reference's walk
     raises at; ties at one row go to the earlier-listed condition, the
-    scalar filter's check order. No conditions fold to None."""
+    scalar filter's check order. ``valid``, a bool mask beside the
+    positions, leaves the other rows (ragged pads) out of every condition.
+    No conditions fold to None."""
     if not errs:
         return None
     n = positions.shape[0]
@@ -192,6 +194,8 @@ def fold_err_conditions(errs, positions):
     best_cond = positions.new_tensor(0)
     any_err = torch.zeros((), dtype=torch.bool, device=positions.device)
     for idx, cond in enumerate(errs):
+        if valid is not None:
+            cond = cond & valid
         has = torch.any(cond)
         row = torch.where(has, torch.argmax(cond.to(torch.uint8)), n)
         take = row < best_row  # strict: the earlier condition wins ties
@@ -261,12 +265,13 @@ def filtered_group_total(boundary, mask, min_group_size: int, max_group_size) ->
     return filtered_sizes_digest(boundary, mask, min_group_size, max_group_size)[2]
 
 
-def selection_masks(size, rank, min_group_size: int, max_group_size, yield_first_n):
+def selection_masks(boundary, size, rank, min_group_size: int, max_group_size, yield_first_n):
     """Which elements a walk over the groups would yield, and per element
     the number of its group's members yielded: the first ``yield_first_n``
     members (in sorted order) of every group whose size is within
     [min_group_size, max_group_size]. None means unbounded. ``size`` and
-    ``rank`` are per element (``group_geometry``)."""
+    ``rank`` are per element (``group_geometry``); ``boundary`` is not
+    read, as in the JAX package, whose signature it keeps."""
     yielded = size >= min_group_size
     if max_group_size is not None:
         yielded &= size <= max_group_size

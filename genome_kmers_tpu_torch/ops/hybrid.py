@@ -110,15 +110,15 @@ def hybrid_sort_positions(
     n_amb = int(amb.sum())
     if n_amb == 0:
         return sort_positions(None, positions, cap_len, max_kmer_len,
-                              packed2=packed2, uniform_cap=uniform_cap)[0]
+                              packed2=packed2, uniform_cap=uniform_cap)
     # densely ambiguous input: the split buys nothing, so all of it is 4-bit
     if n_amb * 4 > n:
-        return sort_positions(packed, positions, cap_len, max_kmer_len)[0]
+        return sort_positions(packed, positions, cap_len, max_kmer_len)
     m_pos, a_pos = _split(positions, amb)
     del amb, cap_len
     m_sorted = sort_positions(None, m_pos, caps_of(m_pos), max_kmer_len,
-                              packed2=packed2, uniform_cap=uniform_cap)[0]
-    a_sorted = sort_positions(packed, a_pos, caps_of(a_pos), max_kmer_len)[0]
+                              packed2=packed2, uniform_cap=uniform_cap)
+    a_sorted = sort_positions(packed, a_pos, caps_of(a_pos), max_kmer_len)
     del m_pos, a_pos
     ins = _insertion_ranks_impl(packed, m_sorted, caps_of(m_sorted), a_sorted,
                                 caps_of(a_sorted), _cdiv(max_kmer_len, 8))

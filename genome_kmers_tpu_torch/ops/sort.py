@@ -9,12 +9,13 @@ index of an ACGT genome. The JAX package sorts its key lanes with one stable
 ``torch.sort(..., stable=True)``, which CUDA needs asked for explicitly (its
 default sort is not stable). The key of a row is, most significant first: an
 "invalid" bit (rows that are not k-mer starts), the meaningful 2k bits of
-its key words, and, when the caps differ between rows, its cap. These bits
-are cut into int64 sort keys of at most 63 bits (non-negative, so signed
-order is unsigned order) and sorted least significant key first, each pass
-stable, starting from ascending positions: ties keep the position order, the
-tie-break that the JAX package gets from its iota payload. At
-``min_kmer_len == max_kmer_len <= 31`` the whole key is one int64
+its key words, and, unless ``uniform_cap`` says every row has one cap, its
+cap. These bits are cut into int64 sort keys of at most 63 bits
+(non-negative, so signed order is unsigned order) and sorted least
+significant key first, each pass stable, starting from ascending positions:
+ties keep the position order, the tie-break that the JAX package gets from
+its iota payload. Under ``uniform_cap`` at ``max_kmer_len <= 31`` (the
+index's ``min_kmer_len == max_kmer_len``) the whole key is one int64
 (1 + 2k <= 63 bits), so one sort does it and the retained words come back
 out of the sorted key by shifts.
 
@@ -175,7 +176,7 @@ def _dense_key_chunks(packed2, seg_starts, seg_ends, min_len, k, uniform_cap):
     return chunks, chunk_widths, [w for _, w in lanes]
 
 
-def _sort_dense(packed2, seg_starts, seg_ends, min_len, k, uniform_cap):
+def _sort_dense(packed2, seg_starts, seg_ends, min_len, k, uniform_cap, return_keys=True):
     """Fresh sort over ALL positions 0..L-1 of the pack: key words are
     shifted slices of the pack and valid_len comes from the segment table,
     so nothing is gathered from the genome. Rows that are not k-mer starts
@@ -183,7 +184,9 @@ def _sort_dense(packed2, seg_starts, seg_ends, min_len, k, uniform_cap):
     sort after every real row.
 
     Returns (positions in sorted order, sorted keys, key widths, lane
-    widths) over all L rows; the caller keeps the real-row prefix."""
+    widths) over all L rows, the sorted keys None unless ``return_keys``
+    (the later key chunks are then not gathered); the caller keeps the
+    real-row prefix."""
     chunks, chunk_widths, lane_widths = _dense_key_chunks(
         packed2, seg_starts, seg_ends, min_len, k, uniform_cap
     )
@@ -191,6 +194,8 @@ def _sort_dense(packed2, seg_starts, seg_ends, min_len, k, uniform_cap):
     for chunk in reversed(chunks):
         vals, idx = torch.sort(chunk if perm is None else chunk[perm], stable=True)
         perm = idx if perm is None else perm[idx]
+    if not return_keys:
+        return perm, None, chunk_widths, lane_widths
     sorted_chunks = [vals] + [c[perm] for c in chunks[1:]]
     return perm, sorted_chunks, chunk_widths, lane_widths
 
@@ -217,32 +222,40 @@ def _sort_dense4(packed, seg_starts, seg_ends, min_len, k):
 
 
 def sort_positions_dense(
-    packed, seg_starts, seg_ends, n, min_kmer_len, max_kmer_len, two_bit=True
+    packed, seg_starts, seg_ends, n, min_kmer_len, max_kmer_len,
+    two_bit=False, uniform_cap=False, return_lanes=False,
 ):
     """Fresh sort of the canonical k-mer start set (every position with
     valid_len >= min_kmer_len) from the genome's int32 pack: the 2-bit pack
     of an ACGT genome when ``two_bit``, else the 4-bit pack. ``n`` is the
-    known canonical start count.
+    known canonical start count. ``uniform_cap`` (every k-mer has the same
+    cap, as at min_kmer_len == max_kmer_len) drops the cap lane of 2-bit
+    keys; 4-bit keys never have one.
 
-    Returns ``(positions, lanes)``: int64 positions in sorted order, ties by
-    position, and the retained sorted lanes in the JAX package's layout
-    ``{"two_bit", "built_k", "words", "cap"}``. 2-bit words are int64 lanes
-    of uint32 values, with cap None when min_kmer_len == max_kmer_len; 4-bit
-    words are int32 bit patterns and never have a cap lane."""
+    Returns int64 positions in sorted order, ties by position; with
+    ``return_lanes`` a ``(positions, lanes)`` pair whose lanes are the
+    retained sorted lanes in the JAX package's layout ``{"two_bit",
+    "built_k", "words", "cap"}``. 2-bit words are int64 lanes of uint32
+    values, with cap None under ``uniform_cap``; 4-bit words are int32 bit
+    patterns and never have a cap lane."""
     k = max_kmer_len
     if not two_bit:
         n_words = _cdiv(k, BASES_PER_WORD)
         res = _sort_dense4(packed, seg_starts, seg_ends, min_kmer_len, k)
-        return widen_u32(res[-1][:n]), {
+        pos = widen_u32(res[-1][:n])
+        if not return_lanes:
+            return pos
+        return pos, {
             "two_bit": False,
             "built_k": k,
             "words": tuple(w[:n] for w in res[1 : 1 + n_words]),
             "cap": None,
         }
-    uniform = min_kmer_len == max_kmer_len
     perm, sorted_chunks, chunk_widths, lane_widths = _sort_dense(
-        packed, seg_starts, seg_ends, min_kmer_len, k, uniform
+        packed, seg_starts, seg_ends, min_kmer_len, k, uniform_cap, return_keys=return_lanes
     )
+    if not return_lanes:
+        return perm[:n]
     lanes = _unpack_chunks([c[:n] for c in sorted_chunks], chunk_widths, lane_widths)
     n_words = _cdiv(k, BASES_PER_WORD2)
     words = lanes[1 : 1 + n_words]
@@ -251,7 +264,7 @@ def sort_positions_dense(
         "two_bit": True,
         "built_k": k,
         "words": tuple(words),
-        "cap": None if uniform else lanes[-1],
+        "cap": None if uniform_cap else lanes[-1],
     }
 
 
@@ -265,7 +278,8 @@ def _round_done(unresolved, name: str, on_round) -> bool:
 
 
 def sort_positions(
-    packed, positions, cap_len, max_kmer_len, packed2=None, uniform_cap=False, on_round=None
+    packed, positions, cap_len, max_kmer_len, packed2=None, uniform_cap=False,
+    return_lanes=False, on_round=None,
 ):
     """Sort k-mer start positions lexicographically by their capped k-mer.
 
@@ -276,21 +290,24 @@ def sort_positions(
     are 2-bit words and, unless ``uniform_cap``, the cap; else 4-bit words
     from ``packed`` (max_kmer_len <= 32).
 
-    Returns ``(positions, lanes)``: int64 sorted positions, ties by
-    position, and the retained sorted lanes (int32 bit-pattern words, int64
-    cap), or None for an index of at most one k-mer and on the refinement
-    path (``max_kmer_len`` None or beyond one window), where no
-    single-window lanes exist. ``on_round`` hears of each refinement round
-    (see module doc)."""
+    Returns int64 sorted positions, ties by position; with
+    ``return_lanes`` a ``(positions, lanes)`` pair whose lanes are the
+    retained sorted lanes (int32 bit-pattern words, int64 cap), or None for
+    an index of at most one k-mer and on the refinement path
+    (``max_kmer_len`` None or beyond one window), where no single-window
+    lanes exist. ``on_round``, a port addition, hears of each refinement
+    round (see module doc)."""
     n = positions.shape[0]
     if n <= 1:
-        return positions, None
+        return (positions, None) if return_lanes else positions
     pos_lane = u32_bits_as_int32(positions)
     if packed2 is not None and max_kmer_len is not None and max_kmer_len <= WINDOW2_BASES:
         n_words = _cdiv(max_kmer_len, BASES_PER_WORD2)
         words = build_key2_words(packed2, positions, cap_len, n_words)
         caps = () if uniform_cap else (cap_len.to(torch.int32),)
         res = sort_lanes_cuda(words + caps + (pos_lane,))
+        if not return_lanes:
+            return widen_u32(res[-1])
         return widen_u32(res[-1]), {
             "two_bit": True,
             "built_k": max_kmer_len,
@@ -301,6 +318,8 @@ def sort_positions(
         n_words = _cdiv(max_kmer_len, BASES_PER_WORD)
         words = build_key_words(packed, positions, cap_len, n_words)
         res = sort_lanes_cuda(words + (pos_lane,))
+        if not return_lanes:
+            return widen_u32(res[-1])
         return widen_u32(res[-1]), {
             "two_bit": False,
             "built_k": max_kmer_len,
@@ -320,7 +339,7 @@ def sort_positions(
     while _round_done(unresolved, name, on_round):
         pos, cap, gid, unresolved = sort_round(pos, cap, gid, offset, False)
         offset += WINDOW_BASES
-    return pos, None
+    return (pos, None) if return_lanes else pos
 
 
 # --------------------------------------------------------------------------- #
@@ -575,7 +594,7 @@ def _masked(word: torch.Tensor, mask_u32: int) -> torch.Tensor:
     return word & mask_u32
 
 
-def boundaries_from_sorted_lanes(words, cap, kmer_len: int, two_bit: bool = True) -> torch.Tensor:
+def boundaries_from_sorted_lanes(words, cap, kmer_len: int, two_bit: bool) -> torch.Tensor:
     """Group-boundary mask from retained sorted key lanes: a pure adjacent
     compare, no genome gathers. Any ``kmer_len`` up to the built length
     works: word content beyond each row's cap is already zero, so masking

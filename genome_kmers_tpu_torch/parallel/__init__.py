@@ -9,7 +9,7 @@ their ``*_large*`` variants over a strided pack and int64 positions, which
 functions over lists of per-shard tensors (``collectives.py``): plain moves
 within one process, a ``torch.distributed`` process group (NCCL on cards,
 Gloo through the host) where the mesh spans processes, the counterpart of
-the JAX package's ``jax.distributed`` meshes. ``distributed_sort_positions``
+the JAX package's multi-process meshes. ``distributed_sort_positions``
 is the JAX package's opt-in odd-even merge sort of a 1-D mesh.
 """
 

@@ -65,6 +65,7 @@ from .collectives import (  # noqa: F401 - hier_shape: the JAX package's home of
     all_to_all,
     gather_host,
     hier_shape,
+    pmax,
     psum,
     put_sharded,
     replicate,
@@ -73,6 +74,7 @@ from .collectives import (  # noqa: F401 - hier_shape: the JAX package's home of
 AXIS = "kmers"  # mesh axis name: position-sharded data parallelism
 _PAD_POS = 0xFFFFFFF0  # padding position of an evenly sharded index (JAX ops/sort._PAD_POS)
 _BIG = 1 << 62  # "no boundary here": above every counted-row index
+_SPEC_HIST_BINS = 256  # speculative bins of the return_sizes digest (JAX ops/groups)
 
 
 class Mesh:
@@ -526,7 +528,7 @@ def mesh_lanes_filter_flags(words: list, positions: list, is_pad: list, params, 
         cap = cap_lengths(compute_valid_len(pos, ss[i], se[i]), built_k)
         mask, errs = flags_fn(words[i], cap, pos, params)
         masks.append(mask & valid)
-        digests.append(fold_err_conditions([e & valid for e in errs], pos))
+        digests.append(fold_err_conditions(errs, pos, valid=valid))
     if digests[0] is None:
         return masks, []
     for values in gather_host([d.cpu().numpy() for d in digests], mesh).tolist():
@@ -550,25 +552,33 @@ def distributed_group_size_histogram_ragged(
     strand_split: int | None = None,
     sorted_words=None,
     mask=None,
+    return_digest: bool = False,
     return_sizes: bool = False,
     ext_gid=None,
 ):
     """Group-size histogram and total over the ragged per-shard-padded
     layout of ``sample_sort_positions_ragged`` (or an evenly padded one):
-    ``(counts, total)``, or with ``return_sizes`` the sharded ``(size,
-    qualifies, total)``. ``packed`` / ``packed2`` are the genome's 4-bit or
-    2-bit pack (one tensor, replicated here); ``sorted_words``, the lanes a
-    sample sort retained on the same encoding, skip the key gathers
-    (``kmer_len`` at most their built length); ``mask``, a sharded
-    survivor mask, makes the sizes count survivors in unfiltered group
-    identity; ``strand_split`` keeps the two strands of a both-strand index
-    apart (positions at or past it are "-" k-mers): a group is then
-    (string, strand), and a shard's sizes are its "+" halves followed by its
-    "-" halves (``_dist_sizes_digest``). ``ext_gid``, sharded
-    run ids (``sample_sort.distributed_adjacent_gids`` or the converged ids
-    of ``sample_sort_positions_unbounded``), are the group identity alone:
-    then ``kmer_len`` may be None or beyond one compare window and the
-    genome is not read."""
+    ``(counts, total)``; with ``return_digest`` ``(counts, total, hi)``,
+    ``hi`` the largest clipped bin any qualifying group lands in
+    (min(largest qualifying size, ``max_counts_bin``), 0 without one), a
+    0-dim int64 tensor on the mesh's first device, so that a caller can
+    read ``counts[:hi + 1]`` alone; or, before either, with
+    ``return_sizes`` the sharded ``(size, qualifies, digest)``, ``digest``
+    the JAX package's int64 tensor ``[total, largest qualifying size,
+    counts of the sizes clipped at _SPEC_HIST_BINS]`` on the mesh's first
+    device. ``packed`` /
+    ``packed2`` are the genome's 4-bit or 2-bit pack (one tensor,
+    replicated here); ``sorted_words``, the lanes a sample sort retained on
+    the same encoding, skip the key gathers (``kmer_len`` at most their
+    built length); ``mask``, a sharded survivor mask, makes the sizes count
+    survivors in unfiltered group identity; ``strand_split`` keeps the two
+    strands of a both-strand index apart (positions at or past it are "-"
+    k-mers): a group is then (string, strand), and a shard's sizes are its
+    "+" halves followed by its "-" halves (``_dist_sizes_digest``).
+    ``ext_gid``, sharded run ids (``sample_sort.distributed_adjacent_gids``
+    or the converged ids of ``sample_sort_positions_unbounded``), are the
+    group identity alone: then ``kmer_len`` may be None or beyond one
+    compare window and the genome is not read."""
     limit = 64 if packed2 is not None else 32
     if ext_gid is None and (kmer_len is None or kmer_len > limit):
         raise NotImplementedError(
@@ -581,9 +591,8 @@ def distributed_group_size_histogram_ragged(
             None, sorted_positions, None, is_pad, min_group_size, max_group_size,
             strand_split, None, mask, ext_gid, 0, two_bit, 32, mesh,
         )
-        if return_sizes:
-            return size, qualifies, total
-        return distributed_hist_from_sizes(size, qualifies, max_counts_bin, mesh), total
+        return _hist_or_sizes(size, qualifies, total, max_counts_bin, return_digest,
+                              return_sizes, mesh)
     genome = replicate(packed2 if two_bit else packed, mesh)
     ss, se = replicate(seg_starts, mesh), replicate(seg_ends, mesh)
     cap_len = [
@@ -601,9 +610,31 @@ def distributed_group_size_histogram_ragged(
         sorted_positions, cap_len, is_pad, min_group_size, max_group_size,
         strand_split, sorted_words, mask, None, n_words, two_bit, keep_bits, mesh,
     )
+    return _hist_or_sizes(size, qualifies, total, max_counts_bin, return_digest, return_sizes,
+                          mesh)
+
+
+def _hist_or_sizes(size, qualifies, total, max_counts_bin, return_digest, return_sizes, mesh):
+    """What ``distributed_group_size_histogram_ragged`` returns from the
+    sizes of ``_dist_sizes_digest``. ``hi`` is a maximum a shard and a
+    ``pmax`` over the sizes already computed: no host read."""
     if return_sizes:
-        return size, qualifies, total
-    return distributed_hist_from_sizes(size, qualifies, max_counts_bin, mesh), total
+        hi = _largest_qualifying(size, qualifies, mesh)
+        spec = distributed_hist_from_sizes(size, qualifies, _SPEC_HIST_BINS, mesh)
+        return size, qualifies, torch.cat([hi.new_tensor([total]), hi.view(1), spec])
+    counts = distributed_hist_from_sizes(size, qualifies, max_counts_bin, mesh)
+    if not return_digest:
+        return counts, total
+    return counts, total, torch.clamp_max(_largest_qualifying(size, qualifies, mesh),
+                                          max_counts_bin)
+
+
+def _largest_qualifying(size, qualifies, mesh):
+    """The largest qualifying group size over all shards (0 without one):
+    a 0-dim int64 tensor on the mesh's first device."""
+    local = [torch.where(q, s, 0).amax() if s.numel() else s.new_zeros(())
+             for s, q in zip(size, qualifies)]
+    return pmax(local, mesh)[0]
 
 
 def distributed_group_size_histogram(

@@ -75,14 +75,16 @@ def test_boundaries_and_sizes_at_every_kmer_len(kind, mn, mx):
     j_lanes, t_lanes = km._lanes_cache, tkm._lanes_cache
     for kmer_len in range(1, mx + 1):
         want = jax_boundaries(j_lanes["words"], j_lanes["cap"], kmer_len, True)
-        got = boundaries_from_sorted_lanes(t_lanes["words"], t_lanes["cap"], kmer_len)
+        got = boundaries_from_sorted_lanes(t_lanes["words"], t_lanes["cap"], kmer_len, True)
         assert got.dtype == torch.bool
         assert np.array_equal(got.numpy(), np.asarray(want)), kmer_len
         sizes = group_sizes_at_boundaries(got)
         assert np.array_equal(sizes.numpy(), np.asarray(jax_group_sizes(want)).astype(np.int64))
-        assert lanes_group_total(t_lanes["words"], t_lanes["cap"], 1, None, kmer_len) == len(km)
+        assert lanes_group_total(t_lanes["words"], t_lanes["cap"], 1, None, kmer_len,
+                                 True) == len(km)
         j_total = int(km.get_kmer_count(kmer_len, min_group_size=2))
-        assert lanes_group_total(t_lanes["words"], t_lanes["cap"], 2, None, kmer_len) == j_total
+        assert lanes_group_total(t_lanes["words"], t_lanes["cap"], 2, None, kmer_len,
+                                 True) == j_total
 
 
 @pytest.mark.parametrize("mn,mx", [(3, 3), (31, 31), (4, 20), (12, 32)])
@@ -118,7 +120,7 @@ def test_group_geometry_and_selection_masks_match_jax(seed):
     _, _, j_size, j_rank = want
     none = jnp.uint32(0xFFFFFFF0)  # how the JAX package passes "unbounded"
     for mgs, xgs, yfn in [(1, None, None), (2, None, None), (1, 3, None), (2, 5, 1), (1, None, 2)]:
-        yielded, gsy = selection_masks(size, rank, mgs, xgs, yfn)
+        yielded, gsy = selection_masks(torch.from_numpy(mask), size, rank, mgs, xgs, yfn)
         j_yielded, j_gsy = jax_selection_masks(
             jnp.asarray(mask), j_size, j_rank, jnp.uint32(mgs),
             none if xgs is None else jnp.uint32(xgs), none if yfn is None else jnp.uint32(yfn),

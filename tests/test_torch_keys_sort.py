@@ -116,7 +116,8 @@ def test_sort_positions_dense_matches_jax(kind, mn, mx):
         two_bit=True, uniform_cap=uniform, return_lanes=True,
     )
     t_pos, t_lanes = sort_positions_dense(
-        tkeys.pack_rank2_words(torch.from_numpy(sba)), t_starts, t_ends, n, mn, mx
+        tkeys.pack_rank2_words(torch.from_numpy(sba)), t_starts, t_ends, n, mn, mx,
+        two_bit=True, uniform_cap=uniform, return_lanes=True,
     )
     assert t_pos.dtype == torch.int64
     assert np.array_equal(_u32(t_pos), np.asarray(j_pos))
@@ -137,7 +138,8 @@ def test_all_t_kmers_sort_ahead_of_invalid_rows():
     t_starts, t_ends = _torch_geometry(sba, seg_starts)
     n = int(sum(int(e) - int(s) + 1 - 31 + 1 for s, e in zip(seg_starts, t_ends.numpy())))
     pos, lanes = sort_positions_dense(
-        tkeys.pack_rank2_words(torch.from_numpy(sba)), t_starts, t_ends, n, 31, 31
+        tkeys.pack_rank2_words(torch.from_numpy(sba)), t_starts, t_ends, n, 31, 31,
+        two_bit=True, uniform_cap=True, return_lanes=True,
     )
     t_rec = int(seg_starts[-1])
     assert pos[-50:].tolist() == list(range(t_rec, t_rec + 50))
@@ -233,7 +235,8 @@ def test_sort_positions_dense_4bit_matches_jax(mn, mx):
         two_bit=False, uniform_cap=mn == mx, return_lanes=True,
     )
     t_pos, t_lanes = sort_positions_dense(
-        tkeys.pack_rank_words(torch.from_numpy(sba)), t_starts, t_ends, n, mn, mx, two_bit=False
+        tkeys.pack_rank_words(torch.from_numpy(sba)), t_starts, t_ends, n, mn, mx, two_bit=False,
+        uniform_cap=mn == mx, return_lanes=True,
     )
     assert t_pos.dtype == torch.int64 and t_pos.shape == (n,)
     assert np.array_equal(_u32(t_pos), np.asarray(j_pos))
@@ -287,7 +290,8 @@ def test_sort_positions_matches_jax(genome, mn, mx, order):
         uniform_cap=mn == mx, return_lanes=True,
     )
     got_pos, got = sort_positions(
-        t_packs["packed"], t_pos, t_cap, mx, packed2=t_packs["packed2"], uniform_cap=mn == mx
+        t_packs["packed"], t_pos, t_cap, mx, packed2=t_packs["packed2"], uniform_cap=mn == mx,
+        return_lanes=True,
     )
     assert got_pos.dtype == torch.int64
     assert np.array_equal(_u32(got_pos), np.asarray(want_pos))
@@ -299,9 +303,9 @@ def test_sort_positions_matches_jax(genome, mn, mx, order):
     if got["cap"] is not None:
         assert np.array_equal(_u32(got["cap"]), np.asarray(want["cap"]))
     if order != "shuffled subset":
-        dense_pos, _ = sort_positions_dense(
+        dense_pos = sort_positions_dense(
             t_packs["packed2"] if two_bit else t_packs["packed"], t_starts, t_ends, len(full),
-            mn, mx, two_bit=two_bit,
+            mn, mx, two_bit=two_bit, uniform_cap=mn == mx,
         )
         assert torch.equal(got_pos, dense_pos)
     # group boundaries from gathered keys, at and around the sorted length
@@ -326,8 +330,9 @@ def test_sort_positions_of_at_most_one_row_and_beyond_the_window():
     packed = tkeys.pack_rank_words(torch.from_numpy(sba))
     one = torch.tensor([3], dtype=torch.int64)
     cap = tkeys.cap_lengths(tkeys.compute_valid_len(one, t_starts, t_ends), 9)
-    pos, lanes = sort_positions(packed, one, cap, 9)
+    pos, lanes = sort_positions(packed, one, cap, 9, return_lanes=True)
     assert torch.equal(pos, one) and lanes is None
+    assert torch.equal(sort_positions(packed, one, cap, 9), one)
     # beyond the window the rounds of 32 bases take over: no lanes are kept
     two = torch.tensor([3, 1], dtype=torch.int64)
     j_two = jnp.asarray([3, 1], dtype=jnp.uint32)
@@ -336,9 +341,10 @@ def test_sort_positions_of_at_most_one_row_and_beyond_the_window():
     for max_kmer_len in (33, None):
         cap = tkeys.cap_lengths(tkeys.compute_valid_len(two, t_starts, t_ends), max_kmer_len)
         j_cap = jkeys.cap_lengths(jkeys.compute_valid_len(j_two, j_starts, j_ends), max_kmer_len)
-        pos, lanes = sort_positions(packed, two, cap, max_kmer_len)
+        pos, lanes = sort_positions(packed, two, cap, max_kmer_len, return_lanes=True)
         want = jax_sort_positions(j_packed, j_two, j_cap, max_kmer_len)
         assert lanes is None and np.array_equal(_u32(pos), np.asarray(want))
+        assert torch.equal(sort_positions(packed, two, cap, max_kmer_len), pos)
         got_b = adjacent_boundaries(packed, two, cap, max_kmer_len)
         want_b = jax_adjacent_boundaries(j_packed, j_two, j_cap, max_kmer_len)
         assert np.array_equal(got_b.numpy(), np.asarray(want_b))

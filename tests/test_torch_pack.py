@@ -97,9 +97,11 @@ def test_pallas_pack_with_separators_sorts_equal(mn, mx):
     assert not np.array_equal(pallas, _as_u32(pack_rank2_words(torch.from_numpy(sba))))
     pallas_i32 = u32_bits_as_int32(torch.from_numpy(pallas.astype(np.int64)))
     own = sort_positions_dense(
-        pack_rank2_words(torch.from_numpy(sba)), seg_starts, seg_ends, n, mn, mx
+        pack_rank2_words(torch.from_numpy(sba)), seg_starts, seg_ends, n, mn, mx,
+        two_bit=True, uniform_cap=mn == mx, return_lanes=True,
     )
-    other = sort_positions_dense(pallas_i32, seg_starts, seg_ends, n, mn, mx)
+    other = sort_positions_dense(pallas_i32, seg_starts, seg_ends, n, mn, mx, two_bit=True,
+                                 uniform_cap=mn == mx, return_lanes=True)
     assert torch.equal(own[0], other[0])
     for a, b in zip(own[1]["words"], other[1]["words"]):
         assert torch.equal(a, b)

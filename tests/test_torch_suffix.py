@@ -202,7 +202,8 @@ def test_sort_positions_beyond_a_window_matches_jax(kind, max_k, order):
         packed2=g.j_packed2, return_lanes=True,
     )
     got, t_lanes = tsort.sort_positions(
-        g.t_packed, torch.from_numpy(positions), t_cap, max_k, packed2=g.t_packed2
+        g.t_packed, torch.from_numpy(positions), t_cap, max_k, packed2=g.t_packed2,
+        return_lanes=True,
     )
     assert got.dtype == torch.int64 and _same(got, want)
     assert t_lanes is None and j_lanes is None
@@ -220,7 +221,7 @@ def test_adjacent_boundaries_beyond_a_window_match_jax(kind, kmer_len):
     j_cap, t_cap = g.caps(g.starts, None)
     sorted_pos = tsort.sort_positions(
         g.t_packed, torch.from_numpy(g.starts), t_cap, None, packed2=g.t_packed2
-    )[0]
+    )
     j_cap, t_cap = g.caps(sorted_pos.numpy(), kmer_len)
     want = jsort.adjacent_boundaries(g.j_packed, _j(sorted_pos), j_cap, kmer_len)
     got = tsort.adjacent_boundaries(g.t_packed, sorted_pos, t_cap, kmer_len)
@@ -233,7 +234,7 @@ def test_adjacent_boundaries_beyond_a_window_match_jax(kind, kmer_len):
 def test_adj_eq_round_matches_jax():
     g = _genome("acgt")
     j_cap, t_cap = g.caps(g.starts, None)
-    sorted_pos = tsort.sort_positions(g.t_packed, torch.from_numpy(g.starts), t_cap, None)[0]
+    sorted_pos = tsort.sort_positions(g.t_packed, torch.from_numpy(g.starts), t_cap, None)
     j_cap, t_cap = g.caps(sorted_pos.numpy(), None)
     j_eq, t_eq = jnp.ones(len(g.starts), dtype=bool), torch.ones(len(g.starts), dtype=torch.bool)
     for offset in (0, 32, 64, 96):
@@ -342,7 +343,7 @@ def test_sort_positions_suffix_dense_matches_jax(kind, mn, mx, host_loops, monke
     # equal to the gather sort over the canonical start set
     _, t_cap = g.caps(g.starts, mx)
     gathered = tsort.sort_positions(
-        g.t_packed, torch.from_numpy(g.starts), t_cap, mx, packed2=g.t_packed2)[0]
+        g.t_packed, torch.from_numpy(g.starts), t_cap, mx, packed2=g.t_packed2)
     assert torch.equal(got_pos, gathered)
 
 

@@ -106,8 +106,8 @@ def mesh_soak(n_cases: int, device: str = "cuda", max_shards: int = 8) -> list:
         dc = sc.device_cache("forward")
         pos = torch.from_numpy(km.kmer_sba_start_indices.astype(np.int64)).to(dc.device)
         cap = cap_lengths(compute_valid_len(pos, dc.seg_starts, dc.seg_ends), max_k)
-        truth, _ = sort_positions(dc.packed, pos, cap, max_k,
-                                  packed2=dc.packed2 if (max_k and max_k <= 64) else None)
+        truth = sort_positions(dc.packed, pos, cap, max_k,
+                               packed2=dc.packed2 if (max_k and max_k <= 64) else None)
         got = sample_sort_positions(dc.packed, pos, dc.seg_starts, dc.seg_ends, max_k, mesh,
                                     packed2=dc.packed2)
         if not torch.equal(got.cpu(), truth.cpu()):
