@@ -1,0 +1,8 @@
+"""Median ms of the session's filtered ``get_kmer_group_counts`` calls."""
+
+from kmerbench.record import median, spans_of
+
+
+def read(run):
+    ms = median([s.seconds for s in spans_of(run, "group_counts", "call", filtered=True)])
+    return None if ms is None else ms * 1e3
