@@ -137,6 +137,7 @@ from .sequence_collection import (
     get_sba_start_end_indices_for_segment,
     get_segment_num_from_sba_index,
 )
+from .tracing import new_call, span
 
 _DOLLAR = ord("$")
 
@@ -1427,6 +1428,7 @@ class Kmers:
         filtered lanes, flag plane or window, compaction to the survivors.
         ``mesh``: count over the mesh (``_mesh_group_hist``); the index must
         be sorted."""
+        new_call()
         self._check_stats_args(kmer_len, min_group_size, max_group_size)
         if mesh is not None:
             if not self._is_sorted:
@@ -1458,8 +1460,9 @@ class Kmers:
         _, _, boundary = self._boundary_parts(kmer_len, kmer_filter_func)
         if boundary.shape[0] == 0:
             return 0
-        return group_total_count(boundary, group_sizes_at_boundaries(boundary), min_group_size,
-                                 max_group_size)
+        with span("gk:groups.sizes", boundary):
+            return group_total_count(boundary, group_sizes_at_boundaries(boundary),
+                                     min_group_size, max_group_size)
 
     def get_kmer_group_counts(
         self,
@@ -1475,6 +1478,7 @@ class Kmers:
         groups; under a filter, of the groups' survivor counts. Routes as
         in ``get_kmer_count``; ``mesh`` computes them over the mesh
         (``_mesh_group_hist``)."""
+        new_call()
         self._check_stats_args(kmer_len, min_group_size, max_group_size)
         if not self._is_sorted:
             raise AssertionError("The kmers must be sorted when calling get_kmer_group_counts")
@@ -1510,11 +1514,15 @@ class Kmers:
             _, _, boundary = self._boundary_parts(kmer_len, kmer_filter_func)
             if boundary.shape[0] == 0:
                 return np.zeros(max_counts_bin + 1, dtype=np.int64), 0
-            size, qualifies, total = sizes_digest(
-                boundary, group_sizes_at_boundaries(boundary), min_group_size, max_group_size
-            )
-        counts = hist_from_sizes(size, qualifies, max_counts_bin)
-        return counts.cpu().numpy().astype(np.int64), total
+            with span("gk:groups.sizes", boundary):
+                size, qualifies, total = sizes_digest(
+                    boundary, group_sizes_at_boundaries(boundary), min_group_size, max_group_size
+                )
+        with span("gk:groups.histogram", size):
+            counts = hist_from_sizes(size, qualifies, max_counts_bin)
+        with span("gk:groups.readback", counts):
+            counts = counts.cpu().numpy().astype(np.int64)
+        return counts, total
 
     def _mesh_group_hist(self, kmer_len, kmer_filter_func, min_group_size, max_group_size,
                          max_counts_bin, mesh) -> tuple[np.ndarray, int]:
@@ -1763,6 +1771,7 @@ class Kmers:
         as the last key (ops/sort.sort_positions). ``on_round(name)`` is
         called as each refinement round finishes on the device (ops/sort's
         module doc); a sort within one window has no rounds."""
+        new_call()
         self._check_forward_only()
         if mesh is not None:
             self._sort_mesh(mesh, on_round, on_step, mesh_info)

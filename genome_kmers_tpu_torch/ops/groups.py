@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..tracing import span
 from .sort import boundaries_from_sorted_lanes
 
 
@@ -114,9 +115,11 @@ def lanes_sizes_digest(
     words, cap, kmer_len: int, min_group_size: int, max_group_size, two_bit: bool
 ):
     """``sizes_digest`` over the boundaries of retained sorted key lanes."""
-    boundary = boundaries_from_sorted_lanes(words, cap, kmer_len, two_bit)
-    return sizes_digest(boundary, group_sizes_at_boundaries(boundary), min_group_size,
-                        max_group_size)
+    with span("gk:groups.boundaries", words[0]):
+        boundary = boundaries_from_sorted_lanes(words, cap, kmer_len, two_bit)
+    with span("gk:groups.sizes", boundary):
+        return sizes_digest(boundary, group_sizes_at_boundaries(boundary), min_group_size,
+                            max_group_size)
 
 
 def clipped_counts(qualifies, clipped, max_counts_bin: int) -> torch.Tensor:
@@ -147,9 +150,11 @@ def lanes_group_total(
     words, cap, min_group_size: int, max_group_size, kmer_len: int, two_bit: bool
 ) -> int:
     """Reduce-only sibling of ``lanes_sizes_digest`` for count queries."""
-    boundary = boundaries_from_sorted_lanes(words, cap, kmer_len, two_bit)
-    size = group_sizes_at_boundaries(boundary)
-    return group_total_count(boundary, size, min_group_size, max_group_size)
+    with span("gk:groups.boundaries", words[0]):
+        boundary = boundaries_from_sorted_lanes(words, cap, kmer_len, two_bit)
+    with span("gk:groups.sizes", boundary):
+        size = group_sizes_at_boundaries(boundary)
+        return group_total_count(boundary, size, min_group_size, max_group_size)
 
 
 # --------------------------------------------------------------------------- #
@@ -208,19 +213,20 @@ def fold_err_conditions(errs, positions, valid=None):
 
 def _lanes_filtered_core(words, cap, positions, params, flags_fn, kmer_len: int,
                          two_bit: bool, strand_split):
-    """(boundary, survivor sizes, error fold) of a filter evaluated on the
+    """(boundary, survivor mask, error fold) of a filter evaluated on the
     retained sorted key lanes (ops/filters lanes flags: no genome read).
     ``strand_split`` is the first position of the reverse-complement half
     when the strands are tracked apart, else None: the groups are then
-    (string, strand) (``strand_order``), and the boundary and sizes are
-    in that order."""
-    mask, errs = flags_fn(words, cap, positions, params)
-    boundary = boundaries_from_sorted_lanes(words, cap, kmer_len, two_bit)
+    (string, strand) (``strand_order``), and the boundary and mask are in
+    that order."""
+    with span("gk:filters.flags", positions):
+        mask, errs = flags_fn(words, cap, positions, params)
+    with span("gk:groups.boundaries", positions):
+        boundary = boundaries_from_sorted_lanes(words, cap, kmer_len, two_bit)
     if strand_split is not None:
         order, boundary = strand_order(boundary, positions >= strand_split)
         mask = mask[order]
-    surv = survivor_sizes_at_boundaries(boundary, mask)
-    return boundary, surv, fold_err_conditions(errs, positions)
+    return boundary, mask, fold_err_conditions(errs, positions)
 
 
 def _digest(total: torch.Tensor, err):
@@ -234,11 +240,13 @@ def lanes_filtered_sizes_digest(words, cap, positions, params, kmer_len: int, mi
     """Survivor sizes, the qualifying mask, the total and the error triple
     of a filtered query over retained sorted key lanes: (surv, qualifies,
     total, err)."""
-    boundary, surv, err = _lanes_filtered_core(
+    boundary, mask, err = _lanes_filtered_core(
         words, cap, positions, params, flags_fn, kmer_len, two_bit, strand_split
     )
-    qualifies = _qualifies(boundary, surv, max(min_group_size, 1), max_group_size)
-    total, err = _digest(torch.where(qualifies, surv, 0).sum(), err)
+    with span("gk:groups.sizes", boundary):
+        surv = survivor_sizes_at_boundaries(boundary, mask)
+        qualifies = _qualifies(boundary, surv, max(min_group_size, 1), max_group_size)
+        total, err = _digest(torch.where(qualifies, surv, 0).sum(), err)
     return surv, qualifies, total, err
 
 
@@ -255,9 +263,10 @@ def filtered_sizes_digest(boundary, mask, min_group_size: int, max_group_size):
     """Survivor sizes, the qualifying mask and the total of a filtered query
     over a boundary of all rows and a survivor mask (the plane and window
     routes): (surv, qualifies, total)."""
-    surv = survivor_sizes_at_boundaries(boundary, mask)
-    qualifies = _qualifies(boundary, surv, max(min_group_size, 1), max_group_size)
-    return surv, qualifies, _total(surv, qualifies)
+    with span("gk:groups.sizes", boundary):
+        surv = survivor_sizes_at_boundaries(boundary, mask)
+        qualifies = _qualifies(boundary, surv, max(min_group_size, 1), max_group_size)
+        return surv, qualifies, _total(surv, qualifies)
 
 
 def filtered_group_total(boundary, mask, min_group_size: int, max_group_size) -> int:

@@ -63,6 +63,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.lane_sort import sort_lanes_cuda
+from ..tracing import span
 from .encoding import BASES_PER_WORD, BASES_PER_WORD2, DIBIT_MASKS, NIBBLE_MASKS
 from .keys import (
     build_key2_words,
@@ -176,28 +177,27 @@ def _dense_key_chunks(packed2, seg_starts, seg_ends, min_len, k, uniform_cap):
     return chunks, chunk_widths, [w for _, w in lanes]
 
 
-def _sort_dense(packed2, seg_starts, seg_ends, min_len, k, uniform_cap, return_keys=True):
+def _sort_dense(packed2, seg_starts, seg_ends, min_len, k, uniform_cap):
     """Fresh sort over ALL positions 0..L-1 of the pack: key words are
     shifted slices of the pack and valid_len comes from the segment table,
     so nothing is gathered from the genome. Rows that are not k-mer starts
     (separators, tails shorter than ``min_len``) carry the invalid bit and
     sort after every real row.
 
-    Returns (positions in sorted order, sorted keys, key widths, lane
-    widths) over all L rows, the sorted keys None unless ``return_keys``
-    (the later key chunks are then not gathered); the caller keeps the
+    Returns (positions in sorted order, the first key sorted, the keys,
+    key widths, lane widths) over all L rows: the later keys are gathered
+    in sorted order only by a caller that keeps them, which also keeps the
     real-row prefix."""
-    chunks, chunk_widths, lane_widths = _dense_key_chunks(
-        packed2, seg_starts, seg_ends, min_len, k, uniform_cap
-    )
-    perm = None
-    for chunk in reversed(chunks):
-        vals, idx = torch.sort(chunk if perm is None else chunk[perm], stable=True)
-        perm = idx if perm is None else perm[idx]
-    if not return_keys:
-        return perm, None, chunk_widths, lane_widths
-    sorted_chunks = [vals] + [c[perm] for c in chunks[1:]]
-    return perm, sorted_chunks, chunk_widths, lane_widths
+    with span("gk:sort.keys", packed2):
+        chunks, chunk_widths, lane_widths = _dense_key_chunks(
+            packed2, seg_starts, seg_ends, min_len, k, uniform_cap
+        )
+    with span("gk:sort.order", packed2):
+        perm = None
+        for chunk in reversed(chunks):
+            vals, idx = torch.sort(chunk if perm is None else chunk[perm], stable=True)
+            perm = idx if perm is None else perm[idx]
+    return perm, vals, chunks, chunk_widths, lane_widths
 
 
 def _sort_dense4(packed, seg_starts, seg_ends, min_len, k):
@@ -210,15 +210,17 @@ def _sort_dense4(packed, seg_starts, seg_ends, min_len, k):
     Returns the sorted lanes (int32 bit patterns) over all L rows; the
     caller keeps the real-row prefix."""
     length = packed.shape[0]
-    cap = torch.clamp_max(valid_len_all(seg_starts, seg_ends, length), k)
-    invalid = (cap < min_len).to(torch.int32)
-    words = build_key_words_dense(packed, cap, _cdiv(k, BASES_PER_WORD))
-    del cap
-    if length <= 1 << 31:
-        iota = torch.arange(length, dtype=torch.int32, device=packed.device)
-    else:
-        iota = u32_bits_as_int32(torch.arange(length, dtype=torch.int64, device=packed.device))
-    return sort_lanes_cuda((invalid,) + words + (iota,))
+    with span("gk:sort.keys", packed):
+        cap = torch.clamp_max(valid_len_all(seg_starts, seg_ends, length), k)
+        invalid = (cap < min_len).to(torch.int32)
+        words = build_key_words_dense(packed, cap, _cdiv(k, BASES_PER_WORD))
+        del cap
+        if length <= 1 << 31:
+            iota = torch.arange(length, dtype=torch.int32, device=packed.device)
+        else:
+            iota = u32_bits_as_int32(torch.arange(length, dtype=torch.int64, device=packed.device))
+    with span("gk:sort.order", packed, kernel=sort_lanes_cuda):
+        return sort_lanes_cuda((invalid,) + words + (iota,))
 
 
 def sort_positions_dense(
@@ -242,24 +244,28 @@ def sort_positions_dense(
     if not two_bit:
         n_words = _cdiv(k, BASES_PER_WORD)
         res = _sort_dense4(packed, seg_starts, seg_ends, min_kmer_len, k)
-        pos = widen_u32(res[-1][:n])
-        if not return_lanes:
-            return pos
-        return pos, {
-            "two_bit": False,
-            "built_k": k,
-            "words": tuple(w[:n] for w in res[1 : 1 + n_words]),
-            "cap": None,
-        }
-    perm, sorted_chunks, chunk_widths, lane_widths = _sort_dense(
-        packed, seg_starts, seg_ends, min_kmer_len, k, uniform_cap, return_keys=return_lanes
+        with span("gk:sort.lanes", packed):
+            pos = widen_u32(res[-1][:n])
+            if not return_lanes:
+                return pos
+            return pos, {
+                "two_bit": False,
+                "built_k": k,
+                "words": tuple(w[:n] for w in res[1 : 1 + n_words]),
+                "cap": None,
+            }
+    perm, vals, chunks, chunk_widths, lane_widths = _sort_dense(
+        packed, seg_starts, seg_ends, min_kmer_len, k, uniform_cap
     )
     if not return_lanes:
         return perm[:n]
-    lanes = _unpack_chunks([c[:n] for c in sorted_chunks], chunk_widths, lane_widths)
-    n_words = _cdiv(k, BASES_PER_WORD2)
-    words = lanes[1 : 1 + n_words]
-    words[-1] = words[-1] << (32 - lane_widths[n_words])
+    with span("gk:sort.lanes", packed):
+        sorted_chunks = [vals] + [c[perm] for c in chunks[1:]]
+        del vals, chunks
+        lanes = _unpack_chunks([c[:n] for c in sorted_chunks], chunk_widths, lane_widths)
+        n_words = _cdiv(k, BASES_PER_WORD2)
+        words = lanes[1 : 1 + n_words]
+        words[-1] = words[-1] << (32 - lane_widths[n_words])
     return perm[:n], {
         "two_bit": True,
         "built_k": k,
@@ -532,45 +538,55 @@ def sort_positions_suffix_dense(
 
     Returns int64 sorted positions, or (positions, run ids)."""
     doubling = min_kmer_len == 1 and max_kmer_len is None
+    # each round is one span, ending on the scalar read that decides the next
     if packed2 is not None:
-        pos, gid, unresolved = _first_round_dense2(
-            packed2, seg_starts, seg_ends, min_kmer_len, max_kmer_len
-        )
+        with span("gk:sort.round", packed2):
+            pos, gid, unresolved = _first_round_dense2(
+                packed2, seg_starts, seg_ends, min_kmer_len, max_kmer_len
+            )
+            more = _round_done(unresolved, "_first_round_dense2", on_round)
         offset = WINDOW2F_BASES
         cap = None
-        name = "_first_round_dense2"
-        while _round_done(unresolved, name, on_round):
-            if cap is None:
-                # the folded first round keeps no cap lane; a valid length
-                # can only be negative for a row past the last record
-                cap = torch.clamp_min(
-                    cap_lengths(compute_valid_len(pos, seg_starts, seg_ends), max_kmer_len), 0
-                )
-            if doubling:
-                name = "_double_round2"
-                pos, gid, cap, unresolved = _double_round2(pos, gid, cap, offset)
-                offset += offset
-            else:
-                name = "_sort_round2"
-                pos, cap, gid, unresolved = _sort_round2(packed2, pos, cap, gid, offset, False)
-                offset += WINDOW_BASES
+        while more:
+            with span("gk:sort.round", pos):
+                if cap is None:
+                    # the folded first round keeps no cap lane; a valid length
+                    # can only be negative for a row past the last record
+                    cap = torch.clamp_min(
+                        cap_lengths(compute_valid_len(pos, seg_starts, seg_ends), max_kmer_len),
+                        0,
+                    )
+                if doubling:
+                    name = "_double_round2"
+                    pos, gid, cap, unresolved = _double_round2(pos, gid, cap, offset)
+                    offset += offset
+                else:
+                    name = "_sort_round2"
+                    pos, cap, gid, unresolved = _sort_round2(
+                        packed2, pos, cap, gid, offset, False
+                    )
+                    offset += WINDOW_BASES
+                more = _round_done(unresolved, name, on_round)
     else:
-        pos, cap, gid, unresolved = _first_round_dense(
-            packed, seg_starts, seg_ends, min_kmer_len, max_kmer_len, WINDOW_WORDS
-        )
+        with span("gk:sort.round", packed):
+            pos, cap, gid, unresolved = _first_round_dense(
+                packed, seg_starts, seg_ends, min_kmer_len, max_kmer_len, WINDOW_WORDS
+            )
+            more = _round_done(unresolved, "_first_round_dense", on_round)
         offset = WINDOW_BASES
-        name = "_first_round_dense"
-        while _round_done(unresolved, name, on_round):
-            if doubling:
-                name = "_double_round2"
-                pos, gid, cap, unresolved = _double_round2(pos, gid, cap, offset)
-                offset += offset
-            else:
-                name = "_sort_round"
-                pos, cap, gid, unresolved = _sort_round(
-                    packed, pos, cap, gid, offset, WINDOW_WORDS, False
-                )
-                offset += WINDOW_BASES
+        while more:
+            with span("gk:sort.round", pos):
+                if doubling:
+                    name = "_double_round2"
+                    pos, gid, cap, unresolved = _double_round2(pos, gid, cap, offset)
+                    offset += offset
+                else:
+                    name = "_sort_round"
+                    pos, cap, gid, unresolved = _sort_round(
+                        packed, pos, cap, gid, offset, WINDOW_WORDS, False
+                    )
+                    offset += WINDOW_BASES
+                more = _round_done(unresolved, name, on_round)
     if return_gid:
         return pos[:n], gid[:n]
     return pos[:n]

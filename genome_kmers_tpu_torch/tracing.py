@@ -1,0 +1,117 @@
+"""Phase spans inside the sort, the group statistics and the filters.
+
+The switch is a ``torch.profiler`` session: while none records, ``span``
+returns one shared no-op context after a single check of the profiler's
+flag (no allocation, no clock read, no CUDA call), so the library runs as
+if it had no spans. While one records, each span is
+
+* a function-scope range ``gk:<layer>.<phase>`` on the profiler's own
+  clock, a sibling of the library's other ranges under whatever range the
+  caller opened around the public call (the library opens none of its
+  own, and its spans never nest). Unlike ``torch.profiler.record_function``
+  it draws no image of itself on the device's timeline;
+* a record, in the order the spans opened: ``name``; ``call``, a number
+  shared by the spans of one public call (``Kmers.sort``,
+  ``Kmers.get_kmer_group_counts``, ``Kmers.get_kmer_count``); ``rows``,
+  the rows the phase works over; ``passes``, where the phase runs the
+  multi-lane sort, that sort's passes over the lanes (0 where its plain
+  version ran), else None; ``device_ms``, the device time between two
+  CUDA events recorded on the current stream as the span opens and
+  closes, None for CPU tensors.
+
+A span adds no synchronisation and reads nothing back; the device times
+are read when the records are (``records``, ``take``). Host times are the
+profiler's ranges. The records grow while sessions record and are kept
+across them until ``take`` clears them.
+
+    with torch.profiler.profile(activities=[...]) as prof:
+        km.sort()
+        hist, total = km.get_kmer_group_counts(31)
+    phases = tracing.take()   # [{"name": "gk:sort.keys", "call": 1, ...}, ...]
+"""
+
+from __future__ import annotations
+
+from contextlib import nullcontext
+
+import torch
+from torch.autograd import profiler as _profiler
+
+_Range = torch._C._profiler._RecordFunctionFast
+_OFF = nullcontext()
+
+_records = []
+_call = 0
+
+
+def new_call() -> None:
+    """Start a public call: the spans until the next one share its number."""
+    global _call
+    if _profiler._is_profiler_enabled:
+        _call += 1
+
+
+class _Span:
+    __slots__ = ("name", "call", "rows", "passes", "start", "end", "_range", "_stream",
+                 "_kernel", "_launches")
+
+    def __init__(self, name: str, rows, kernel):
+        self.name, self.call = name, _call
+        self.rows = None if rows is None else int(rows.shape[0])
+        self.passes = self.start = self.end = None
+        self._range = _Range(name)
+        cuda = rows is not None and rows.device.type == "cuda"
+        self._stream = torch.cuda.current_stream(rows.device) if cuda else None
+        self._kernel = kernel
+        self._launches = None if kernel is None else kernel.launches
+
+    def __enter__(self):
+        self._range.__enter__()
+        _records.append(self)
+        if self._stream is not None:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record(self._stream)
+        return self
+
+    def __exit__(self, *exc):
+        if self._stream is not None:
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.end.record(self._stream)
+        if self._kernel is not None:
+            moved = self._kernel.launches != self._launches
+            self.passes = self._kernel.passes if moved else 0
+        self._range.__exit__(*exc)
+        return False
+
+    def as_dict(self) -> dict:
+        device_ms = None
+        if self.end is not None:
+            self.end.synchronize()
+            device_ms = self.start.elapsed_time(self.end)
+        return {"name": self.name, "call": self.call, "rows": self.rows,
+                "passes": self.passes, "device_ms": device_ms}
+
+
+def span(name: str, rows=None, kernel=None):
+    """A context around one phase, ``name`` = ``gk:<layer>.<phase>``.
+    ``rows``: a tensor whose first dimension is the rows the phase works
+    over, and whose device decides whether the span is timed on the
+    device. ``kernel``: a kernel wrapper with ``.launches`` and ``.passes``
+    (``kernels/lane_sort.sort_lanes_cuda``) whose passes the record keeps
+    (the wrapper keeps those of its last launch)."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, rows, kernel)
+
+
+def records() -> list:
+    """Copies of the records, as dicts (module doc); their device times are
+    read here, after waiting for the span's closing event."""
+    return [r.as_dict() for r in _records]
+
+
+def take() -> list:
+    """``records()``, then clear them."""
+    out = records()
+    _records.clear()
+    return out

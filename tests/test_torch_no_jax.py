@@ -34,7 +34,7 @@ MODULES = [
     "genome_kmers_tpu_torch.io.csv_out", "genome_kmers_tpu_torch.large_kmers",
     "genome_kmers_tpu_torch.ops.large", "genome_kmers_tpu_torch.parallel.large",
     "genome_kmers_tpu_torch.ops.hybrid", "genome_kmers_tpu_torch.ops.chunked",
-    "genome_kmers_tpu_torch.runtime",
+    "genome_kmers_tpu_torch.runtime", "genome_kmers_tpu_torch.tracing",
 ]
 TOOLS = ["torch_run_soak", "torch_run_applications", "torch_run_e2e_validation",
          "torch_gen_api_docs"]

@@ -111,7 +111,7 @@ def _emit_module_functions(out, module):
 
 def generate() -> str:
     import genome_kmers_tpu_torch as g
-    from genome_kmers_tpu_torch import parallel, profiling, runtime
+    from genome_kmers_tpu_torch import parallel, profiling, runtime, tracing
     from genome_kmers_tpu_torch.io import fasta
     from genome_kmers_tpu_torch.ops import filters as f
 
@@ -165,7 +165,8 @@ def generate() -> str:
         else:
             out += [f"## `{name}`{_flag(obj)}", "", _doc(obj), ""]
 
-    for title, module in (("profiling", profiling), ("io.fasta", fasta), ("runtime", runtime)):
+    for title, module in (("profiling", profiling), ("io.fasta", fasta), ("runtime", runtime),
+                          ("tracing", tracing)):
         out += [f"# Module `genome_kmers_tpu_torch.{title}`", "", _doc(module), ""]
         _emit_module_functions(out, module)
 
