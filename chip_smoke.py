@@ -6,7 +6,7 @@ Phases, each of which raises (exit code 1) on failure:
 
 1. Require CUDA; print the card's name and power limit (nvidia-smi), and
    the torch and CUDA versions.
-2. Build both kernels from ``genome_kmers_tpu_torch/csrc/``, one nvcc each,
+2. Build the three kernels from ``genome_kmers_tpu_torch/csrc/``, one nvcc each,
    and the native host library (``native/fasta_parser.cpp``, g++), all
    started together; print the build time and nvcc's register and
    shared-memory report.
@@ -28,6 +28,16 @@ Phases, each of which raises (exit code 1) on failure:
    beside the one PyTorch call that computes the same rows,
    torch.unique(dim=0), and at 2^27+1 rows, which must not cost 1.2 times
    what 2^27 rows cost.
+3b. The group-size histogram kernel (it replaces no TPU kernel) against its
+   plain version (the clamp, the select and torch.bincount), bitwise, on
+   the sizes and qualifying mask of sorted repeat genomes of 1e8 bases
+   (ACGT) and 2.5e8 (IUPAC, N runs), at max_counts_bin 1, 35 and 10^6; its
+   time beside its bound (9 B a row plus 8 B a bin at 3.35 TB/s), the plain
+   version's, and as yardsticks the port never calls torch.bincount alone
+   and ROADMAP A4's split (one reduction for the size-1 groups, a bincount
+   of the rest). On the 1e8 index one get_kmer_group_counts(31) and one
+   canonical call launch the kernel once each, and the same call on a mesh
+   of 4 shards of the card once a shard.
 4. ACGT main path at 2^27 bp: a seeded synthetic FASTA of 24 uneven
    records with copied segments -> SequenceCollection(device="cuda") ->
    Kmers(sc, 31, 31) -> sort() -> get_kmer_group_counts(31) ->
@@ -332,6 +342,8 @@ from genome_kmers_tpu_torch.kernels.lane_sort import (
     sort_lanes_cuda,
 )
 from genome_kmers_tpu_torch.io.fasta import _parse_fasta_dispatch, parse_fasta_bytes
+from genome_kmers_tpu_torch.kernels.group_hist import SOURCE as GROUP_HIST_SOURCE
+from genome_kmers_tpu_torch.kernels.group_hist import group_size_hist, group_size_hist_cuda
 from genome_kmers_tpu_torch.kernels.pack2 import SOURCE as PACK2_SOURCE
 from genome_kmers_tpu_torch.kernels.pack2 import pack_rank2_words_cuda
 from genome_kmers_tpu_torch.native import parse_fasta_bytes_native
@@ -361,6 +373,7 @@ from genome_kmers_tpu_torch.ops.large import (
 from genome_kmers_tpu_torch.ops.query import encode_query_words
 from genome_kmers_tpu_torch.ops import hybrid
 from genome_kmers_tpu_torch.ops.chunked import sort_positions_chunked
+from genome_kmers_tpu_torch.ops.groups import lanes_sizes_digest
 from genome_kmers_tpu_torch.ops.keys import cap_lengths
 from genome_kmers_tpu_torch.ops.sort import sort_lanes, sort_positions, sort_positions_dense
 from genome_kmers_tpu_torch.parallel import collectives
@@ -414,6 +427,8 @@ ROW_LOOP_BP = 1 << 18  # phase 16: to_csv against its row loop (17 us a row on a
 # end to end of phases 4 and 5 when the FASTA went through the NumPy parser
 # (H100 80GB HBM3 at 700 W)
 EARLIER_END_TO_END = "2.58 s (ACGT), 2.50-2.83 s (IUPAC)"
+HIST_ROWS = (100_000_000, 250_000_000)  # phase 3b: the build cells' rows (C. elegans, chr1)
+HIST_BINS = (1, 35, 1000000)  # phase 3b: LargeKmers' count paths, A4's 35, the default
 MASK_ROWS = 4096
 MAIN_RECORDS = 24
 ROUTE_SAMPLES = 3  # the upload routes: samples of each, their median reported
@@ -784,7 +799,7 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     builds = [lambda: build.build(PACK2_SOURCE), lambda: build.build(LANE_SORT_SOURCE),
-              native.build_library]
+              lambda: build.build(GROUP_HIST_SOURCE), native.build_library]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc each and the g++, side by side
         libs = list(pool.map(lambda fn: fn(), builds))
@@ -1012,14 +1027,114 @@ def phase_lane_sort_kernel(rng) -> dict:
             "passes": passes, "ms_one_row_more": ms_one_more}
 
 
+def hist_sizes(km, k: int = 31):
+    """The (size, qualifies) that ``get_kmer_group_counts(k)`` histograms on
+    a sorted index's retained lanes (the lanes route, no filter)."""
+    lanes = km._lanes_fast(k, gkt.kmer_filter_keep_all)
+    size, qualifies, _ = lanes_sizes_digest(lanes["words"], lanes["cap"], k, 1, None,
+                                            lanes["two_bit"])
+    return size, qualifies
+
+
+def split_hist(size, qualifies, max_counts_bin: int):
+    """ROADMAP A4's plain-ops split, a yardstick the port never calls: the
+    size-1 groups by one reduction, one ``torch.bincount`` of the rest."""
+    ones = (qualifies & (size == 1)).sum()
+    rest = qualifies & (size != 1)
+    counts = torch.bincount(torch.clamp_max(size[rest], max_counts_bin),
+                            minlength=max_counts_bin + 1)
+    counts[1] += ones
+    return counts
+
+
+def hist_launches(sc, km, counts: np.ndarray, label: str) -> dict:
+    """On the sorted index ``km`` of ``sc``: one ``get_kmer_group_counts(31)``
+    (whose histogram must be ``counts``) and one canonical call launch the
+    histogram kernel once each; on a mesh of MESH_SHARDS shards of the card,
+    the same call launches it once a shard and gives the same histogram."""
+    calls = {"get_kmer_group_counts(31)": lambda: km.get_kmer_group_counts(31),
+             "get_canonical_kmer_group_counts(31)": lambda: km.get_canonical_kmer_group_counts(31)}
+    m4 = make_mesh(MESH_SHARDS, devices=[f"{DEVICE}:0"] * MESH_SHARDS)
+    mesh_km = gkt.Kmers(sc, 31, 31)
+    mesh_km.sort(mesh=m4)
+    calls[f"the mesh of {MESH_SHARDS} shards"] = lambda: mesh_km.get_kmer_group_counts(31, mesh=m4)
+    out = {}
+    for name, fn in calls.items():
+        group_size_hist_cuda.launches = 0
+        got = fn()
+        out[f"{label}: {name}"] = group_size_hist_cuda.launches
+        want = MESH_SHARDS if "mesh" in name else 1
+        if out[f"{label}: {name}"] != want:
+            raise AssertionError(f"{label}: {name} launched the histogram kernel "
+                                 f"{out[f'{label}: {name}']} times, not {want}")
+        if "canonical" not in name and not np.array_equal(got[0], counts):
+            raise AssertionError(f"{label}: {name} gave another histogram than the kernel's")
+    return out
+
+
+def phase_group_hist_kernel(rng, smi: str) -> dict:
+    """Phase 3b: the group-size histogram kernel against its plain version
+    on the sizes of sorted repeat genomes of HIST_ROWS bases (31-mers; the
+    larger with N runs, so large N groups), at each of HIST_BINS; its time
+    beside its byte bound, the plain version's, and the yardsticks
+    ``torch.bincount`` alone and A4's split; the launches of the
+    statistics paths. Returns the kernel's figures at the main path's
+    ``max_counts_bin`` (10^6) by rows, and the launches."""
+    t0 = time.perf_counter()
+    timing, launches = {}, {}
+    for total_bp, iupac in zip(HIST_ROWS, (False, True)):
+        sc = collection_of(synthetic_records(rng, total_bp, MAIN_RECORDS, iupac=iupac))
+        km = gkt.Kmers(sc, 31, 31)
+        km.sort()
+        size, qualifies = hist_sizes(km)
+        n = size.shape[0]
+        n_q = int(qualifies.sum())
+        label = f"group_hist at {n} rows ({'IUPAC' if iupac else 'ACGT'}, {n_q} groups)"
+        for bins in HIST_BINS:
+            got = group_size_hist_cuda(size, qualifies, bins)
+            torch.cuda.synchronize()
+            want = group_size_hist(size, qualifies, bins)
+            if not (got.dtype == torch.int64 and torch.equal(got, want)
+                    and torch.equal(split_hist(size, qualifies, bins), want)):
+                raise AssertionError(f"{label}: the kernel, its plain version or A4's split "
+                                     f"differ at max_counts_bin={bins}")
+            ms = cuda_ms(lambda: group_size_hist_cuda(size, qualifies, bins))
+            plain_ms = cuda_ms(lambda: group_size_hist(size, qualifies, bins), reps=3, warmup=1)
+            selected = torch.clamp_max(size, bins)[qualifies]
+            library_ms = cuda_ms(lambda: torch.bincount(selected, minlength=bins + 1), reps=3,
+                                 warmup=1)
+            split_ms = cuda_ms(lambda: split_hist(size, qualifies, bins), reps=3, warmup=1)
+            del selected
+            bound_ms = (9 * n + 8 * (bins + 1)) / HBM_BYTES_PER_S * 1e3
+            hot = int(want.argmax())
+            log(f"{label}, max_counts_bin={bins}: bitwise equal to the plain version and A4's "
+                f"split; kernel {ms:.4f} ms, bound {bound_ms:.4f} ms (9 B a row + 8 B a bin at "
+                f"3.35 TB/s) = {bound_ms / ms:.1%} of it; plain {plain_ms:.3f} ms, torch.bincount "
+                f"alone {library_ms:.3f} ms, A4's split {split_ms:.3f} ms; hot bin {hot} holds "
+                f"{int(want[hot]) / max(n_q, 1):.1%} of the groups [{smi}]")
+        timing[n] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "library_ms": library_ms, "split_ms": split_ms}
+        del size, qualifies
+        torch.cuda.empty_cache()
+        if not iupac:
+            launches = hist_launches(sc, km, got.cpu().numpy(), "group_hist launches")
+            log(f"group_hist launches: {launches}")
+        del km, sc, got, want
+        torch.cuda.empty_cache()
+    log(f"group_hist phase: {time.perf_counter() - t0:.1f} s")
+    return {"timing": timing, "launches": launches}
+
+
 def reset_launches() -> None:
     pack_rank2_words_cuda.launches = 0
     sort_lanes_cuda.launches = 0
+    group_size_hist_cuda.launches = 0
 
 
 def launches_now() -> dict:
     return {"pack_rank2_words_cuda": pack_rank2_words_cuda.launches,
-            "sort_lanes_cuda": sort_lanes_cuda.launches}
+            "sort_lanes_cuda": sort_lanes_cuda.launches,
+            "group_size_hist_cuda": group_size_hist_cuda.launches}
 
 
 def run_main_calls(fasta: Path):
@@ -1044,7 +1159,8 @@ def run_main_calls(fasta: Path):
 
 def phase_main_path(rng, tmp: Path, iupac: bool, profile_dir):
     """One main path at 2^27 SBA bytes; returns (its kernel's launches, the
-    collection, the k=31 histogram, the sorted positions on the host)."""
+    histogram kernel's launches, the collection, the k=31 histogram, the
+    sorted positions on the host)."""
     label = "IUPAC main path (31, 31)" if iupac else "ACGT main path (31, 31)"
     # the SBA joins the records with one '$' each: exactly 2^27 bytes
     records = synthetic_records(rng, MAIN_BP - (MAIN_RECORDS - 1), MAIN_RECORDS, iupac=iupac)
@@ -1058,7 +1174,7 @@ def phase_main_path(rng, tmp: Path, iupac: bool, profile_dir):
     parse_fasta_bytes_native.runs = 0
     torch.cuda.reset_peak_memory_stats()
     sc, km, times = run_main_calls(fasta)
-    launches = kernel.launches
+    launches, hist_launches = kernel.launches, group_size_hist_cuda.launches
     peak = torch.cuda.max_memory_allocated()
     if parse_fasta_bytes_native.runs != 1 or parse_fasta_bytes_native.chunks < 2:
         raise AssertionError(f"{label}: the native parser did not run, multithreaded, once "
@@ -1076,6 +1192,9 @@ def phase_main_path(rng, tmp: Path, iupac: bool, profile_dir):
         raise AssertionError(f"{label}: the SBA holds {len(sc.forward_sba)} bytes, not 2^27")
     if launches < 1:
         raise AssertionError(f"{label} did not launch {kernel.__name__}")
+    if hist_launches != 1:
+        raise AssertionError(f"{label}: one get_kmer_group_counts(31) launched the histogram "
+                             f"kernel {hist_launches} times, not once")
     if km._lanes_cache["two_bit"] == iupac:
         raise AssertionError(f"{label} took the wrong key encoding")
     counts = check_sorted_index(km, valid_starts(records_of(sc), 31), label)
@@ -1085,7 +1204,7 @@ def phase_main_path(rng, tmp: Path, iupac: bool, profile_dir):
     del km
     if iupac and profile_dir is not None:
         profile_main_calls(fasta, Path(profile_dir))  # warm: the allocator keeps the memory
-    return launches, sc, counts, positions
+    return launches, hist_launches, sc, counts, positions
 
 
 def check_native_parse(fasta: Path, sc, label: str, compare_plain: bool) -> None:
@@ -1528,7 +1647,8 @@ def phase_suffix_main(host_sc, main_counts31, rng, profile_dir):
     first = "_first_round_dense2" if two_bit else "_first_round_dense"
     if names[0] != first or set(names[1:]) != {"_double_round2"} or len(names) < 4:
         raise AssertionError(f"{label}: unexpected rounds {names}")
-    if launches != {"pack_rank2_words_cuda": int(two_bit), "sort_lanes_cuda": int(not two_bit)}:
+    if launches != {"pack_rank2_words_cuda": int(two_bit), "sort_lanes_cuda": int(not two_bit),
+                    "group_size_hist_cuda": 2}:
         raise AssertionError(f"{label}: unexpected kernel launches {launches}")
     if not np.array_equal(counts31, main_counts31 + short_tail_counts(sc, 31)):
         raise AssertionError(f"{label}: the k=31 histogram is not the main path's plus the "
@@ -2247,7 +2367,8 @@ def mesh_queries(sc, rng) -> list:
 
 def mesh_main(host_sc, expected: np.ndarray, counts31: np.ndarray, m4, m1, rng):
     """Phase 15 on one genome at 2^27 SBA bytes; returns (pack launches,
-    lane sort launches) of its mesh path."""
+    lane sort launches, histogram launches of one get_kmer_group_counts(31))
+    of its mesh path."""
     two_bit = host_sc.device_cache("forward").is_acgt_only
     label = f"mesh of {MESH_SHARDS} shards on one card, {'ACGT' if two_bit else 'IUPAC'} 2^27 (31, 31)"
     sba, seg_starts = index_sba(host_sc)
@@ -2260,7 +2381,12 @@ def mesh_main(host_sc, expected: np.ndarray, counts31: np.ndarray, m4, m1, rng):
                                                                                    km._dist_cache.is_pad)
     km.get_kmer_group_counts(31, mesh=m4)  # cold: the allocator grows
     t_sort_warm, steps_warm, _ = mesh_sort(gkt.Kmers(sc, 31, 31), m4, expected, label)
+    group_size_hist_cuda.launches = 0
     (counts, total), t_stats = sync_time(lambda: km.get_kmer_group_counts(31, mesh=m4))
+    hist_l = group_size_hist_cuda.launches
+    if hist_l != MESH_SHARDS:
+        raise AssertionError(f"{label}: get_kmer_group_counts(31, mesh) launched the histogram "
+                             f"kernel {hist_l} times, not once a shard")
     count, t_count = sync_time(lambda: km.get_kmer_count(31, mesh=m4))
     if not (np.array_equal(counts, counts31) and total == count == len(expected)):
         raise AssertionError(f"{label}: the mesh histogram or count differs from the main path's")
@@ -2300,12 +2426,13 @@ def mesh_main(host_sc, expected: np.ndarray, counts31: np.ndarray, m4, m1, rng):
         f"{t_count:.4f} s, both equal to the main path's; GC filter (0.3, 0.7, 31) {t_filter:.4f} s "
         f"({ftotal} k-mers), equal to one card's; count_queries of {len(queries)} queries "
         f"{t_q:.4f} s, equal to one card's (canonical too); one-shard mesh sort {t_one:.4f} s "
-        f"(capacity factor {info1['capacity_factor']}); launches: pack {pack_l}, lane sort {sort_l}")
+        f"(capacity factor {info1['capacity_factor']}); launches: pack {pack_l}, lane sort {sort_l}, "
+        f"histogram {hist_l}")
     log(f"{label}: peak device memory of the sort and statistics {peak} bytes ({peak / 2**30:.3f} "
         f"GiB), {held_before} held before: its own {(peak - held_before) / 2**30:.3f} GiB")
     del km, km1, sc
     torch.cuda.empty_cache()
-    return pack_l, sort_l
+    return pack_l, sort_l, hist_l
 
 
 def check_identical_rows(rng, n: int = 1 << 22, n_lanes: int = 7) -> None:
@@ -2336,11 +2463,13 @@ def phase_mesh(host_acgt, host_iupac, positions, counts, rng_seed: int) -> dict:
     check_identical_rows(rng)
     m4 = make_mesh(MESH_SHARDS, devices=[f"{DEVICE}:0"] * MESH_SHARDS)
     m1 = make_mesh(1)
-    out = {"pack_rank2_words_cuda": {}, "sort_lanes_cuda": {}}
+    out = {"pack_rank2_words_cuda": {}, "sort_lanes_cuda": {}, "group_size_hist_cuda": {}}
     for host_sc, key in ((host_acgt, "ACGT"), (host_iupac, "IUPAC")):
-        pack_l, sort_l = mesh_main(host_sc, positions[key], counts[key], m4, m1, rng)
+        pack_l, sort_l, hist_l = mesh_main(host_sc, positions[key], counts[key], m4, m1, rng)
         out["pack_rank2_words_cuda"][f"mesh of {MESH_SHARDS}, {key} 2^27 (31, 31)"] = pack_l
         out["sort_lanes_cuda"][f"mesh of {MESH_SHARDS}, {key} 2^27 (31, 31)"] = sort_l
+        out["group_size_hist_cuda"][
+            f"mesh of {MESH_SHARDS}, {key} 2^27 get_kmer_group_counts(31)"] = hist_l
     # the gather path: an assigned descending index, 2-bit and 4-bit keys
     for iupac, mn, mx in ((False, 20, 48), (True, 12, 24)):
         label = f"mesh gather path at {GATHER_BP} bp, {'4' if iupac else '2'}-bit keys ({mn}, {mx})"
@@ -2858,9 +2987,10 @@ def large_main(host_sc, name: str, expected: np.ndarray, counts31: np.ndarray, c
     """18a on one genome at 2^27 bp: LargeKmers (31, 31) from the collection,
     sorted on one shard and on four, held to the main path's positions,
     histogram and total and to phase 14's canonical counts; Kmers on the same
-    genome timed beside it. Returns the lane sort's launches by path."""
+    genome timed beside it. Returns the lane sort's launches by path and
+    the histogram kernel's of one get_kmer_group_counts(31) by path."""
     label = f"LargeKmers, {name} 2^27 (31, 31)"
-    launches = {}
+    launches, hist = {}, {}
     lk, t_build = sync_time(lambda: gkt.LargeKmers.from_sequence_collection(host_sc, 31, 31))
     log(f"{label}: from_sequence_collection {t_build:.3f} s (strided {'2' if lk.two_bit else '4'}-bit "
         f"pack of {lk.packed_words.nbytes} bytes, {len(lk)} k-mers)")
@@ -2880,7 +3010,12 @@ def large_main(host_sc, name: str, expected: np.ndarray, counts31: np.ndarray, c
         launches[where] = n_launch
         if not np.array_equal(lk.sorted_positions(), expected.astype(np.uint64)):
             raise AssertionError(f"{where}: the sorted positions are not the main path's")
+        group_size_hist_cuda.launches = 0
         (got, total), t_counts = sync_time(lambda: lk.get_kmer_group_counts(31))
+        hist[f"{where}, get_kmer_group_counts(31)"] = group_size_hist_cuda.launches
+        if group_size_hist_cuda.launches != shards:
+            raise AssertionError(f"{where}: get_kmer_group_counts(31) launched the histogram "
+                                 f"kernel {group_size_hist_cuda.launches} times, not once a shard")
         count, t_count = sync_time(lambda: lk.get_kmer_count(31))
         if not (np.array_equal(got.astype(np.int64), counts31) and total == count == len(lk)):
             raise AssertionError(f"{where}: the histogram or the total is not the main path's")
@@ -2901,7 +3036,7 @@ def large_main(host_sc, name: str, expected: np.ndarray, counts31: np.ndarray, c
     launches[f"{label}, canonical (31), one shard"] = sort_lanes_cuda.launches
     log(f"{label}: get_canonical_kmer_group_counts(31) {t_can:.4f} s, equal to phase 14's; lane "
         f"sort launches {sort_lanes_cuda.launches}")
-    return launches
+    return launches, hist
 
 
 def large_suffix_small(rng, m1) -> dict:
@@ -3153,14 +3288,17 @@ def large_suffix_past_ceiling(rng, m1) -> dict:
 def phase_large(host_acgt, host_iupac, positions, counts, canonical_ref, rng_seed: int) -> dict:
     """Phase 18: LargeKmers at full width (18a: the main path's genomes
     through the large regime; 18b: a genome past 2^32 bases). Returns the
-    lane sort's launches by path."""
+    lane sort's launches by path, and the histogram kernel's (18a)."""
     rng = np.random.default_rng(rng_seed)
     t0 = time.perf_counter()
     m1 = make_mesh(1)
     m4 = make_mesh(MESH_SHARDS, devices=[f"{DEVICE}:0"] * MESH_SHARDS)
-    out = {}
+    out, hist = {}, {}
     for host_sc, name in ((host_acgt, "ACGT"), (host_iupac, "IUPAC")):
-        out.update(large_main(host_sc, name, positions[name], counts[name], canonical_ref[name], m1, m4))
+        sort_l, hist_l = large_main(host_sc, name, positions[name], counts[name],
+                                    canonical_ref[name], m1, m4)
+        out.update(sort_l)
+        hist.update(hist_l)
         torch.cuda.empty_cache()
     out.update(large_suffix_small(rng, m1))
     t_a = time.perf_counter() - t0
@@ -3169,7 +3307,7 @@ def phase_large(host_acgt, host_iupac, positions, counts, canonical_ref, rng_see
     if any(n < 1 for n in out.values()):
         raise AssertionError(f"phase 18: the lane sort did not launch on a path: {out}")
     log(f"LargeKmers phase: 18a {t_a:.1f} s, 18b {time.perf_counter() - t0 - t_a:.1f} s")
-    return out
+    return {"sort_lanes_cuda": out, "group_size_hist_cuda": hist}
 
 
 # --------------------------------------------------------------------------- #
@@ -4249,10 +4387,12 @@ def main() -> None:
     rng = np.random.default_rng(SEED)
     pack_timing = phase_pack_kernel(rng)
     sort_timing = phase_lane_sort_kernel(rng)
+    hist = phase_group_hist_kernel(np.random.default_rng(SEED + 3), smi)
     with tempfile.TemporaryDirectory() as tmp:
-        pack_launches, sc_acgt, counts31, pos_acgt = phase_main_path(rng, Path(tmp), False, None)
+        pack_launches, hist_acgt, sc_acgt, counts31, pos_acgt = phase_main_path(
+            rng, Path(tmp), False, None)
         torch.cuda.empty_cache()
-        sort_launches, sc_iupac, counts31_iupac, pos_iupac = phase_main_path(
+        sort_launches, hist_iupac, sc_iupac, counts31_iupac, pos_iupac = phase_main_path(
             rng, Path(tmp), True, args.profile)
     torch.cuda.empty_cache()
     phase_upload_routes(sc_acgt, sc_iupac, {"ACGT": counts31, "IUPAC": counts31_iupac})
@@ -4325,12 +4465,29 @@ def main() -> None:
                                  **{k: v for k, v in query_launches.items() if "IUPAC" in k},
                                  **mesh_launches["sort_lanes_cuda"],
                                  **mesh17_launches["sort_lanes_cuda"],
-                                 **large_launches,
+                                 **large_launches["sort_lanes_cuda"],
                                  **process_launches["sort_lanes_cuda"],
                                  **opt_in_launches["sort_lanes_cuda"],
                                  **contract_launches,
                                  **entry_launches["sort_lanes_cuda"]},
             **sort_timing,
+        },
+        {
+            "name": "group_size_hist_cuda",
+            "route": "cuda",
+            "source": "genome_kmers_tpu_torch/csrc/group_hist.cu",
+            "replaces": None,
+            "launches": hist_acgt,
+            "launches_by_path": {"ACGT main path": hist_acgt,
+                                 "IUPAC main path": hist_iupac,
+                                 "suffix main path, ACGT genome":
+                                     suffix_launches["group_size_hist_cuda"],
+                                 "suffix main path, IUPAC genome":
+                                     suffix4_launches["group_size_hist_cuda"],
+                                 **mesh_launches["group_size_hist_cuda"],
+                                 **large_launches["group_size_hist_cuda"],
+                                 **hist["launches"]},
+            "by_rows": hist["timing"],
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -77,6 +77,7 @@ from .ops.filters import (  # noqa: F401  (re-exported reference API)
     kmer_has_required_len,
 )
 from .io.csv_out import write_csv_columnar
+from .kernels.group_hist import group_size_hist_cuda
 from .native import decode_rows_native, decode_rows_var_native
 from .ops.canonical import (
     canonical_sizes_digest,
@@ -1518,7 +1519,7 @@ class Kmers:
                 size, qualifies, total = sizes_digest(
                     boundary, group_sizes_at_boundaries(boundary), min_group_size, max_group_size
                 )
-        with span("gk:groups.histogram", size):
+        with span("gk:groups.histogram", size, kernel=group_size_hist_cuda):
             counts = hist_from_sizes(size, qualifies, max_counts_bin)
         with span("gk:groups.readback", counts):
             counts = counts.cpu().numpy().astype(np.int64)
@@ -1987,6 +1988,7 @@ class Kmers:
         <= 64), 4-bit keys otherwise (kmer_len <= 32). Gather-free over the
         fresh index (dense route), else over gathered keys; ``mesh``
         computes them over the mesh (``_mesh_canonical_hist``)."""
+        new_call()
         self._check_forward_only()
         if self.kmer_source_strand == "both":
             raise NotImplementedError(
@@ -2018,7 +2020,8 @@ class Kmers:
             valid_len = compute_valid_len(positions, dc.seg_starts, dc.seg_ends)
             digest = canonical_sizes_digest if two_bit else canonical_sizes_digest4
             size, qualifies, total = digest(packed, positions, valid_len, kmer_len)
-        counts = hist_from_sizes(size, qualifies, max_counts_bin)
+        with span("gk:groups.histogram", size, kernel=group_size_hist_cuda):
+            counts = hist_from_sizes(size, qualifies, max_counts_bin)
         return counts.cpu().numpy().astype(np.int64), total
 
     def _mesh_canonical_hist(self, packed, kmer_len: int, max_counts_bin: int, mesh):

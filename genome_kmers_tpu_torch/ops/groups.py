@@ -5,16 +5,19 @@ Counterpart of ``genome_kmers_tpu/ops/groups.py``: boundary mask -> size
 qualifying mask, total and histogram, over retained sorted key lanes or a
 boundary of gathered keys; and the fold of a filter's raise conditions.
 
-The histogram is one ``torch.bincount``, exact at any ``max_counts_bin``.
-The JAX package's two-stage speculative digest was shaped by a link that
-cost tens of milliseconds per transfer; nothing here needs it until a
-measurement on the card asks for it.
+The histogram is one launch of a hand-written kernel on the card
+(``kernels/group_hist.py``; on the CPU its plain version), exact at any
+``max_counts_bin``. The JAX package's
+two-stage speculative digest was shaped by a link that cost tens of
+milliseconds per transfer; nothing here needs it until a measurement on the
+card asks for it.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..kernels.group_hist import group_size_hist_cuda
 from ..tracing import span
 from .sort import boundaries_from_sorted_lanes
 
@@ -123,17 +126,18 @@ def lanes_sizes_digest(
 
 
 def clipped_counts(qualifies, clipped, max_counts_bin: int) -> torch.Tensor:
-    """counts[s] = number of rows with ``qualifies`` and clipped size s
-    (``clipped`` <= max_counts_bin wherever ``qualifies``): one
-    ``torch.bincount``, where the JAX package picks a compare or a
-    scatter-add by the bin count."""
-    return torch.bincount(clipped[qualifies], minlength=max_counts_bin + 1)
+    """counts[s] = number of rows with ``qualifies`` and size s, sizes above
+    ``max_counts_bin`` counted in the top bin: one launch of the histogram
+    kernel (``group_size_hist_cuda``), which clamps as it counts, where the
+    JAX package picks a compare or a scatter-add by the bin count."""
+    return group_size_hist_cuda(clipped, qualifies, max_counts_bin)
 
 
 def hist_from_sizes(size, qualifies, max_counts_bin: int) -> torch.Tensor:
     """counts[s] = number of qualifying groups of size s, sizes above
-    ``max_counts_bin`` folded into the top bin."""
-    return clipped_counts(qualifies, torch.clamp_max(size, max_counts_bin), max_counts_bin)
+    ``max_counts_bin`` folded into the top bin (``clipped_counts``, which
+    needs no clamp first)."""
+    return clipped_counts(qualifies, size, max_counts_bin)
 
 
 def group_size_histogram(boundary, size, min_group_size: int, max_group_size,

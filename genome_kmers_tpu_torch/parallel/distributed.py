@@ -48,7 +48,7 @@ import torch
 import torch.distributed as dist
 
 from ..kernels.lane_sort import sort_lanes_cuda
-from ..ops.groups import fold_err_conditions
+from ..ops.groups import fold_err_conditions, hist_from_sizes
 from ..ops.keys import (
     build_key2_words,
     build_key_words,
@@ -501,12 +501,10 @@ def _counted_sizes(boundaries, counted, positions, min_gs, max_gs, mesh):
 
 def distributed_hist_from_sizes(size: list, qualifies: list, max_counts_bin: int, mesh: Mesh):
     """Histogram of the sharded qualifying group sizes (sizes above
-    ``max_counts_bin`` in the top bin): one ``bincount`` a shard and a
-    ``psum``; an int64 tensor on shard 0's device."""
-    counts = [
-        torch.bincount(torch.clamp_max(s, max_counts_bin)[q], minlength=max_counts_bin + 1)
-        for s, q in zip(size, qualifies)
-    ]
+    ``max_counts_bin`` in the top bin): ``hist_from_sizes`` a shard (one
+    launch of the histogram kernel) and a ``psum``; an int64 tensor on
+    shard 0's device."""
+    counts = [hist_from_sizes(s, q, max_counts_bin) for s, q in zip(size, qualifies)]
     return psum(counts, mesh)[0]
 
 

@@ -13,9 +13,10 @@ if it had no spans. While one records, each span is
 * a record, in the order the spans opened: ``name``; ``call``, a number
   shared by the spans of one public call (``Kmers.sort``,
   ``Kmers.get_kmer_group_counts``, ``Kmers.get_kmer_count``); ``rows``,
-  the rows the phase works over; ``passes``, where the phase runs the
-  multi-lane sort, that sort's passes over the lanes (0 where its plain
-  version ran), else None; ``device_ms``, the device time between two
+  the rows the phase works over; ``passes``, where the phase runs a
+  kernel that counts them (the multi-lane sort, the group-size histogram),
+  that kernel's passes over its rows (0 where its plain version ran), else
+  None; ``device_ms``, the device time between two
   CUDA events recorded on the current stream as the span opens and
   closes, None for CPU tensors.
 
@@ -97,8 +98,9 @@ def span(name: str, rows=None, kernel=None):
     ``rows``: a tensor whose first dimension is the rows the phase works
     over, and whose device decides whether the span is timed on the
     device. ``kernel``: a kernel wrapper with ``.launches`` and ``.passes``
-    (``kernels/lane_sort.sort_lanes_cuda``) whose passes the record keeps
-    (the wrapper keeps those of its last launch)."""
+    (``kernels/lane_sort.sort_lanes_cuda``,
+    ``kernels/group_hist.group_size_hist_cuda``) whose passes the record
+    keeps (the wrapper keeps those of its last launch)."""
     if not _profiler._is_profiler_enabled:
         return _OFF
     return _Span(name, rows, kernel)

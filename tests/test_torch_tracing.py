@@ -121,9 +121,9 @@ def test_build_job_ranges_and_records(with_n):
         "forward").sba.shape[0]
     assert recs[3]["rows"] == len(km)
     assert recs[6]["rows"] == 1000001  # the histogram's bins come back
-    # the lane sort's passes on 4-bit keys (its plain version here: 0); the
-    # 2-bit keys take torch.sort and record none
-    assert [r["passes"] for r in recs] == [None, 0 if with_n else None] + [None] * 7
+    # the lane sort's passes on 4-bit keys and the histogram kernel's (their
+    # plain versions here: 0); the 2-bit keys take torch.sort and record none
+    assert [r["passes"] for r in recs] == [None, 0 if with_n else None] + [None] * 3 + [0] + [None] * 3
     parents = [e.cpu_parent.name[len(CALLER):] for e in ranges]
     assert parents == ["sort"] * 3 + ["group_counts"] * 4 + ["count"] * 2
 
