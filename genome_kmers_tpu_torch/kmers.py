@@ -138,7 +138,7 @@ from .sequence_collection import (
     get_sba_start_end_indices_for_segment,
     get_segment_num_from_sba_index,
 )
-from .tracing import new_call, span
+from .tracing import mesh_span, new_call, span
 
 _DOLLAR = ord("$")
 
@@ -1621,7 +1621,9 @@ class Kmers:
             max_counts_bin=max_counts_bin, packed2=packed2, strand_split=strand_split,
             sorted_words=sorted_words, mask=mask, ext_gid=ext_gid,
         )
-        return counts.cpu().numpy().astype(np.int64), total
+        with mesh_span("gk:mesh.readback", [counts]):
+            counts = counts.cpu().numpy().astype(np.int64)
+        return counts, total
 
     def _mesh_filter_masks(self, kmer_filter_func, positions, is_pad, mesh) -> list:
         """A library filter over the sharded rows by its plane or window

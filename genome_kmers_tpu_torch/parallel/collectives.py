@@ -11,7 +11,8 @@ helper ``put_global``. They are the only code of the port that moves data
 from one shard to another.
 
 Within one process (``mesh.group`` None) each move is one
-``Tensor.to(device)``, a no-op where two shards share a card. On a process
+``Tensor.to(device)`` (``to_device``), a no-op where two shards share a
+card; a copy from one card to another is counted in ``TRAFFIC``. On a process
 mesh (``distributed.make_mesh`` under an initialised ``torch.distributed``)
 every rank calls each function with its own shards, and the data moves by
 the group's backend: NCCL moves card tensors; Gloo moves host tensors, so
@@ -31,9 +32,11 @@ import torch.distributed as dist
 # what this process's collectives moved over a process group: "collectives"
 # (calls), "device_bytes" (sent from card tensors: NCCL), "host_bytes" (sent
 # from host tensors: Gloo), "staged_bytes" / "staging_seconds" (copies
-# between a card and the host around a Gloo collective); reset by callers
+# between a card and the host around a Gloo collective); and within the
+# process "peer_bytes" / "peer_copies", the copies from one card to another
+# (``to_device``); reset by callers
 TRAFFIC = {"collectives": 0, "device_bytes": 0, "host_bytes": 0, "staged_bytes": 0,
-           "staging_seconds": 0.0}
+           "staging_seconds": 0.0, "peer_bytes": 0, "peer_copies": 0}
 
 
 def reset_traffic() -> None:
@@ -53,6 +56,15 @@ def hier_shape(mesh):
     return (mesh.shape[names[0]], mesh.shape[names[1]])
 
 
+def to_device(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``t.to(dev)``; a copy from one card to another is counted in
+    ``TRAFFIC`` ("peer_bytes", "peer_copies")."""
+    if t.device != dev and t.device.type == "cuda" and dev.type == "cuda":
+        TRAFFIC["peer_bytes"] += t.numel() * t.element_size()
+        TRAFFIC["peer_copies"] += 1
+    return t.to(dev)
+
+
 def _move(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
     """``t`` on ``dev``; a copy between a card and the host is counted as
     staging."""
@@ -64,7 +76,7 @@ def _move(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
         TRAFFIC["staged_bytes"] += t.numel() * t.element_size()
         TRAFFIC["staging_seconds"] += time.perf_counter() - t0
         return out
-    return t.to(dev)
+    return to_device(t, dev)
 
 
 def _wire(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -112,7 +124,7 @@ def replicate(tensor: torch.Tensor, mesh) -> list:
     out = []
     for dev in mesh.devices:
         if dev not in copies:
-            copies[dev] = tensor.to(dev)
+            copies[dev] = to_device(tensor, dev)
         out.append(copies[dev])
     return out
 
@@ -126,7 +138,8 @@ def put_sharded(tensor: torch.Tensor, mesh) -> list:
     if tensor.shape[0] % n_dev:
         raise ValueError(f"{tensor.shape[0]} rows do not split into {n_dev} equal shards")
     rows = tensor.shape[0] // n_dev
-    return [tensor[p * rows : (p + 1) * rows].to(dev) for p, dev in zip(mesh.shard_ids, mesh.devices)]
+    return [to_device(tensor[p * rows : (p + 1) * rows], dev)
+            for p, dev in zip(mesh.shard_ids, mesh.devices)]
 
 
 def all_gather(values: list, mesh) -> list:
@@ -134,7 +147,7 @@ def all_gather(values: list, mesh) -> list:
     shard: ``out[i][q] = value of global shard q``. Values have one shape
     and dtype on every shard."""
     if mesh.group is None:
-        return [torch.stack([v.to(dev) for v in values]) for dev in mesh.devices]
+        return [torch.stack([to_device(v, dev) for v in values]) for dev in mesh.devices]
     dtype = values[0].dtype
     full = _gather_ranks(torch.stack([_wire(v, mesh) for v in values]), mesh)
     return _on_devices(full, mesh, dtype)
@@ -205,12 +218,13 @@ def all_to_all(blocks: list, mesh) -> list:
     if mesh.group is not None:
         return _all_to_all_ranks(blocks, mesh, shape is not None)
     if shape is None:
-        return [[blocks[p][b].to(dev) for p in range(n_dev)] for b, dev in enumerate(mesh.devices)]
+        return [[to_device(blocks[p][b], dev) for p in range(n_dev)]
+                for b, dev in enumerate(mesh.devices)]
     n_nodes, n_local = shape
     # stage A: shard (n, l) -> shard (d, l), the blocks for node d's shards
     stage_a = [
         [
-            [blocks[n * n_local + l][d * n_local + j].to(mesh.devices[d * n_local + l])
+            [to_device(blocks[n * n_local + l][d * n_local + j], mesh.devices[d * n_local + l])
              for j in range(n_local)]
             for n in range(n_nodes)
         ]
@@ -220,7 +234,7 @@ def all_to_all(blocks: list, mesh) -> list:
     # stage B: shard (d, l) -> shard (d, j)
     return [
         [
-            stage_a[d * n_local + l][n][j].to(mesh.devices[d * n_local + j])
+            to_device(stage_a[d * n_local + l][n][j], mesh.devices[d * n_local + j])
             for l in range(n_local)
             for n in range(n_nodes)
         ]

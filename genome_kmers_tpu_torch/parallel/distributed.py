@@ -47,6 +47,7 @@ import os
 import torch
 import torch.distributed as dist
 
+from ..kernels.group_hist import group_size_hist_cuda
 from ..kernels.lane_sort import sort_lanes_cuda
 from ..ops.groups import fold_err_conditions, hist_from_sizes
 from ..ops.keys import (
@@ -59,6 +60,7 @@ from ..ops.keys import (
 )
 from ..ops.sort import _masked
 from ..sequence_collection import resolve_device
+from ..tracing import mesh_span
 from .collectives import (  # noqa: F401 - hier_shape: the JAX package's home of it
     all_gather,
     all_gather_shards,
@@ -75,6 +77,7 @@ AXIS = "kmers"  # mesh axis name: position-sharded data parallelism
 _PAD_POS = 0xFFFFFFF0  # padding position of an evenly sharded index (JAX ops/sort._PAD_POS)
 _BIG = 1 << 62  # "no boundary here": above every counted-row index
 _SPEC_HIST_BINS = 256  # speculative bins of the return_sizes digest (JAX ops/groups)
+_CAP_ROWS = 1 << 26  # rows a step of the statistics' caps (int64 temporaries of 512 MB)
 
 
 class Mesh:
@@ -404,7 +407,8 @@ def _halo_prev_flag(flag: list, valid: list, mesh: Mesh) -> list:
 
 
 def _dist_sizes_digest(words_fn, positions, cap_len, is_pad, min_gs, max_gs, strand_split,
-                       sorted_words, mask, ext_gid, n_words, two_bit, keep_bits, mesh):
+                       sorted_words, mask, ext_gid, n_words, two_bit, keep_bits, mesh,
+                       compact=False):
     """Group sizes over sharded sorted rows: (size, qualifies, total,
     boundary).
 
@@ -425,34 +429,38 @@ def _dist_sizes_digest(words_fn, positions, cap_len, is_pad, min_gs, max_gs, str
     apart over the same boundaries and halo arithmetic, so a strand half
     may straddle a shard edge. ``size`` and ``qualifies`` of a shard are
     then its "+" halves followed by its "-" halves (twice its rows, each
-    half at its group's first row); empty halves never qualify."""
+    half at its group's first row); empty halves never qualify. With
+    ``compact`` a shard's ``size`` and ``qualifies`` hold one entry a group
+    (a half) in order instead of one a row: what a histogram reads."""
     valid = [~pad for pad in is_pad]
     counted = valid if mask is None else [m & v for m, v in zip(mask, valid)]
-    lanes = []
-    for i in range(len(valid)):
+
+    def identity(i):
         if ext_gid is not None:
-            shard = (ext_gid[i],)
+            return (ext_gid[i],)
+        cap = torch.where(valid[i], cap_len[i], 0)
+        if sorted_words is None:
+            words = words_fn(i, positions[i], cap, n_words)
         else:
-            cap = torch.where(valid[i], cap_len[i], 0)
-            if sorted_words is None:
-                words = words_fn(i, positions[i], cap, n_words)
-            else:
-                words = list(sorted_words[i][:n_words])
-                if keep_bits < 32:
-                    words[-1] = _masked(words[-1], (0xFFFFFFFF << (32 - keep_bits)) & 0xFFFFFFFF)
-            shard = tuple(words) + ((cap,) if two_bit else ())
-        lanes.append(shard)
+            words = list(sorted_words[i][:n_words])
+            if keep_bits < 32:
+                words[-1] = _masked(words[-1], (0xFFFFFFFF << (32 - keep_bits)) & 0xFFFFFFFF)
+        return tuple(words) + ((cap,) if two_bit else ())
+
+    # the identity lanes of every shard, held only until compared
+    lanes = [identity(i) for i in range(len(valid))]
     eqs = _halo_adjacent_eq(lanes, valid, mesh)
     del lanes
     boundaries = [~eq & v for eq, v in zip(eqs, valid)]
+    del eqs
     if strand_split is None:
         size, qualifies, totals = _counted_sizes(boundaries, counted, positions, min_gs, max_gs,
-                                                 mesh)
+                                                 mesh, compact)
     else:
         is_rc = [pos >= strand_split for pos in positions]
         halves = [
             _counted_sizes(boundaries, [c & (r == rc) for c, r in zip(counted, is_rc)],
-                           positions, min_gs, max_gs, mesh)
+                           positions, min_gs, max_gs, mesh, compact)
             for rc in (False, True)
         ]
         size = [torch.cat(pair) for pair in zip(halves[0][0], halves[1][0])]
@@ -461,20 +469,38 @@ def _dist_sizes_digest(words_fn, positions, cap_len, is_pad, min_gs, max_gs, str
     return size, qualifies, int(psum(totals, mesh)[0]), boundaries
 
 
-def _counted_sizes(boundaries, counted, positions, min_gs, max_gs, mesh):
+def _caps32(positions, seg_starts, seg_ends, kmer_len: int) -> torch.Tensor:
+    """min(valid_len, kmer_len) of a shard's rows as int32 (pads read any
+    value), ``_CAP_ROWS`` rows at a time, so that the int64 temporaries of
+    the valid lengths stay a step's size."""
+    out = torch.empty(positions.shape[0], dtype=torch.int32, device=positions.device)
+    for a in range(0, positions.shape[0], _CAP_ROWS):
+        b = min(a + _CAP_ROWS, positions.shape[0])
+        out[a:b] = cap_lengths(compute_valid_len(positions[a:b], seg_starts, seg_ends), kmer_len)
+    return out
+
+
+def _counted_sizes(boundaries, counted, positions, min_gs, max_gs, mesh, compact=False):
     """(size, qualifies, per-shard totals) of ``_dist_sizes_digest`` for
     one set of counted rows: a group's size is its counted rows, read in
     counted-row coordinates (the rows of all shards before it), so a group
-    may straddle shard edges."""
+    may straddle shard edges. ``compact``: a shard's size and qualifies
+    hold one entry a group, in order, not one a row."""
     n_dev = mesh_size(mesh)
     all_counted = all_gather([c.sum() for c in counted], mesh)
     starts, vbs, firsts = [], [], []
     for i, p in enumerate(mesh.shard_ids):
-        c = counted[i].to(torch.int64)
         offset = all_counted[i][:p].sum()
-        vidx = offset + torch.cumsum(c, dim=0) - c  # counted rows before each row, all shards
         b_idx = torch.nonzero(boundaries[i]).flatten()
-        vb = vidx[b_idx]
+        # counted rows before each boundary row, all shards: the exclusive
+        # prefix count there (one array a shard, made in place; int32 while
+        # a shard's rows fit it)
+        wide = torch.int32 if counted[i].shape[0] < 1 << 31 else torch.int64
+        before = torch.cumsum(counted[i], dim=0, dtype=wide)
+        before -= counted[i].view(torch.uint8)
+        vb = before[b_idx].to(torch.int64)
+        del before
+        vb += offset
         starts.append(b_idx)
         vbs.append(vb)
         firsts.append(torch.cat([vb, vb.new_full((1,), _BIG)])[0])
@@ -485,17 +511,31 @@ def _counted_sizes(boundaries, counted, positions, min_gs, max_gs, mesh):
         total_counted = all_counted[i].sum()
         # first boundary of a later shard, or none (the end of the index)
         after = all_firsts[i][p + 1 :].min() if p + 1 < n_dev else torch.tensor(_BIG, device=dev)
-        next_v = torch.cat([vbs[i][1:], after.view(1)])
-        size = torch.zeros(positions[i].shape[0], dtype=torch.int64, device=dev)
-        size[starts[i]] = torch.minimum(next_v, total_counted) - vbs[i]
-        q = torch.zeros_like(boundaries[i])
-        q[starts[i]] = True
-        q &= size >= max(min_gs, 1)  # groups with no counted row never existed for the walk
+        # each group's counted rows: up to the next boundary, or the end
+        vb, b_idx = vbs[i], starts[i]
+        starts[i] = vbs[i] = None
+        group = torch.empty_like(vb)
+        group[:-1] = vb[1:]
+        group[-1:] = after
+        torch.minimum(group, total_counted, out=group)
+        group -= vb
+        del vb
+        ok = group >= max(min_gs, 1)  # groups with no counted row never existed for the walk
         if max_gs is not None:
-            q &= size <= max_gs
+            ok &= group <= max_gs
+        if compact:
+            sizes.append(group)
+            qualifies.append(ok)
+            totals.append(torch.where(ok, group, 0).sum())
+            continue
+        size = torch.zeros(positions[i].shape[0], dtype=torch.int64, device=dev)
+        size[b_idx] = group
+        q = torch.zeros_like(boundaries[i])
+        q[b_idx] = ok
         sizes.append(size)
         qualifies.append(q)
-        totals.append(torch.where(q, size, 0).sum())
+        totals.append(group.masked_fill_(~ok, 0).sum())
+        del group, ok, b_idx
     return sizes, qualifies, totals
 
 
@@ -504,8 +544,9 @@ def distributed_hist_from_sizes(size: list, qualifies: list, max_counts_bin: int
     ``max_counts_bin`` in the top bin): ``hist_from_sizes`` a shard (one
     launch of the histogram kernel) and a ``psum``; an int64 tensor on
     shard 0's device."""
-    counts = [hist_from_sizes(s, q, max_counts_bin) for s, q in zip(size, qualifies)]
-    return psum(counts, mesh)[0]
+    with mesh_span("gk:mesh.histogram", size, kernel=group_size_hist_cuda):
+        counts = [hist_from_sizes(s, q, max_counts_bin) for s, q in zip(size, qualifies)]
+        return psum(counts, mesh)[0]
 
 
 def mesh_lanes_filter_flags(words: list, positions: list, is_pad: list, params, flags_fn,
@@ -585,29 +626,32 @@ def distributed_group_size_histogram_ragged(
         )
     two_bit = packed2 is not None
     if ext_gid is not None:
-        size, qualifies, total, _ = _dist_sizes_digest(
-            None, sorted_positions, None, is_pad, min_group_size, max_group_size,
-            strand_split, None, mask, ext_gid, 0, two_bit, 32, mesh,
-        )
+        with mesh_span("gk:mesh.groups", sorted_positions):
+            size, qualifies, total, _ = _dist_sizes_digest(
+                None, sorted_positions, None, is_pad, min_group_size, max_group_size,
+                strand_split, None, mask, ext_gid, 0, two_bit, 32, mesh, not return_sizes,
+            )
         return _hist_or_sizes(size, qualifies, total, max_counts_bin, return_digest,
                               return_sizes, mesh)
-    genome = replicate(packed2 if two_bit else packed, mesh)
-    ss, se = replicate(seg_starts, mesh), replicate(seg_ends, mesh)
-    cap_len = [
-        cap_lengths(compute_valid_len(pos, ss[i], se[i]), kmer_len)
-        for i, pos in enumerate(sorted_positions)
-    ]
     n_words = _cdiv(kmer_len, 16 if two_bit else 8)
     keep_bits = 32
     if sorted_words is not None:
         if len(sorted_words[0]) < n_words:
             raise ValueError("sorted_words shorter than kmer_len requires")
         keep_bits = (2 if two_bit else 4) * kmer_len - 32 * (n_words - 1)
-    size, qualifies, total, _ = _dist_sizes_digest(
-        lambda i, pos, cap, n: _words_for(genome[i], pos, cap, n, two_bit),
-        sorted_positions, cap_len, is_pad, min_group_size, max_group_size,
-        strand_split, sorted_words, mask, None, n_words, two_bit, keep_bits, mesh,
-    )
+    with mesh_span("gk:mesh.groups", sorted_positions):
+        # the pack goes to the shards only where its words are read
+        genome = None if sorted_words is not None else replicate(
+            packed2 if two_bit else packed, mesh)
+        ss, se = replicate(seg_starts, mesh), replicate(seg_ends, mesh)
+        cap_len = [_caps32(pos, ss[i], se[i], kmer_len) for i, pos in enumerate(sorted_positions)]
+        size, qualifies, total, _ = _dist_sizes_digest(
+            lambda i, pos, cap, n: _words_for(genome[i], pos, cap.to(torch.int64), n, two_bit),
+            sorted_positions, cap_len, is_pad, min_group_size, max_group_size,
+            strand_split, sorted_words, mask, None, n_words, two_bit, keep_bits, mesh,
+            not return_sizes,
+        )
+        del genome, cap_len
     return _hist_or_sizes(size, qualifies, total, max_counts_bin, return_digest, return_sizes,
                           mesh)
 

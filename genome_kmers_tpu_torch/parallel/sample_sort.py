@@ -98,7 +98,16 @@ from ..ops.large import (
     split64,
 )
 from ..ops.sort import WINDOW_BASES, _round_done
-from .collectives import all_gather, all_gather_shards, all_to_all, gather_host, psum, replicate
+from ..tracing import mesh_span
+from .collectives import (
+    all_gather,
+    all_gather_shards,
+    all_to_all,
+    gather_host,
+    psum,
+    replicate,
+    to_device,
+)
 from .distributed import (
     _cdiv,
     _halo_adjacent_eq,
@@ -112,6 +121,9 @@ _PAD_U32 = 0xFFFFFFFF  # a pad row's position and run id, as int64 values
 _INT32_MIN = -(1 << 31)
 N_SAMPLES = 256
 CAPACITY_FACTOR = 1.5
+# positions past a shard's last row whose pack words its dense key lanes
+# read: n_words - 1 words of 16 bases (2-bit, k <= 64) or 8 (4-bit, k <= 32)
+DENSE_HALO = 64
 
 
 def _searchsorted_rows(rows: tuple, queries: np.ndarray) -> list:
@@ -228,51 +240,63 @@ def _exchange_merge(lanes: list, padm, rows: int, mesh, capacity_factor: float,
 
     # 1. local sort; ``lanes`` is emptied as it goes, so that each shard's
     # unsorted lanes are freed once sorted
-    sorted_lanes = []
-    while lanes:
-        sorted_lanes.append(sort_lanes_cuda(lanes.pop(0)))
-    lanes = sorted_lanes
+    with mesh_span("gk:mesh.local_sort", [shard[0] for shard in lanes], kernel=sort_lanes_cuda):
+        sorted_lanes = []
+        while lanes:
+            sorted_lanes.append(sort_lanes_cuda(lanes.pop(0)))
+        lanes = sorted_lanes
     step("local sort")
 
     # 2. samples -> all shards -> sorted -> splitters; a sample past a
     # shard's built rows is a pad row
-    local, split_idx = _samples(lanes, rows, n_samples, mesh, balanced)
-    gathered = [all_gather([s[li] for s in local], mesh) for li in range(len(local[0]))]
-    del local
-    splitters = []
-    for i in range(len(lanes)):
-        ranked = _sort_samples(tuple(g[i].reshape(-1) for g in gathered))
-        splitters.append(tuple(lane[split_idx.to(lane.device)] for lane in ranked))
+    with mesh_span("gk:mesh.splitters", [shard[0] for shard in lanes]):
+        local, split_idx = _samples(lanes, rows, n_samples, mesh, balanced)
+        gathered = [all_gather([s[li] for s in local], mesh) for li in range(len(local[0]))]
+        del local
+        splitters = []
+        for i in range(len(lanes)):
+            ranked = _sort_samples(tuple(g[i].reshape(-1) for g in gathered))
+            splitters.append(tuple(lane[split_idx.to(lane.device)] for lane in ranked))
     step("splitters")
 
     # 3. bucket bounds: rows below each splitter, clamped to the real rows;
     # every shard's bucket sizes on every rank
-    bounds = []
-    for i, shard in enumerate(lanes):
-        n_real = shard[0].shape[0] - (0 if padm is None else int(padm[i].sum()))
-        split_host = np.stack([lane.cpu().numpy() for lane in splitters[i]])  # (lanes, P - 1)
-        below = [min(b, n_real) for b in _searchsorted_rows(shard, split_host)]
-        bounds.append([0] + below + [n_real])
-    bounds = np.asarray(bounds, dtype=np.int64)  # (local shards, P + 1)
-    counts = gather_host(list(np.diff(bounds, axis=1)), mesh)  # (P, P)
-    capacity, factor, retries = _capacity(rows, n_dev, int(counts.max()), capacity_factor)
+    with mesh_span("gk:mesh.bounds", [shard[0] for shard in lanes]):
+        bounds = []
+        for i, shard in enumerate(lanes):
+            n_real = shard[0].shape[0] - (0 if padm is None else int(padm[i].sum()))
+            split_host = np.stack([lane.cpu().numpy() for lane in splitters[i]])  # (lanes, P - 1)
+            below = [min(b, n_real) for b in _searchsorted_rows(shard, split_host)]
+            bounds.append([0] + below + [n_real])
+        bounds = np.asarray(bounds, dtype=np.int64)  # (local shards, P + 1)
+        counts = gather_host(list(np.diff(bounds, axis=1)), mesh)  # (P, P)
+        capacity, factor, retries = _capacity(rows, n_dev, int(counts.max()), capacity_factor)
     step("bucket bounds")
 
     # 4. exchange: bucket b of shard p -> shard b (its real rows only)
-    recv = [
-        all_to_all(
-            [[shard[li][int(bounds[i][b]) : int(bounds[i][b + 1])] for b in range(n_dev)]
-             for i, shard in enumerate(lanes)],
-            mesh,
-        )
-        for li in range(len(lanes[0]))
-    ]
-    del lanes
+    with mesh_span("gk:mesh.exchange", [shard[0] for shard in lanes]):
+        recv = [
+            all_to_all(
+                [[shard[li][int(bounds[i][b]) : int(bounds[i][b + 1])] for b in range(n_dev)]
+                 for i, shard in enumerate(lanes)],
+                mesh,
+            )
+            for li in range(len(lanes[0]))
+        ]
+        del lanes
     step("exchange")
 
-    # 5. merge: sort the received real rows
-    merged = [sort_lanes_cuda(tuple(torch.cat(recv[li][i]) for li in range(len(recv))))
-              for i in range(len(recv[0]))]
+    # 5. merge: sort the received real rows; each shard's received blocks
+    # are freed once joined
+    with mesh_span("gk:mesh.merge", [b for blocks in recv[0] for b in blocks],
+                   kernel=sort_lanes_cuda):
+        merged = []
+        for i in range(len(recv[0])):
+            joined = tuple(torch.cat(recv[li][i]) for li in range(len(recv)))
+            for lane in recv:
+                lane[i] = None
+            merged.append(sort_lanes_cuda(joined))
+            del joined
     step("merge")
     info = {"capacity_factor": factor, "capacity": capacity, "retries": retries,
             "rows": [int(c) for c in counts.sum(axis=0)], "shard_rows": capacity * n_dev}
@@ -291,12 +315,13 @@ def _padded(merged: list, rows: int, keys=None):
     (default flat) says how many lanes the position takes."""
     n_pos = 1 if keys is None else keys.n_pos
     out_pos, out_pad, out_lanes = [], [], []
-    for shard in merged:
-        n_b = shard[0].shape[0]
-        padded = [_pad_tail(w, rows, _ONES) for w in shard]
-        out_pos.append(_lanes_position(padded, n_pos))
-        out_pad.append(torch.arange(rows, device=shard[0].device) >= n_b)
-        out_lanes.append(tuple(padded[:-n_pos]))
+    with mesh_span("gk:mesh.layout", [shard[0] for shard in merged]):
+        for shard in merged:
+            n_b = shard[0].shape[0]
+            padded = [_pad_tail(w, rows, _ONES) for w in shard]
+            out_pos.append(_lanes_position(padded, n_pos))
+            out_pad.append(torch.arange(rows, device=shard[0].device) >= n_b)
+            out_lanes.append(tuple(padded[:-n_pos]))
     return out_pos, out_pad, out_lanes
 
 
@@ -365,7 +390,7 @@ def _shard_slices(positions: torch.Tensor, mesh):
     index)."""
     n = positions.shape[0]
     m = _cdiv(max(n, 1), mesh_size(mesh))
-    return m, [positions[min(p * m, n) : min((p + 1) * m, n)].to(dev)
+    return m, [to_device(positions[min(p * m, n) : min((p + 1) * m, n)], dev)
                for p, dev in zip(mesh.shard_ids, mesh.devices)]
 
 
@@ -383,18 +408,19 @@ def _gather_sort(keys, positions, max_kmer_len, mesh, n_samples, capacity_factor
     n_words = _cdiv(max_kmer_len, keys.per_word)
     m, pos_s = _shard_slices(positions, mesh)
     lanes = []
-    for i, pos in enumerate(pos_s):
-        cap = keys.caps(i, pos, max_kmer_len)
-        if canonical_k is not None:
-            # a truncated k-mer has no canonical form: it is a pad
-            full = cap >= canonical_k
-            pos, cap = pos[full], cap[full]
-        words = keys.words(i, pos, cap, n_words)
-        if canonical_k is not None:
-            words = _canonical(words, canonical_k, keys.two_bit)
-        caps = () if uniform_cap else (cap.to(torch.int32),)
-        lanes.append(words + caps + keys.pos_lanes(pos))
-    del pos_s
+    with mesh_span("gk:mesh.keys", pos_s):
+        for i, pos in enumerate(pos_s):
+            cap = keys.caps(i, pos, max_kmer_len)
+            if canonical_k is not None:
+                # a truncated k-mer has no canonical form: it is a pad
+                full = cap >= canonical_k
+                pos, cap = pos[full], cap[full]
+            words = keys.words(i, pos, cap, n_words)
+            if canonical_k is not None:
+                words = _canonical(words, canonical_k, keys.two_bit)
+            caps = () if uniform_cap else (cap.to(torch.int32),)
+            lanes.append(words + caps + keys.pos_lanes(pos))
+        del pos_s
     return _exchange_merge(lanes, None, m, mesh, capacity_factor, n_samples, on_step)
 
 
@@ -683,35 +709,37 @@ def distributed_adjacent_gids(
 # --------------------------------------------------------------------------- #
 
 
-def _dense_words(packed, lo: int, hi: int, cap: torch.Tensor, n_words: int, per_word: int):
+def _dense_words(packed, lo: int, hi: int, cap: torch.Tensor, n_words: int, per_word: int,
+                 base: int):
     """Key words (int32 bit patterns) of positions ``lo..hi-1``: word w of
     position p is the pack at ``p + per_word * w`` (zero past its end),
-    masked to the cap."""
+    masked to the cap. ``packed`` holds the pack from position ``base`` on
+    (a shard's slice, ``_dense_shards``)."""
     masks = _mask_table(per_word, packed.device)
     length = packed.shape[0]
     words = []
     for w in range(n_words):
-        off = per_word * w
+        off = per_word * w - base
         word = torch.zeros(hi - lo, dtype=torch.int32, device=packed.device)
         a, b = min(lo + off, length), min(hi + off, length)
         word[: b - a] = packed[a:b]
-        word &= masks[torch.clamp(cap - off, 0, per_word)]
+        word &= masks[torch.clamp(cap - per_word * w, 0, per_word)]
         words.append(word)
     return tuple(words)
 
 
 def _dense_key_lanes(packed, seg_starts, seg_ends, lo: int, hi: int, min_len: int,
-                     n_words: int, k: int, two_bit: bool, uniform_cap: bool):
+                     n_words: int, k: int, two_bit: bool, uniform_cap: bool, base: int):
     """(key lanes, positions, invalid) of positions ``lo..hi-1``, int32 bit
-    patterns. Rows that are not k-mer starts (separators, tails shorter
-    than ``min_len``, positions past the SBA) are invalid and fold as the
-    JAX package folds them: all-ones words (and cap, when the cap lane is
-    kept) on 2-bit keys, a leading invalid lane on 4-bit keys, where a real
-    word can be all-ones."""
+    patterns, from the pack held from position ``base`` on. Rows that are
+    not k-mer starts (separators, tails shorter than ``min_len``, positions
+    past the SBA) are invalid and fold as the JAX package folds them:
+    all-ones words (and cap, when the cap lane is kept) on 2-bit keys, a
+    leading invalid lane on 4-bit keys, where a real word can be all-ones."""
     iota = torch.arange(lo, hi, dtype=torch.int64, device=packed.device)
     cap = torch.clamp_max(compute_valid_len(iota, seg_starts, seg_ends), k)
     invalid = cap < min_len
-    words = _dense_words(packed, lo, hi, cap, n_words, 16 if two_bit else 8)
+    words = _dense_words(packed, lo, hi, cap, n_words, 16 if two_bit else 8, base)
     if two_bit:
         key = tuple(torch.where(invalid, _ONES, w) for w in words)
         if not (uniform_cap and k % 16 != 0):
@@ -724,9 +752,20 @@ def _dense_key_lanes(packed, seg_starts, seg_ends, lo: int, hi: int, min_len: in
 
 
 def _dense_shards(packed, mesh):
-    """(rows a shard, the replicated pack): the SBA padded to a multiple of
-    the shard count, shard p holding positions ``p * rows ..``."""
-    return _cdiv(max(packed.shape[0], 1), mesh_size(mesh)), replicate(packed, mesh)
+    """(rows a shard, each local shard's slice of the pack, the position
+    each slice starts at): the SBA padded to a multiple of the shard count,
+    shard p holding positions ``p * rows ..``, so its key words read the
+    pack from ``p * rows`` to ``DENSE_HALO`` positions past its last row.
+    A shard on the pack's card reads it in place; any other receives its
+    slice alone, never the whole pack."""
+    n = packed.shape[0]
+    m = _cdiv(max(n, 1), mesh_size(mesh))
+    bases = [min(p * m, n) for p in mesh.shard_ids]
+    with mesh_span("gk:mesh.pack", [packed[b : min(b + m, n)] for b in bases],
+                   devices=mesh.devices):
+        slices = [to_device(packed[b : min(b + m + DENSE_HALO, n)], dev)
+                  for b, dev in zip(bases, mesh.devices)]
+    return m, slices, bases
 
 
 def sample_sort_positions_dense_ragged(
@@ -757,16 +796,18 @@ def sample_sort_positions_dense_ragged(
     if max_kmer_len is None or max_kmer_len > limit:
         raise NotImplementedError(f"dense sample sort requires max_kmer_len <= {limit} bases")
     n_words = _cdiv(max_kmer_len, 16 if two_bit else 8)
-    m, genome = _dense_shards(packed, mesh)
+    m, genome, bases = _dense_shards(packed, mesh)
     ss, se = replicate(seg_starts, mesh), replicate(seg_ends, mesh)
     lanes, padm = [], []
-    for i, p in enumerate(mesh.shard_ids):
-        key, iota, invalid = _dense_key_lanes(
-            genome[i], ss[i], se[i], p * m, (p + 1) * m, min_kmer_len, n_words,
-            max_kmer_len, two_bit, uniform_cap,
-        )
-        lanes.append(key + (iota,))
-        padm.append(invalid)
+    with mesh_span("gk:mesh.keys", genome):
+        for i, p in enumerate(mesh.shard_ids):
+            key, iota, invalid = _dense_key_lanes(
+                genome[i], ss[i], se[i], p * m, (p + 1) * m, min_kmer_len, n_words,
+                max_kmer_len, two_bit, uniform_cap, bases[i],
+            )
+            lanes.append(key + (iota,))
+            padm.append(invalid)
+        del genome, key, iota, invalid
     merged, got = _exchange_merge(lanes, padm, m, mesh, capacity_factor, n_samples, on_step)
     if sum(got["rows"]) != n:
         raise AssertionError(f"dense sample sort kept {sum(got['rows'])} rows, expected {n}")
@@ -816,17 +857,19 @@ def sample_sort_canonical_dense_ragged(
     if k > limit:
         raise NotImplementedError(f"canonical keys require k <= {limit}")
     n_words = _cdiv(k, 16 if two_bit else 8)
-    m, genome = _dense_shards(packed_e, mesh)
+    m, genome, bases = _dense_shards(packed_e, mesh)
     ss, se = replicate(seg_starts, mesh), replicate(seg_ends, mesh)
     lanes, padm = [], []
-    for i, p in enumerate(mesh.shard_ids):
-        iota = torch.arange(p * m, (p + 1) * m, dtype=torch.int64, device=genome[i].device)
-        valid = compute_valid_len(iota, ss[i], se[i]) >= max(k, min_kmer_len)
-        cap = torch.where(valid, k, 0)
-        words = _canonical(_dense_words(genome[i], p * m, (p + 1) * m, cap, n_words,
-                                        16 if two_bit else 8), k, two_bit)
-        lanes.append(((~valid).to(torch.int32),) + words + (u32_bits_as_int32(iota),))
-        padm.append(~valid)
+    with mesh_span("gk:mesh.keys", genome):
+        for i, p in enumerate(mesh.shard_ids):
+            iota = torch.arange(p * m, (p + 1) * m, dtype=torch.int64, device=genome[i].device)
+            valid = compute_valid_len(iota, ss[i], se[i]) >= max(k, min_kmer_len)
+            cap = torch.where(valid, k, 0)
+            words = _canonical(_dense_words(genome[i], p * m, (p + 1) * m, cap, n_words,
+                                            16 if two_bit else 8, bases[i]), k, two_bit)
+            lanes.append(((~valid).to(torch.int32),) + words + (u32_bits_as_int32(iota),))
+            padm.append(~valid)
+        del genome, iota, valid, cap, words
     merged, got = _exchange_merge(lanes, padm, m, mesh, capacity_factor, n_samples, on_step)
     out_pos, out_pad, out_lanes = _padded(merged, got["shard_rows"])
     return out_pos, out_pad, [w[1 : 1 + n_words] for w in out_lanes]

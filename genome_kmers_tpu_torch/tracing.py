@@ -20,6 +20,12 @@ if it had no spans. While one records, each span is
   CUDA events recorded on the current stream as the span opens and
   closes, None for CPU tensors.
 
+A mesh span (``mesh_span``) covers a phase that runs on every shard of a
+mesh (``parallel/``): the same range, and a pair of CUDA events on the
+current stream of each distinct card among the shards. Its record keeps
+``card_ms``, each card's device ms in the order the shards name the
+cards, and ``device_ms``, the slowest card's.
+
 A span adds no synchronisation and reads nothing back; the device times
 are read when the records are (``records``, ``take``). Host times are the
 profiler's ranges. The records grow while sessions record and are kept
@@ -53,31 +59,34 @@ def new_call() -> None:
 
 
 class _Span:
-    __slots__ = ("name", "call", "rows", "passes", "start", "end", "_range", "_stream",
-                 "_kernel", "_launches")
+    __slots__ = ("name", "call", "rows", "passes", "_range", "_streams", "_events",
+                 "_kernel", "_launches", "_per_card")
 
-    def __init__(self, name: str, rows, kernel):
-        self.name, self.call = name, _call
-        self.rows = None if rows is None else int(rows.shape[0])
-        self.passes = self.start = self.end = None
+    def __init__(self, name: str, rows, cards, kernel, per_card: bool):
+        self.name, self.call, self.rows = name, _call, rows
+        self.passes = None
         self._range = _Range(name)
-        cuda = rows is not None and rows.device.type == "cuda"
-        self._stream = torch.cuda.current_stream(rows.device) if cuda else None
+        self._streams = [torch.cuda.current_stream(d) for d in dict.fromkeys(cards)
+                         if d.type == "cuda"]
+        self._events = []  # one a card as the span opens, then one a card as it closes
         self._kernel = kernel
         self._launches = None if kernel is None else kernel.launches
+        self._per_card = per_card
+
+    def _record(self) -> None:
+        for stream in self._streams:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record(stream)
+            self._events.append(event)
 
     def __enter__(self):
         self._range.__enter__()
         _records.append(self)
-        if self._stream is not None:
-            self.start = torch.cuda.Event(enable_timing=True)
-            self.start.record(self._stream)
+        self._record()
         return self
 
     def __exit__(self, *exc):
-        if self._stream is not None:
-            self.end = torch.cuda.Event(enable_timing=True)
-            self.end.record(self._stream)
+        self._record()
         if self._kernel is not None:
             moved = self._kernel.launches != self._launches
             self.passes = self._kernel.passes if moved else 0
@@ -85,12 +94,16 @@ class _Span:
         return False
 
     def as_dict(self) -> dict:
-        device_ms = None
-        if self.end is not None:
-            self.end.synchronize()
-            device_ms = self.start.elapsed_time(self.end)
-        return {"name": self.name, "call": self.call, "rows": self.rows,
-                "passes": self.passes, "device_ms": device_ms}
+        n = len(self._streams)
+        card_ms = []
+        for start, end in zip(self._events[:n], self._events[n:]):
+            end.synchronize()
+            card_ms.append(start.elapsed_time(end))
+        out = {"name": self.name, "call": self.call, "rows": self.rows,
+               "passes": self.passes, "device_ms": max(card_ms) if card_ms else None}
+        if self._per_card:
+            out["card_ms"] = card_ms or None
+        return out
 
 
 def span(name: str, rows=None, kernel=None):
@@ -103,7 +116,21 @@ def span(name: str, rows=None, kernel=None):
     keeps (the wrapper keeps those of its last launch)."""
     if not _profiler._is_profiler_enabled:
         return _OFF
-    return _Span(name, rows, kernel)
+    if rows is None:
+        return _Span(name, None, (), kernel, False)
+    return _Span(name, int(rows.shape[0]), (rows.device,), kernel, False)
+
+
+def mesh_span(name: str, shards, kernel=None, devices=None):
+    """``span`` over a phase of every shard of a mesh: ``shards``, one
+    tensor a local shard, whose first dimensions sum to the rows and
+    whose cards are timed, each by its own pair of CUDA events (module
+    doc); ``devices``, where given, are the cards timed instead (those a
+    phase moves data to)."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    cards = devices if devices is not None else [t.device for t in shards]
+    return _Span(name, sum(int(t.shape[0]) for t in shards), cards, kernel, True)
 
 
 def records() -> list:
