@@ -6,7 +6,7 @@ Phases, each of which raises (exit code 1) on failure:
 
 1. Require CUDA; print the card's name and power limit (nvidia-smi), and
    the torch and CUDA versions.
-2. Build the three kernels from ``genome_kmers_tpu_torch/csrc/``, one nvcc each,
+2. Build the four kernels from ``genome_kmers_tpu_torch/csrc/``, one nvcc each,
    and the native host library (``native/fasta_parser.cpp``, g++), all
    started together; print the build time and nvcc's register and
    shared-memory report.
@@ -38,6 +38,16 @@ Phases, each of which raises (exit code 1) on failure:
    of the rest). On the 1e8 index one get_kmer_group_counts(31) and one
    canonical call launch the kernel once each, and the same call on a mesh
    of 4 shards of the card once a shard.
+3c. The lanes-flags kernel of the GC-content, homopolymer and no-ambiguous
+   filters (it replaces no TPU kernel) against its plain versions (the
+   torch ops of ops/filters.py), bitwise, on the sorted lanes of a
+   248956422-row 4-bit index (chr1's 31-mers; N runs and IUPAC codes) and a
+   1e8-row 2-bit one, each filter's time beside its byte bound and the
+   plain chain's; launches counted from 0 on each route of a filtered
+   get_kmer_group_counts(31) at 2^24 bp, on an ACGT genome (2-bit lanes)
+   and one with N runs (4-bit): one card (1 a call), a mesh of 4 shards of
+   the card (1 a shard), LargeKmers on one shard and on four (0 for the
+   2-bit no-ambiguous filter, which the kernel does not compute).
 4. ACGT main path at 2^27 bp: a seeded synthetic FASTA of 24 uneven
    records with copied segments -> SequenceCollection(device="cuda") ->
    Kmers(sc, 31, 31) -> sort() -> get_kmer_group_counts(31) ->
@@ -122,9 +132,11 @@ Phases, each of which raises (exit code 1) on failure:
     length, CRISPR NGG) through the sorted lanes and through the flag plane,
     counts and histograms equal, with the genome scans' and each plane's
     build time, the ms of each route and the kernels each lanes route
-    launches (torch.profiler); each filter's mask on 4096 seeded rows
-    against its scalar filter on the host bytes. The same five, lanes
-    against plane, on phase 5's IUPAC index (4-bit lanes). On the suffix
+    launches (torch.profiler), and the lanes-flags kernel's launches counted
+    from 0 around each filtered call (1 for the GC, homopolymer and 4-bit
+    no-ambiguous filters on the lanes route, else 0); each filter's mask on
+    4096 seeded rows against its scalar filter on the host bytes. The same
+    five, lanes against plane, on phase 5's IUPAC index (4-bit lanes). On the suffix
     index Kmers(sc) of the ACGT genome (plane and window route):
     LengthFilter(31) gives phase 4's histogram, and the GC filter raises at
     the row a host oracle names. At 2^22 bp, Kmers(sc, 20, 48) with records
@@ -344,6 +356,8 @@ from genome_kmers_tpu_torch.kernels.lane_sort import (
 from genome_kmers_tpu_torch.io.fasta import _parse_fasta_dispatch, parse_fasta_bytes
 from genome_kmers_tpu_torch.kernels.group_hist import SOURCE as GROUP_HIST_SOURCE
 from genome_kmers_tpu_torch.kernels.group_hist import group_size_hist, group_size_hist_cuda
+from genome_kmers_tpu_torch.kernels.lanes_flags import SOURCE as LANES_FLAGS_SOURCE
+from genome_kmers_tpu_torch.kernels.lanes_flags import lanes_flags_cuda
 from genome_kmers_tpu_torch.kernels.pack2 import SOURCE as PACK2_SOURCE
 from genome_kmers_tpu_torch.kernels.pack2 import pack_rank2_words_cuda
 from genome_kmers_tpu_torch.native import parse_fasta_bytes_native
@@ -429,6 +443,8 @@ ROW_LOOP_BP = 1 << 18  # phase 16: to_csv against its row loop (17 us a row on a
 EARLIER_END_TO_END = "2.58 s (ACGT), 2.50-2.83 s (IUPAC)"
 HIST_ROWS = (100_000_000, 250_000_000)  # phase 3b: the build cells' rows (C. elegans, chr1)
 HIST_BINS = (1, 35, 1000000)  # phase 3b: LargeKmers' count paths, A4's 35, the default
+FLAGS_ROWS = {"4-bit": 248956422, "2-bit": 100000000}  # phase 3c: chr1's 31-mers; C. elegans-like
+FLAGS_ROUTE_BP = 1 << 24  # phase 3c: the genome of the route launch counts
 MASK_ROWS = 4096
 MAIN_RECORDS = 24
 ROUTE_SAMPLES = 3  # the upload routes: samples of each, their median reported
@@ -799,7 +815,8 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     builds = [lambda: build.build(PACK2_SOURCE), lambda: build.build(LANE_SORT_SOURCE),
-              lambda: build.build(GROUP_HIST_SOURCE), native.build_library]
+              lambda: build.build(GROUP_HIST_SOURCE), lambda: build.build(LANES_FLAGS_SOURCE),
+              native.build_library]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc each and the g++, side by side
         libs = list(pool.map(lambda fn: fn(), builds))
@@ -1125,16 +1142,151 @@ def phase_group_hist_kernel(rng, smi: str) -> dict:
     return {"timing": timing, "launches": launches}
 
 
+def flag_filters(two_bit: bool):
+    """The library filters whose lanes flags the lanes-flags kernel computes
+    (the no-ambiguous filter's 2-bit form is two compares, no kernel)."""
+    return library_filters()[:2 if two_bit else 3]
+
+
+def flags_bytes(lanes: dict, kind: str, params, n: int) -> int:
+    """The bytes the kernel has to move for ``kind``: the words ``k_f``
+    reaches, the positions where the filter has an overflow condition, the
+    cap lane where a 2-bit index keeps one, one byte a row for each
+    output (the survivor flag and each raise condition)."""
+    per = 16 if lanes["two_bit"] else 8
+    words = lanes["words"][: -(-int(params[0]) // per)]
+    row = sum(w.element_size() for w in words)
+    row += 0 if kind.startswith("gc") else 8
+    row += 8 if lanes["two_bit"] and lanes["cap"] is not None else 0
+    row += 3 if kind == "noamb4" else 2
+    return row * n
+
+
+def sorted_index(rows: int, iupac: bool, rng):
+    """A sorted (31, 31) index of exactly ``rows`` k-mers: one long record
+    and the all-'T' record of 100 bases (``synthetic_records``)."""
+    sc = collection_of(synthetic_records(rng, rows + 2 * 30, 2, iupac=iupac))
+    km = gkt.Kmers(sc, 31, 31)
+    km.sort()
+    if len(km) != rows:
+        raise AssertionError(f"an index of {len(km)} rows, not {rows}")
+    return sc, km
+
+
+def flag_route_launches(rng) -> dict:
+    """Launches of the lanes-flags kernel, counted from 0 on each route, of
+    one filtered get_kmer_group_counts(31) a filter on a FLAGS_ROUTE_BP
+    genome, ACGT (2-bit lanes; the mesh and LargeKmers pass int32 words and
+    caps recomputed from the segments) and with N runs (4-bit lanes): one
+    card 1 a call, the mesh of MESH_SHARDS shards of the card 1 a shard,
+    LargeKmers on one shard and on MESH_SHARDS; 0 for the 2-bit
+    no-ambiguous filter, whose flags are two compares; every route's
+    histogram equal to the one card's."""
+    m1 = make_mesh(1, devices=[f"{DEVICE}:0"])
+    m4 = make_mesh(MESH_SHARDS, devices=[f"{DEVICE}:0"] * MESH_SHARDS)
+    out = {}
+    for iupac in (False, True):
+        width = "4-bit" if iupac else "2-bit"
+        sc = collection_of(synthetic_records(rng, FLAGS_ROUTE_BP, MAIN_RECORDS, iupac=iupac))
+        km = gkt.Kmers(sc, 31, 31)
+        km.sort()
+        if km._lanes_cache["two_bit"] == iupac:
+            raise AssertionError(f"lanes flags routes: the {width} genome gave other lanes")
+        mesh_km = gkt.Kmers(sc, 31, 31)
+        mesh_km.sort(mesh=m4)
+        lk1 = gkt.LargeKmers.from_sequence_collection(sc, 31, 31)
+        lk1.sort(m1)
+        lk4 = gkt.LargeKmers.from_sequence_collection(sc, 31, 31)
+        lk4.sort(m4)
+        for name, f in library_filters()[:3]:
+            kernel = iupac or not isinstance(f, NoAmbiguousBasesFilter)
+            routes = [("one card", 1, lambda: km.get_kmer_group_counts(31, kmer_filter_func=f)),
+                      (f"the mesh of {MESH_SHARDS} shards", MESH_SHARDS,
+                       lambda: mesh_km.get_kmer_group_counts(31, kmer_filter_func=f, mesh=m4)),
+                      ("LargeKmers, 1 shard", 1, lambda: lk1.get_kmer_group_counts(31, f)),
+                      (f"LargeKmers, {MESH_SHARDS} shards", MESH_SHARDS,
+                       lambda: lk4.get_kmer_group_counts(31, f))]
+            want = None
+            for route, shards, call in routes:
+                expected = shards if kernel else 0
+                reset_launches()
+                counts, total = call()
+                got = lanes_flags_cuda.launches
+                label = f"lanes flags, {width}, {name}: {route}"
+                out[label] = got
+                if got != expected:
+                    raise AssertionError(f"{label}: {got} launches, not {expected}")
+                counts = np.asarray(counts).astype(np.int64)
+                if want is None:
+                    want = (counts, int(total))
+                elif not (np.array_equal(counts, want[0]) and int(total) == want[1]):
+                    raise AssertionError(f"{label}: another histogram than the one card's")
+        del km, mesh_km, lk1, lk4, sc
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_lanes_flags_kernel(rng, smi: str) -> dict:
+    """Phase 3c: the lanes-flags kernel against its plain versions (the
+    torch ops of ``ops/filters.py``, run on the card) on the sorted lanes of
+    FLAGS_ROWS k-mers, bit for bit; its time beside its byte bound
+    (``flags_bytes`` at 3.35 TB/s) and the plain chain's; the launches of
+    each route (``flag_route_launches``). Returns the figures by filter
+    and the launches."""
+    t0 = time.perf_counter()
+    timing = {}
+    for width, rows in FLAGS_ROWS.items():
+        two_bit = width == "2-bit"
+        sc, km = sorted_index(rows, not two_bit, rng)
+        lanes = km._lanes_cache
+        if lanes["two_bit"] != two_bit:
+            raise AssertionError(f"lanes flags: the {width} genome gave other lanes")
+        words, cap, pos = lanes["words"], lanes["cap"], km._pos_dev
+        sba_len = sc.forward_sba.shape[0]
+        for name, f in flag_filters(two_bit):
+            fn, params, _ = f.lanes_spec(lanes, sba_len, km.min_kmer_len)
+            kind = fn.kind
+            label = f"lanes flags {kind} at {rows} rows ({width}, {name})"
+            lanes_flags_cuda.launches = 0
+            got = fn(words, cap, pos, params)
+            torch.cuda.synchronize()
+            if lanes_flags_cuda.launches != 1:
+                raise AssertionError(f"{label}: {lanes_flags_cuda.launches} launches, not 1")
+            want = fn.__wrapped__(words, cap, pos, params)
+            if not all(torch.equal(g, w) for g, w in zip((got[0], *got[1]), (want[0], *want[1]))):
+                raise AssertionError(f"{label}: the kernel and the plain chain differ")
+            del want
+            ms = cuda_ms(lambda: fn(words, cap, pos, params))
+            plain_ms = cuda_ms(lambda: fn.__wrapped__(words, cap, pos, params), reps=3, warmup=1)
+            bound_ms = flags_bytes(lanes, kind, params, rows) / HBM_BYTES_PER_S * 1e3
+            n_kernels, _ = device_kernels(lambda: fn.__wrapped__(words, cap, pos, params), reps=1)
+            log(f"{label}: bitwise equal to the plain chain; kernel {ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({flags_bytes(lanes, kind, params, 1)} B a row at 3.35 TB/s) "
+                f"= {bound_ms / ms:.1%} of it; plain chain {plain_ms:.3f} ms in {n_kernels:g} "
+                f"kernels; {int(got[0].sum())} rows pass [{smi}]")
+            timing[f"{kind} at {rows} rows"] = {"ms": ms, "bound_ms": bound_ms,
+                                                "plain_ms": plain_ms, "plain_kernels": n_kernels}
+            del got
+        del sc, km, lanes, words, cap, pos
+        torch.cuda.empty_cache()
+    launches = flag_route_launches(rng)
+    log(f"lanes flags launches: {launches}")
+    log(f"lanes flags phase: {time.perf_counter() - t0:.1f} s")
+    return {"timing": timing, "launches": launches}
+
+
 def reset_launches() -> None:
     pack_rank2_words_cuda.launches = 0
     sort_lanes_cuda.launches = 0
     group_size_hist_cuda.launches = 0
+    lanes_flags_cuda.launches = 0
 
 
 def launches_now() -> dict:
     return {"pack_rank2_words_cuda": pack_rank2_words_cuda.launches,
             "sort_lanes_cuda": sort_lanes_cuda.launches,
-            "group_size_hist_cuda": group_size_hist_cuda.launches}
+            "group_size_hist_cuda": group_size_hist_cuda.launches,
+            "lanes_flags_cuda": lanes_flags_cuda.launches}
 
 
 def run_main_calls(fasta: Path):
@@ -1648,7 +1800,7 @@ def phase_suffix_main(host_sc, main_counts31, rng, profile_dir):
     if names[0] != first or set(names[1:]) != {"_double_round2"} or len(names) < 4:
         raise AssertionError(f"{label}: unexpected rounds {names}")
     if launches != {"pack_rank2_words_cuda": int(two_bit), "sort_lanes_cuda": int(not two_bit),
-                    "group_size_hist_cuda": 2}:
+                    "group_size_hist_cuda": 2, "lanes_flags_cuda": 0}:
         raise AssertionError(f"{label}: unexpected kernel launches {launches}")
     if not np.array_equal(counts31, main_counts31 + short_tail_counts(sc, 31)):
         raise AssertionError(f"{label}: the k=31 histogram is not the main path's plus the "
@@ -1844,19 +1996,29 @@ def on_plane_route(km, fn):
 
 def device_kernels(fn, reps: int = 3):
     """(kernels launched, their device ms) by one call of ``fn``: the mean
-    over ``reps`` calls under torch.profiler (one call of a single kernel
-    was once seen with no device event); copies and fills are not counted
-    as kernels."""
+    over ``reps`` calls under torch.profiler; copies and fills are not
+    counted as kernels. A profile of calls that launch one to three small
+    kernels has come back with none of them (one call of a single kernel
+    once; in phase 13 the one-compare length flags three calls running):
+    such a profile is taken again over four times the calls, twice at
+    most, each retry logged, before this fails."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.key.startswith(("Memcpy", "Memset"))]
-    if not kernels:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.key.startswith(("Memcpy", "Memset"))]
+        if kernels:
+            break
+        log(f"device_kernels: the profile of {reps} calls saw no kernel; profiling "
+            f"{reps * 4} calls")
+        reps *= 4
+    else:
         raise AssertionError("torch.profiler saw no kernel of a call that launches some")
     device_us = sum(getattr(e, "device_time_total", None) or e.cuda_time_total for e in kernels)
     return sum(e.count for e in kernels) / reps, device_us / 1e3 / reps
@@ -1877,11 +2039,19 @@ def filters_on_sorted_index(km, sc, label: str, rng, masks: bool) -> None:
     """Each library filter through the sorted lanes and through the flag
     plane: counts and histograms equal; the ms of each route, the build of
     each plane, the kernels of the lanes flags; with ``masks`` each mask on
-    MASK_ROWS seeded rows against the scalar filter on the host bytes."""
+    MASK_ROWS seeded rows against the scalar filter on the host bytes.
+    Launches of the lanes-flags kernel are counted from 0 around each
+    filtered call: 1 on the lanes route for the GC, homopolymer and (on
+    4-bit lanes) no-ambiguous filters, 0 for the others and on the plane
+    route. Returns them by path."""
     dc = sc.device_cache("forward")
     sba = sc.forward_sba
     lanes = km._lanes_cache
+    width = "2-bit" if lanes["two_bit"] else "4-bit"
+    launches = {}
     for name, f in library_filters():
+        kernel = isinstance(f, (GcContentFilter, HomopolymerFilter)) or (
+            isinstance(f, NoAmbiguousBasesFilter) and not lanes["two_bit"])
         fl = km._filtered_lanes_stats(31, f)
         if fl is None:
             raise AssertionError(f"{label}, {name}: the lanes route does not take the filter")
@@ -1892,8 +2062,19 @@ def filters_on_sorted_index(km, sc, label: str, rng, masks: bool) -> None:
             build_ms = build_s * 1e3
         by_route = {}
         for route, run in (("lanes", lambda fn: fn()), ("plane", lambda fn: on_plane_route(km, fn))):
-            count = run(lambda: km.get_kmer_count(31, kmer_filter_func=f))
-            counts, total = run(lambda: km.get_kmer_group_counts(31, kmer_filter_func=f))
+            expected = int(kernel and route == "lanes")
+            for call in ("get_kmer_count", "get_kmer_group_counts"):
+                reset_launches()
+                got = run(lambda: getattr(km, call)(31, kmer_filter_func=f))
+                n = lanes_flags_cuda.launches
+                path = f"{label}, {width}, {name}: {call}(31), {route} route"
+                launches[path] = n
+                if n != expected:
+                    raise AssertionError(f"{path}: {n} lanes-flags launches, not {expected}")
+                if call == "get_kmer_count":
+                    count = got
+                else:
+                    counts, total = got
             ms = run(lambda: cuda_ms(lambda: km.get_kmer_group_counts(31, kmer_filter_func=f),
                                      reps=3, warmup=0))
             by_route[route] = (count, counts, total, ms)
@@ -1905,9 +2086,16 @@ def filters_on_sorted_index(km, sc, label: str, rng, masks: bool) -> None:
             raise AssertionError(f"{label}, {name}: the plane route built no plane")
         flags_fn, params, _ = fl[3]
         flags = lambda: flags_fn(lanes["words"], lanes["cap"], km._pos_dev, params)  # noqa: E731
-        n_flags, dev_flags = device_kernels(flags)
-        n_query, dev_query = device_kernels(lambda: km.get_kmer_count(31, kmer_filter_func=f))
         flags_ms = cuda_ms(flags, reps=5, warmup=1)
+        reset_launches()
+        flags()
+        if lanes_flags_cuda.launches:
+            # the lanes-flags kernel, one launch a call: its counter, not a
+            # profile of one kernel alone, which can come back empty
+            n_flags, dev_flags = lanes_flags_cuda.launches, flags_ms
+        else:
+            n_flags, dev_flags = device_kernels(flags)
+        n_query, dev_query = device_kernels(lambda: km.get_kmer_count(31, kmer_filter_func=f))
         log(f"{label}, {name}: survivors {t_l} of {len(km)}, histogram equal on both routes; "
             f"group counts lanes {ms_l:.3f} ms, plane {ms_p:.3f} ms"
             + ("" if build_ms is None else f" (plane built in {build_ms:.3f} ms)")
@@ -1930,12 +2118,14 @@ def filters_on_sorted_index(km, sc, label: str, rng, masks: bool) -> None:
                 raise AssertionError(f"{label}, {name}: a raise condition holds on a sampled row")
             log(f"{label}, {name}: lanes and plane masks equal the scalar filter on {MASK_ROWS} "
                 f"seeded rows ({int(want.sum())} pass)")
+    log(f"{label}: lanes-flags launches from 0 by call: {launches}")
+    return launches
 
 
 def filters_acgt(host_sc, rng) -> tuple:
     """The ACGT genome of phase 4 at (31, 31): the bench's filtered track
     and the five filters on both routes. Returns (pack launches, the
-    collection)."""
+    collection, the lanes-flags launches by path)."""
     label = "filters, ACGT (31, 31)"
     sba, seg_starts = index_sba(host_sc)
     reset_launches()
@@ -1960,15 +2150,16 @@ def filters_acgt(host_sc, rng) -> tuple:
         f"cold {cold:.4f} s, warm {warm:.4f} s, timed {', '.join(f'{t:.4f}' for t in timed)} s, "
         f"median {median:.4f} s = {len(km) / median / 1e6:.1f} M k-mers/s; {total} survivors in "
         f"{int(counts.sum())} groups")
-    filters_on_sorted_index(km, sc, label, rng, masks=True)
+    flag_launches = filters_on_sorted_index(km, sc, label, rng, masks=True)
     if launches < 1:
         raise AssertionError(f"{label}: the pack kernel did not launch")
-    return launches, sc
+    return launches, sc, flag_launches
 
 
 def filters_iupac(host_sc, rng) -> int:
     """The IUPAC genome of phase 5 at (31, 31), 4-bit lanes: the five
-    filters on both routes. Returns the lane sort's launches."""
+    filters on both routes. Returns the lane sort's launches and the
+    lanes-flags launches by path."""
     label = "filters, IUPAC (31, 31)"
     sba, seg_starts = index_sba(host_sc)
     reset_launches()
@@ -1978,8 +2169,7 @@ def filters_iupac(host_sc, rng) -> int:
     if km._lanes_cache["two_bit"] or launches < 1:
         raise AssertionError(f"{label}: not 4-bit lanes, or the lane sort did not launch")
     log(f"{label}: sort {t_sort:.4f} s, {launches} lane sort launches")
-    filters_on_sorted_index(km, sc, label, rng, masks=False)
-    return launches
+    return launches, filters_on_sorted_index(km, sc, label, rng, masks=False)
 
 
 def filters_suffix(sc, counts31) -> None:
@@ -2127,17 +2317,18 @@ def log_peak(label: str, held_before: int) -> None:
 
 def phase_filters(host_acgt, host_iupac, counts31) -> dict:
     """Phase 13, on a random stream of its own (the later phases keep their
-    genomes); returns the launches of both kernels by path."""
+    genomes); returns the launches of the pack, lane sort and lanes-flags
+    kernels by path."""
     rng = np.random.default_rng(SEED + 13)
     t0 = time.perf_counter()
     held_before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    pack_launches, sc_acgt = filters_acgt(host_acgt, rng)
+    pack_launches, sc_acgt, flags_acgt = filters_acgt(host_acgt, rng)
     log_peak("filters, ACGT (31, 31)", held_before)
     torch.cuda.empty_cache()
     held_before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    sort_launches = filters_iupac(host_iupac, rng)
+    sort_launches, flags_iupac = filters_iupac(host_iupac, rng)
     log_peak("filters, IUPAC (31, 31)", held_before)
     torch.cuda.empty_cache()
     held_before = torch.cuda.memory_allocated()
@@ -2155,6 +2346,7 @@ def phase_filters(host_acgt, host_iupac, counts31) -> dict:
         "sort_lanes_cuda": {"filters, IUPAC 2^27 (31, 31)": sort_launches,
                             f"filters, init-time filtered index at {INIT_FILTER_BP} bp":
                                 init_launches},
+        "lanes_flags_cuda": {**flags_acgt, **flags_iupac},
     }
 
 
@@ -4388,6 +4580,7 @@ def main() -> None:
     pack_timing = phase_pack_kernel(rng)
     sort_timing = phase_lane_sort_kernel(rng)
     hist = phase_group_hist_kernel(np.random.default_rng(SEED + 3), smi)
+    flags = phase_lanes_flags_kernel(np.random.default_rng(SEED + 4), smi)
     with tempfile.TemporaryDirectory() as tmp:
         pack_launches, hist_acgt, sc_acgt, counts31, pos_acgt = phase_main_path(
             rng, Path(tmp), False, None)
@@ -4488,6 +4681,14 @@ def main() -> None:
                                  **large_launches["group_size_hist_cuda"],
                                  **hist["launches"]},
             "by_rows": hist["timing"],
+        },
+        {
+            "name": "lanes_flags_cuda",
+            "route": "cuda",
+            "source": "genome_kmers_tpu_torch/csrc/lanes_flags.cu",
+            "replaces": None,
+            "launches_by_path": {**flags["launches"], **filter_launches["lanes_flags_cuda"]},
+            "by_filter": flags["timing"],
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -46,12 +46,14 @@ the next '$' as ``p + valid_len_genome[p]``, since no window crosses a '$'.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 
-from .keys import widen_u32
+from ..kernels.lanes_flags import Scalars, lanes_flags_cuda
+from .keys import keep_mask, widen_u32
 
 _DOLLAR = ord("$")
 _ACGT = frozenset((ord("A"), ord("C"), ord("G"), ord("T")))
@@ -328,8 +330,36 @@ def _crispr_flags_genome_ranks4(packed):
 # Each ``*_lanes_flags*`` function returns ``(mask, errs)``, ``errs`` the
 # per-row raise conditions in the order the filter's ``check_batch`` tests
 # them; ops/groups.fold_err_conditions folds them to the first offending
-# row. ``params`` holds Python ints.
+# row. ``params`` holds Python ints. On a card the GC-content, homopolymer
+# and 4-bit no-ambiguous forms are one launch of a hand-written kernel
+# (``kernels/lanes_flags.py``, ``_kernel_on_card``) that equals them bit for
+# bit; their torch ops are the plain versions, which run for CPU tensors.
 # --------------------------------------------------------------------------- #
+
+
+def _kernel_on_card(kind: str, scalars):
+    """Decorator of a lanes-flags function that the kernel computes: tensors
+    off the CPU go to ``lanes_flags_cuda(kind, ..., scalars(*params))`` (one
+    launch, or a raise), CPU tensors to the decorated torch ops, its plain
+    version, which stays reachable as ``fn.__wrapped__``. ``scalars`` maps
+    the function's params to the kernel's ``Scalars``; the function keeps
+    ``kind`` and ``scalars`` as attributes."""
+
+    def wrap(plain):
+        @functools.wraps(plain)
+        def flags(words, cap, positions, params):
+            if positions.device.type != "cpu":
+                return lanes_flags_cuda(kind, words, cap, positions, scalars(*params))
+            return plain(words, cap, positions, params)
+
+        flags.kind, flags.scalars = kind, scalars
+        return flags
+
+    return wrap
+
+
+def _gc_scalars(k, min_count, max_count, cap_const, impossible_range):
+    return Scalars(k, cap_const=cap_const, lo=min_count, hi=max_count, constant=impossible_range)
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -338,12 +368,6 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
     x = (x + (x >> 4)) & 0x0F0F0F0F
     return ((x * 0x01010101) & _U32) >> 24
-
-
-def _lanes_keep_mask(k: int, w_idx: int, bases_per_word: int, bits: int) -> int:
-    """Bit mask keeping the fields of word ``w_idx`` below base count ``k``."""
-    keep = min(max(k - w_idx * bases_per_word, 0), bases_per_word)
-    return 0 if keep == 0 else (_U32 << (32 - bits * keep)) & _U32
 
 
 def _ones_shl(shift: torch.Tensor) -> torch.Tensor:
@@ -377,6 +401,7 @@ def _kept4(w, km: int):
     return (w & km) | (~km & _U32)
 
 
+@_kernel_on_card("gc2", _gc_scalars)
 def gc_lanes_flags2(words, cap, positions, params):
     """GC-content filter on 2-bit lanes. params: [k_f, min_count,
     max_count, cap_const, impossible_range]."""
@@ -386,7 +411,7 @@ def gc_lanes_flags2(words, cap, positions, params):
         return none, (none,)
     gc = torch.zeros(positions.shape, dtype=torch.int64, device=positions.device)
     for i, w in enumerate(words):
-        km = _lanes_keep_mask(k, i, 16, 2)
+        km = keep_mask(k, i, 16, 2)
         if km == 0:
             continue
         ww = widen_u32(w) & km
@@ -399,6 +424,7 @@ def gc_lanes_flags2(words, cap, positions, params):
     return ~trunc & (gc >= mn) & (gc <= mx), (trunc & (gc <= mx),)
 
 
+@_kernel_on_card("gc4", _gc_scalars)
 def gc_lanes_flags4(words, cap, positions, params):
     """GC-content filter on 4-bit lanes (C = rank 3, G = rank 5); same
     params as ``gc_lanes_flags2``."""
@@ -409,7 +435,7 @@ def gc_lanes_flags4(words, cap, positions, params):
         return trunc, (trunc,)
     gc = torch.zeros(positions.shape, dtype=torch.int64, device=positions.device)
     for i, w in enumerate(words):
-        km = _lanes_keep_mask(k, i, 8, 4)
+        km = keep_mask(k, i, 8, 4)
         if km == 0:
             continue
         zz = _kept4(widen_u32(w), km)
@@ -429,6 +455,7 @@ def noamb_lanes_flags2(words, cap, positions, params):
     return ~trunc, (positions >= thr, trunc)
 
 
+@_kernel_on_card("noamb4", lambda k, thr: Scalars(k, thr=thr))
 def noamb_lanes_flags4(words, cap, positions, params):
     """No-ambiguous filter on 4-bit lanes. params: [k_f, overflow_thr]."""
     del cap
@@ -436,7 +463,7 @@ def noamb_lanes_flags4(words, cap, positions, params):
     trunc = torch.zeros(positions.shape, dtype=torch.bool, device=positions.device)
     amb = torch.zeros_like(trunc)
     for i, w in enumerate(words):
-        km = _lanes_keep_mask(k, i, 8, 4)
+        km = keep_mask(k, i, 8, 4)
         if km == 0:
             continue
         w = widen_u32(w)
@@ -466,7 +493,7 @@ def length_lanes_flags4(words, cap, positions, params):
     mf = int(params[0])
     trunc = torch.zeros(positions.shape, dtype=torch.bool, device=positions.device)
     for i, w in enumerate(words):
-        km = _lanes_keep_mask(mf, i, 8, 4)
+        km = keep_mask(mf, i, 8, 4)
         if km:
             trunc |= _nib_nonzero_bits(_kept4(widen_u32(w), km)) != 0x11111111
     return ~trunc, ()
@@ -515,6 +542,8 @@ def _mask_stream64(hi, lo, m):
     return hi, lo
 
 
+@_kernel_on_card("homopoly2", lambda k, max_h, cap_const, thr, short_circuit: Scalars(
+    k, thr=thr, cap_const=cap_const, max_h=max_h, constant=short_circuit))
 def homopoly_lanes_flags2(words, cap, positions, params):
     """Homopolymer filter on 2-bit lanes. params: [k_f, max_h, cap_const,
     overflow_thr, short_circuit].
@@ -553,6 +582,8 @@ def homopoly_lanes_flags2(words, cap, positions, params):
     return ~run_bad, (overflow | ((capv < k) & ~run_bad_cap),)
 
 
+@_kernel_on_card("homopoly4", lambda k, max_h, thr, short_circuit: Scalars(
+    k, thr=thr, max_h=max_h, constant=short_circuit))
 def homopoly_lanes_flags4(words, cap, positions, params):
     """Homopolymer filter on 4-bit lanes (built_k <= 32, so the eq stream
     fits 32 bits). params: [k_f, max_h, overflow_thr, short_circuit]. Raise
@@ -571,7 +602,7 @@ def homopoly_lanes_flags4(words, cap, positions, params):
     prev_w = None
     for i, w in enumerate(words):
         w = widen_u32(w)
-        keep = _lanes_keep_mask(k, i, 8, 4)
+        keep = keep_mask(k, i, 8, 4)
         nz = _nib_nonzero_bits(_kept4(w, keep))
         trunc |= nz != 0x11111111
         capv += popcount32(nz & keep & 0x11111111)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.group_hist import group_size_hist_cuda
+from ..kernels.lanes_flags import lanes_flags_cuda
 from ..tracing import span
 from .sort import boundaries_from_sorted_lanes
 
@@ -218,12 +219,14 @@ def fold_err_conditions(errs, positions, valid=None):
 def _lanes_filtered_core(words, cap, positions, params, flags_fn, kmer_len: int,
                          two_bit: bool, strand_split):
     """(boundary, survivor mask, error fold) of a filter evaluated on the
-    retained sorted key lanes (ops/filters lanes flags: no genome read).
+    retained sorted key lanes (ops/filters lanes flags: no genome read; on a
+    card one launch of the lanes-flags kernel for the GC-content,
+    homopolymer and no-ambiguous filters, whose passes the span keeps).
     ``strand_split`` is the first position of the reverse-complement half
     when the strands are tracked apart, else None: the groups are then
     (string, strand) (``strand_order``), and the boundary and mask are in
     that order."""
-    with span("gk:filters.flags", positions):
+    with span("gk:filters.flags", positions, kernel=lanes_flags_cuda):
         mask, errs = flags_fn(words, cap, positions, params)
     with span("gk:groups.boundaries", positions):
         boundary = boundaries_from_sorted_lanes(words, cap, kmer_len, two_bit)

@@ -43,6 +43,13 @@ def widen_u32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64) & _U32
 
 
+def keep_mask(k: int, w_idx: int, bases_per_word: int, bits: int) -> int:
+    """Bit mask keeping the fields of key word ``w_idx`` below base count
+    ``k`` (fields are big-endian within the word)."""
+    keep = min(max(k - w_idx * bases_per_word, 0), bases_per_word)
+    return 0 if keep == 0 else (_U32 << (32 - bits * keep)) & _U32
+
+
 def u32_bits_as_int32(x: torch.Tensor) -> torch.Tensor:
     """int32 tensor holding the bit pattern of int64 values in [0, 2**32)."""
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)

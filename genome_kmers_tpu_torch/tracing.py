@@ -14,9 +14,9 @@ if it had no spans. While one records, each span is
   shared by the spans of one public call (``Kmers.sort``,
   ``Kmers.get_kmer_group_counts``, ``Kmers.get_kmer_count``); ``rows``,
   the rows the phase works over; ``passes``, where the phase runs a
-  kernel that counts them (the multi-lane sort, the group-size histogram),
-  that kernel's passes over its rows (0 where its plain version ran), else
-  None; ``device_ms``, the device time between two
+  kernel that counts them (the multi-lane sort, the group-size histogram,
+  the lanes flags), that kernel's passes over its rows (0 where its plain
+  version ran), else None; ``device_ms``, the device time between two
   CUDA events recorded on the current stream as the span opens and
   closes, None for CPU tensors.
 
@@ -112,8 +112,9 @@ def span(name: str, rows=None, kernel=None):
     over, and whose device decides whether the span is timed on the
     device. ``kernel``: a kernel wrapper with ``.launches`` and ``.passes``
     (``kernels/lane_sort.sort_lanes_cuda``,
-    ``kernels/group_hist.group_size_hist_cuda``) whose passes the record
-    keeps (the wrapper keeps those of its last launch)."""
+    ``kernels/group_hist.group_size_hist_cuda``,
+    ``kernels/lanes_flags.lanes_flags_cuda``) whose passes the record keeps
+    (the wrapper keeps those of its last launch)."""
     if not _profiler._is_profiler_enabled:
         return _OFF
     if rows is None:

@@ -23,6 +23,7 @@ REPO = Path(__file__).resolve().parents[1]
 MODULES = [
     "genome_kmers_tpu_torch", "genome_kmers_tpu_torch.interop", "chip_smoke",
     "genome_kmers_tpu_torch.kernels.lane_sort", "genome_kmers_tpu_torch.kernels.group_hist",
+    "genome_kmers_tpu_torch.kernels.lanes_flags",
     "genome_kmers_tpu_torch.ops.sort",
     "genome_kmers_tpu_torch.kmers", "genome_kmers_tpu_torch.sequence_collection",
     "genome_kmers_tpu_torch.ops.filters", "genome_kmers_tpu_torch.ops.groups",

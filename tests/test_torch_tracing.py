@@ -135,7 +135,11 @@ def test_stats_session_ranges_and_records():
     _, events = _run(_stats_calls(km), traced=True)
     names = HIST * 4 + FILTERED * 3 + COUNT
     calls_of = [i for i in range(4) for _ in HIST] + [4 + i for i in range(3) for _ in FILTERED]
-    _expect_records(_gk_ranges(events), names, calls_of + [7, 7])
+    recs = _expect_records(_gk_ranges(events), names, calls_of + [7, 7])
+    # the histogram kernel's passes and the lanes-flags kernel's (their plain
+    # versions here: 0); boundaries, sizes and readback run no counted kernel
+    passes = [None, None, 0, None] * 4 + [0, None, None, 0, None] * 3 + [None, None]
+    assert [r["passes"] for r in recs] == passes
 
 
 @pytest.mark.parametrize("with_n", [False, True], ids=["2bit", "4bit"])
