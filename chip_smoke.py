@@ -1047,7 +1047,9 @@ def phase_lane_sort_kernel(rng) -> dict:
 def hist_sizes(km, k: int = 31):
     """The (size, qualifies) that ``get_kmer_group_counts(k)`` histograms on
     a sorted index's retained lanes (the lanes route, no filter)."""
-    lanes = km._lanes_fast(k, gkt.kmer_filter_keep_all)
+    route, lanes, _ = km._stats_route(k, gkt.kmer_filter_keep_all)
+    if route != "lanes":
+        raise AssertionError(f"get_kmer_group_counts({k}) takes the {route} route, not the lanes")
     size, qualifies, _ = lanes_sizes_digest(lanes["words"], lanes["cap"], k, 1, None,
                                             lanes["two_bit"])
     return size, qualifies
@@ -2052,8 +2054,8 @@ def filters_on_sorted_index(km, sc, label: str, rng, masks: bool) -> None:
     for name, f in library_filters():
         kernel = isinstance(f, (GcContentFilter, HomopolymerFilter)) or (
             isinstance(f, NoAmbiguousBasesFilter) and not lanes["two_bit"])
-        fl = km._filtered_lanes_stats(31, f)
-        if fl is None:
+        route, _, lanes_spec = km._stats_route(31, f)
+        if route != "lanes_filtered":
             raise AssertionError(f"{label}, {name}: the lanes route does not take the filter")
         spec = f._plane_spec()
         build_ms = None
@@ -2084,7 +2086,7 @@ def filters_on_sorted_index(km, sc, label: str, rng, masks: bool) -> None:
                                  f"(counts {c_l} / {c_p}, totals {t_l} / {t_p})")
         if spec is not None and spec[0] not in dc.filter_flags:
             raise AssertionError(f"{label}, {name}: the plane route built no plane")
-        flags_fn, params, _ = fl[3]
+        flags_fn, params, _ = lanes_spec
         flags = lambda: flags_fn(lanes["words"], lanes["cap"], km._pos_dev, params)  # noqa: E731
         flags_ms = cuda_ms(flags, reps=5, warmup=1)
         reset_launches()
@@ -2139,7 +2141,7 @@ def filters_acgt(host_sc, rng) -> tuple:
     log(f"{label}: sort {t_sort:.4f} s, {launches} pack launches; genome scans built (ms): "
         + ", ".join(f"{name} {t * 1e3:.3f}" for name, t in scans.items()))
     gc = GcContentFilter(0.3, 0.7, 31)
-    if km._filtered_lanes_stats(31, gc) is None:
+    if km._stats_route(31, gc)[0] != "lanes_filtered":
         raise AssertionError(f"{label}: the bench's filtered track does not take the lanes")
     track = lambda: km.get_kmer_group_counts(31, kmer_filter_func=gc)  # noqa: E731
     (counts, total), cold = sync_time(track)
@@ -2181,7 +2183,7 @@ def filters_suffix(sc, counts31) -> None:
     km = gkt.Kmers(sc)
     _, t_sort = sync_time(km.sort)
     length = LengthFilter(31)
-    if km._filtered_lanes_stats(31, length) is not None:
+    if km._stats_route(31, length)[0] == "lanes_filtered":
         raise AssertionError(f"{label}: a suffix index took the lanes route")
     (counts, _), t_len = sync_time(lambda: km.get_kmer_group_counts(31, kmer_filter_func=length))
     if not np.array_equal(counts, counts31):
@@ -2247,7 +2249,7 @@ def filters_raise_parity(rng) -> int:
              (HomopolymerFilter(max_h, k),
               f"The kmer_len ({k}) requested is too large for kmer_sba_start_idx ({pos[first_hp]})"))
     for f, message in cases:
-        if km._filtered_lanes_stats(k, f) is None:
+        if km._stats_route(k, f)[0] != "lanes_filtered":
             raise AssertionError(f"{label}: {type(f).__name__} does not take the lanes")
         for route, run in (("lanes", lambda fn: fn()), ("plane", lambda fn: on_plane_route(km, fn))):
             for call in (lambda: km.get_kmer_group_counts(k, kmer_filter_func=f),

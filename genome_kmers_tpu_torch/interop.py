@@ -26,7 +26,7 @@ from .kmers import Kmers, _DistIndexCache
 from .large_kmers import LargeKmers
 from .ops.encoding import reverse_complement_bytes
 from .ops.keys import u32_bits_as_int32
-from .ops.sort import WINDOW2_BASES, WINDOW_BASES
+from .ops.sort import WINDOW2_BASES, WINDOW_BASES, lanes_view
 from .sequence_collection import SequenceCollection
 
 
@@ -165,12 +165,9 @@ def from_numpy_state(
             lane_words = tuple(_lane(w, sc.device) for w in words)
         else:
             lane_words = tuple(u32_bits_as_int32(_lane(w, sc.device)) for w in words)
-        km._lanes_cache = {
-            "two_bit": two_bit,
-            "built_k": max_kmer_len,
-            "words": lane_words,
-            "cap": None if cap is None else _lane(cap, sc.device),
-        }
+        km._lanes_cache = lanes_view(
+            two_bit, max_kmer_len, lane_words, None if cap is None else _lane(cap, sc.device)
+        )
     elif suffix_gid is not None:
         km._suffix_gid_cache = (_lane(suffix_gid, sc.device), max_kmer_len)
     km._is_sorted = True

@@ -86,15 +86,12 @@ from .ops.canonical import (
 )
 from .ops.encoding import iupac_revcomp_strs
 from .ops.groups import (
-    filtered_group_total,
     filtered_sizes_digest,
     group_geometry,
     group_sizes_at_boundaries,
-    group_total_count,
     hist_from_sizes,
+    hist_to_host,
     lanes_filtered_sizes_digest,
-    lanes_filtered_total,
-    lanes_group_total,
     lanes_sizes_digest,
     selection_masks,
     sizes_digest,
@@ -113,6 +110,7 @@ from .ops.sort import (
     WINDOW_BASES,
     adjacent_boundaries,
     boundaries_from_sorted_lanes,
+    lanes_view,
     sort_positions,
     sort_positions_dense,
     sort_positions_suffix_dense,
@@ -1052,56 +1050,58 @@ class Kmers:
         else:
             words = build_key_words(dc.packed, positions, cap, -(-self.max_kmer_len // 8))
             uniform = True  # the 4-bit encoding carries termination in-word
-        self._lanes_cache = {
-            "two_bit": use2,
-            "built_k": self.max_kmer_len,
-            "words": words,
-            "cap": None if uniform else cap,
-            "cap_cover_check": self._cap_covers_min_k,
-        }
+        self._lanes_cache = lanes_view(
+            use2, self.max_kmer_len, words, None if uniform else cap, self._cap_covers_min_k
+        )
         return self._lanes_cache
 
-    def _lanes_fast(self, kmer_len, kmer_filter_func=kmer_filter_keep_all):
-        """The retained sorted lanes when the whole statistics query can
-        run over them (sorted index, no filter, bounded kmer_len within the
-        built length, no strand-split term), else None."""
-        if not (
-            self._is_sorted
-            and not self.track_strands_separately
-            and isinstance(kmer_filter_func, KeepAllFilter)
-            and kmer_len is not None
-            # rebuilt lanes are built at max_kmer_len: no rebuild for a
-            # query they could never serve
-            and (self.max_kmer_len is None or kmer_len <= self.max_kmer_len)
-        ):
-            return None
-        lanes = self._ensure_lanes()
-        if lanes is not None and kmer_len <= lanes["built_k"]:
-            return lanes
-        return None
+    def _within_max(self, kmer_len) -> bool:
+        """Groups at ``kmer_len`` lie within the sort's compare length."""
+        return self.max_kmer_len is None or (kmer_len is not None and kmer_len <= self.max_kmer_len)
 
-    def _filtered_lanes_stats(self, kmer_len, kmer_filter_func):
-        """(lanes, positions, strand_split, (flags_fn, params, msg_makers))
-        for a filtered query over the retained sorted lanes, or None. It
-        applies where the lanes cover the query's ``kmer_len`` and the
-        filter's own window and the filter can be read from lane words
-        (``lanes_spec``): then no genome row is read."""
-        if not isinstance(kmer_filter_func, KmerFilter) or isinstance(
-            kmer_filter_func, KeepAllFilter
-        ):
+    def _covering_lanes(self, kmer_len):
+        """The retained sorted lanes of a sorted index when they cover
+        ``kmer_len``, else None. Rebuilt lanes are built at max_kmer_len:
+        no rebuild for a query they could never serve."""
+        if not self._is_sorted or kmer_len is None or not self._within_max(kmer_len):
             return None
-        if not self._is_sorted or kmer_len is None or len(self) == 0:
-            return None
-        if self.max_kmer_len is not None and kmer_len > self.max_kmer_len:
-            return None  # the lanes could never serve it: no rebuild either
         lanes = self._ensure_lanes()
-        if lanes is None or kmer_len > lanes["built_k"]:
-            return None
-        spec = kmer_filter_func.lanes_spec(lanes, len(self._host_sba()), self.min_kmer_len)
-        if spec is None:
-            return None
-        split = self._revcomp_offset() if self.track_strands_separately else None
-        return lanes, self._device_positions(), split, spec
+        return lanes if lanes is not None and kmer_len <= lanes["built_k"] else None
+
+    def _stats_route(self, kmer_len, kmer_filter_func):
+        """The route of a one-card statistics query, in the JAX package's
+        order, as (name, lanes, spec):
+
+        * ``"lanes"``: no filter, no strand-split term, over the retained
+          sorted lanes that cover ``kmer_len``;
+        * ``"lanes_filtered"``: a library filter that can be read from
+          those lanes (``spec``, its ``lanes_spec``): no genome row is read;
+        * ``"plane"``: any other library filter where the groups at
+          ``kmer_len`` are contiguous in index order (unsorted, within the
+          sort's compare length, or suffix-sorted), by its flag plane or
+          window gathers (``_filtered_device_stats``);
+        * ``"boundary"``: the group boundary of the survivors
+          (``_boundary_parts``).
+
+        No route's device work runs here: at most the one rebuild of
+        absent lanes (``_ensure_lanes``) and a filter's cap check."""
+        keep_all = isinstance(kmer_filter_func, KeepAllFilter)
+        library = isinstance(kmer_filter_func, KmerFilter) and not keep_all
+        if keep_all and not self.track_strands_separately:
+            lanes = self._covering_lanes(kmer_len)
+            if lanes is not None:
+                return "lanes", lanes, None
+        if library and self._is_sorted and kmer_len is not None and len(self) > 0:
+            lanes = self._covering_lanes(kmer_len)
+            if lanes is not None:
+                spec = kmer_filter_func.lanes_spec(
+                    lanes, len(self._host_sba()), self.min_kmer_len
+                )
+                if spec is not None:
+                    return "lanes_filtered", lanes, spec
+        if library and (not self._is_sorted or self._within_max(kmer_len)):
+            return "plane", None, None
+        return "boundary", None, None
 
     @staticmethod
     def _raise_lanes_errs(err, msg_makers) -> None:
@@ -1114,23 +1114,11 @@ class Kmers:
 
     def _filtered_device_stats(self, kmer_len, kmer_filter_func):
         """(boundary of all rows, device survivor mask) for a filtered query
-        by the plane or window route, or None where it does not apply.
-
-        It applies to a KmerFilter (not keep-all) when the groups at
-        ``kmer_len`` are contiguous in index order: unsorted (every k-mer
-        its own group), sorted with ``kmer_len`` within the sort's compare
-        length, or suffix-sorted. The survivors' groups are then the groups
-        of all rows restricted to the survivors (the reference's
-        previous-survivor walk), and no compaction is needed."""
-        if not isinstance(kmer_filter_func, KmerFilter) or isinstance(
-            kmer_filter_func, KeepAllFilter
-        ):
-            return None
-        if self._is_sorted and not (
-            self.max_kmer_len is None
-            or (kmer_len is not None and kmer_len <= self.max_kmer_len)
-        ):
-            return None
+        by the plane or window route (``_stats_route``'s ``"plane"``). The
+        groups at ``kmer_len`` are contiguous in index order, so the
+        survivors' groups are the groups of all rows restricted to the
+        survivors (the reference's previous-survivor walk), and no
+        compaction is needed."""
         order, _, boundary = self._boundary_parts(kmer_len, kmer_filter_keep_all)
         dc = self._dc()
         positions = self._device_positions()
@@ -1170,14 +1158,8 @@ class Kmers:
             boundary = torch.ones(m, dtype=torch.bool, device=self.device)
             boundary[1:] = gid[1:] != gid[:-1]
             return surv_nums, surv_pos, boundary
-        lanes = None
-        if (
-            surv_nums is None
-            and kmer_len is not None
-            and (self.max_kmer_len is None or kmer_len <= self.max_kmer_len)
-        ):
-            lanes = self._ensure_lanes()
-        if lanes is not None and kmer_len <= lanes["built_k"]:
+        lanes = self._covering_lanes(kmer_len) if surv_nums is None else None
+        if lanes is not None:
             boundary = boundaries_from_sorted_lanes(
                 lanes["words"], lanes["cap"], kmer_len, lanes["two_bit"]
             )
@@ -1437,33 +1419,49 @@ class Kmers:
             return self._mesh_group_hist(
                 kmer_len, kmer_filter_func, min_group_size, max_group_size, 1, mesh
             )[1]
-        lanes = self._lanes_fast(kmer_len, kmer_filter_func)
-        if lanes is not None:
-            return lanes_group_total(
-                lanes["words"], lanes["cap"], min_group_size, max_group_size, kmer_len,
+        digest = self._route_sizes(kmer_len, kmer_filter_func, min_group_size, max_group_size)
+        return 0 if digest is None else digest[2]
+
+    def _route_sizes(self, kmer_len, kmer_filter_func, min_group_size, max_group_size):
+        """(size, qualifies, total) of a one-card statistics query on its
+        route (``_stats_route``): each group's size (under a filter, its
+        survivors) at its first row, whether it qualifies, and the total
+        k-mers of the qualifying groups. None for an empty boundary."""
+        route, lanes, spec = self._stats_route(kmer_len, kmer_filter_func)
+        if route == "lanes":
+            return lanes_sizes_digest(
+                lanes["words"], lanes["cap"], kmer_len, min_group_size, max_group_size,
                 lanes["two_bit"],
             )
-        fl = self._filtered_lanes_stats(kmer_len, kmer_filter_func)
-        if fl is not None:
-            lanes, positions, split, (flags_fn, params, msgs) = fl
-            total, err = lanes_filtered_total(
-                lanes["words"], lanes["cap"], positions, params, kmer_len, min_group_size,
-                max_group_size, split, lanes["two_bit"], flags_fn,
+        if route == "lanes_filtered":
+            flags_fn, params, msgs = spec
+            split = self._revcomp_offset() if self.track_strands_separately else None
+            size, qualifies, total, err = lanes_filtered_sizes_digest(
+                lanes["words"], lanes["cap"], self._device_positions(), params, kmer_len,
+                min_group_size, max_group_size, split, lanes["two_bit"], flags_fn,
             )
             self._raise_lanes_errs(err, msgs)
-            return total
-        fd = self._filtered_device_stats(kmer_len, kmer_filter_func)
-        if fd is not None:
-            boundary, mask = fd
+            return size, qualifies, total
+        if route == "plane":
+            boundary, mask = self._filtered_device_stats(kmer_len, kmer_filter_func)
             if boundary.shape[0] == 0:
-                return 0
-            return filtered_group_total(boundary, mask, min_group_size, max_group_size)
+                return None
+            return filtered_sizes_digest(boundary, mask, min_group_size, max_group_size)
         _, _, boundary = self._boundary_parts(kmer_len, kmer_filter_func)
         if boundary.shape[0] == 0:
-            return 0
+            return None
         with span("gk:groups.sizes", boundary):
-            return group_total_count(boundary, group_sizes_at_boundaries(boundary),
-                                     min_group_size, max_group_size)
+            return sizes_digest(
+                boundary, group_sizes_at_boundaries(boundary), min_group_size, max_group_size
+            )
+
+    @staticmethod
+    def _hist_tail(size, qualifies, max_counts_bin: int) -> np.ndarray:
+        """The int64 histogram of the qualifying groups' sizes, on the host."""
+        with span("gk:groups.histogram", size, kernel=group_size_hist_cuda):
+            counts = hist_from_sizes(size, qualifies, max_counts_bin)
+        with span("gk:groups.readback", counts):
+            return hist_to_host(counts)
 
     def get_kmer_group_counts(
         self,
@@ -1490,40 +1488,11 @@ class Kmers:
                 kmer_len, kmer_filter_func, min_group_size, max_group_size, max_counts_bin,
                 mesh,
             )
-        lanes = self._lanes_fast(kmer_len, kmer_filter_func)
-        fl = None if lanes is not None else self._filtered_lanes_stats(kmer_len, kmer_filter_func)
-        if lanes is not None:
-            size, qualifies, total = lanes_sizes_digest(
-                lanes["words"], lanes["cap"], kmer_len, min_group_size, max_group_size,
-                lanes["two_bit"],
-            )
-        elif fl is not None:
-            lanes, positions, split, (flags_fn, params, msgs) = fl
-            size, qualifies, total, err = lanes_filtered_sizes_digest(
-                lanes["words"], lanes["cap"], positions, params, kmer_len, min_group_size,
-                max_group_size, split, lanes["two_bit"], flags_fn,
-            )
-            self._raise_lanes_errs(err, msgs)
-        elif (fd := self._filtered_device_stats(kmer_len, kmer_filter_func)) is not None:
-            boundary, mask = fd
-            if boundary.shape[0] == 0:
-                return np.zeros(max_counts_bin + 1, dtype=np.int64), 0
-            size, qualifies, total = filtered_sizes_digest(
-                boundary, mask, min_group_size, max_group_size
-            )
-        else:
-            _, _, boundary = self._boundary_parts(kmer_len, kmer_filter_func)
-            if boundary.shape[0] == 0:
-                return np.zeros(max_counts_bin + 1, dtype=np.int64), 0
-            with span("gk:groups.sizes", boundary):
-                size, qualifies, total = sizes_digest(
-                    boundary, group_sizes_at_boundaries(boundary), min_group_size, max_group_size
-                )
-        with span("gk:groups.histogram", size, kernel=group_size_hist_cuda):
-            counts = hist_from_sizes(size, qualifies, max_counts_bin)
-        with span("gk:groups.readback", counts):
-            counts = counts.cpu().numpy().astype(np.int64)
-        return counts, total
+        digest = self._route_sizes(kmer_len, kmer_filter_func, min_group_size, max_group_size)
+        if digest is None:
+            return np.zeros(max_counts_bin + 1, dtype=np.int64), 0
+        size, qualifies, total = digest
+        return self._hist_tail(size, qualifies, max_counts_bin), total
 
     def _mesh_group_hist(self, kmer_len, kmer_filter_func, min_group_size, max_group_size,
                          max_counts_bin, mesh) -> tuple[np.ndarray, int]:
@@ -1570,19 +1539,12 @@ class Kmers:
             elif not keep_all:
                 spec = None
                 if lanes_fit:
-                    n_words = -(-cache.built_k // (16 if cache.lanes_two_bit else 8))
+                    # the ragged sort keeps no cap lane: the caps are
+                    # recomputed in mesh_lanes_filter_flags
+                    view = lanes_view(cache.lanes_two_bit, cache.built_k, cache.lanes[0], None,
+                                      self._cap_covers_min_k)
                     spec = kmer_filter_func.lanes_spec(
-                        {
-                            "two_bit": cache.lanes_two_bit,
-                            "built_k": cache.built_k,
-                            "words": tuple(w[:n_words] for w in cache.lanes[0]),
-                            # the ragged sort keeps no cap lane: the caps are
-                            # recomputed in mesh_lanes_filter_flags
-                            "cap": None,
-                            "cap_cover_check": self._cap_covers_min_k,
-                        },
-                        len(self._host_sba()),
-                        self.min_kmer_len,
+                        view, len(self._host_sba()), self.min_kmer_len
                     )
                 if spec is not None:
                     flags_fn, params, msgs = spec
@@ -1622,7 +1584,7 @@ class Kmers:
             sorted_words=sorted_words, mask=mask, ext_gid=ext_gid,
         )
         with mesh_span("gk:mesh.readback", [counts]):
-            counts = counts.cpu().numpy().astype(np.int64)
+            counts = hist_to_host(counts)
         return counts, total
 
     def _mesh_filter_masks(self, kmer_filter_func, positions, is_pad, mesh) -> list:
@@ -2022,9 +1984,7 @@ class Kmers:
             valid_len = compute_valid_len(positions, dc.seg_starts, dc.seg_ends)
             digest = canonical_sizes_digest if two_bit else canonical_sizes_digest4
             size, qualifies, total = digest(packed, positions, valid_len, kmer_len)
-        with span("gk:groups.histogram", size, kernel=group_size_hist_cuda):
-            counts = hist_from_sizes(size, qualifies, max_counts_bin)
-        return counts.cpu().numpy().astype(np.int64), total
+        return self._hist_tail(size, qualifies, max_counts_bin), total
 
     def _mesh_canonical_hist(self, packed, kmer_len: int, max_counts_bin: int, mesh):
         """Canonical statistics over the mesh: the canonical sample sort,
@@ -2047,7 +2007,7 @@ class Kmers:
             None if two_bit else packed, pos, pad, dc.seg_starts, dc.seg_ends, kmer_len, mesh,
             max_counts_bin=max_counts_bin, packed2=dc.packed2, sorted_words=words,
         )
-        return counts.cpu().numpy().astype(np.int64), total
+        return hist_to_host(counts), total
 
     # ------------------------------------------------------------------ #
     # persistence: the JAX package's schema (its kmers.py:2099-2213), group

@@ -40,6 +40,7 @@ from .ops.large import (
 )
 from .ops.groups import strand_order
 from .ops.keys import widen_u32
+from .ops.sort import lanes_view
 
 _ACGT = b"ACGT"
 _IUPAC = b"ACGTRYSWKMBDHVN"
@@ -466,17 +467,9 @@ class LargeKmers:
         lanes_k = self._lanes_k
         nwb = -(-lanes_k // (16 if self.two_bit else 8))
         words = [tuple(shard[:nwb]) for shard in lanes]
-        spec = kmer_filter_func.lanes_spec(
-            {
-                "two_bit": self.two_bit,
-                "built_k": lanes_k,
-                "words": words[0],
-                "cap": widen_u32(lanes[0][nwb]),
-                "cap_cover_check": self._cap_covers_min_k,
-            },
-            self.sba_len,
-            self.min_kmer_len,
-        )
+        view = lanes_view(self.two_bit, lanes_k, lanes[0], widen_u32(lanes[0][nwb]),
+                          self._cap_covers_min_k)
+        spec = kmer_filter_func.lanes_spec(view, self.sba_len, self.min_kmer_len)
         if spec is None:
             raise NotImplementedError(
                 f"filter {type(kmer_filter_func).__name__} cannot be "

@@ -15,6 +15,7 @@ card asks for it.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..kernels.group_hist import group_size_hist_cuda
@@ -141,6 +142,13 @@ def hist_from_sizes(size, qualifies, max_counts_bin: int) -> torch.Tensor:
     return clipped_counts(qualifies, size, max_counts_bin)
 
 
+def hist_to_host(counts: torch.Tensor, dtype=np.int64) -> np.ndarray:
+    """A histogram's copy on the host, as ``dtype`` (``LargeKmers`` returns
+    uint64): the one device-to-host copy of every statistics call's
+    histogram."""
+    return counts.cpu().numpy().astype(dtype)
+
+
 def group_size_histogram(boundary, size, min_group_size: int, max_group_size,
                          max_counts_bin: int):
     """(histogram, total) over the groups with min_group_size <= size <=
@@ -154,12 +162,8 @@ def group_size_histogram(boundary, size, min_group_size: int, max_group_size,
 def lanes_group_total(
     words, cap, min_group_size: int, max_group_size, kmer_len: int, two_bit: bool
 ) -> int:
-    """Reduce-only sibling of ``lanes_sizes_digest`` for count queries."""
-    with span("gk:groups.boundaries", words[0]):
-        boundary = boundaries_from_sorted_lanes(words, cap, kmer_len, two_bit)
-    with span("gk:groups.sizes", boundary):
-        size = group_sizes_at_boundaries(boundary)
-        return group_total_count(boundary, size, min_group_size, max_group_size)
+    """The total of ``lanes_sizes_digest``, for count queries."""
+    return lanes_sizes_digest(words, cap, kmer_len, min_group_size, max_group_size, two_bit)[2]
 
 
 # --------------------------------------------------------------------------- #

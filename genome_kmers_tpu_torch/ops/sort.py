@@ -92,6 +92,18 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def lanes_view(two_bit: bool, built_k: int, words, cap, cap_cover_check=None) -> dict:
+    """Retained sorted key lanes in the JAX package's layout, as the
+    statistics and a filter's ``lanes_spec`` read them: the encoding, the
+    length they were built at, the key words that length needs, the cap
+    lane (None where every row's cap is ``built_k`` or the encoding
+    terminates in-word) and, where the index cannot vouch for it, a check
+    that every row covers the index's ``min_kmer_len`` (None: it does)."""
+    n_words = _cdiv(built_k, BASES_PER_WORD2 if two_bit else BASES_PER_WORD)
+    return {"two_bit": two_bit, "built_k": built_k, "words": tuple(words[:n_words]),
+            "cap": cap, "cap_cover_check": cap_cover_check}
+
+
 def sort_lanes(lanes) -> tuple:
     """Rows of int32 lanes (uint32 bit patterns) sorted ascending,
     lexicographically over all lanes, most significant first, compared as
@@ -236,8 +248,7 @@ def sort_positions_dense(
 
     Returns int64 positions in sorted order, ties by position; with
     ``return_lanes`` a ``(positions, lanes)`` pair whose lanes are the
-    retained sorted lanes in the JAX package's layout ``{"two_bit",
-    "built_k", "words", "cap"}``. 2-bit words are int64 lanes of uint32
+    retained sorted lanes (``lanes_view``). 2-bit words are int64 lanes of uint32
     values, with cap None under ``uniform_cap``; 4-bit words are int32 bit
     patterns and never have a cap lane."""
     k = max_kmer_len
@@ -248,12 +259,7 @@ def sort_positions_dense(
             pos = widen_u32(res[-1][:n])
             if not return_lanes:
                 return pos
-            return pos, {
-                "two_bit": False,
-                "built_k": k,
-                "words": tuple(w[:n] for w in res[1 : 1 + n_words]),
-                "cap": None,
-            }
+            return pos, lanes_view(False, k, tuple(w[:n] for w in res[1 : 1 + n_words]), None)
     perm, vals, chunks, chunk_widths, lane_widths = _sort_dense(
         packed, seg_starts, seg_ends, min_kmer_len, k, uniform_cap
     )
@@ -266,12 +272,7 @@ def sort_positions_dense(
         n_words = _cdiv(k, BASES_PER_WORD2)
         words = lanes[1 : 1 + n_words]
         words[-1] = words[-1] << (32 - lane_widths[n_words])
-    return perm[:n], {
-        "two_bit": True,
-        "built_k": k,
-        "words": tuple(words),
-        "cap": None if uniform_cap else lanes[-1],
-    }
+    return perm[:n], lanes_view(True, k, words, None if uniform_cap else lanes[-1])
 
 
 def _round_done(unresolved, name: str, on_round) -> bool:
@@ -314,24 +315,17 @@ def sort_positions(
         res = sort_lanes_cuda(words + caps + (pos_lane,))
         if not return_lanes:
             return widen_u32(res[-1])
-        return widen_u32(res[-1]), {
-            "two_bit": True,
-            "built_k": max_kmer_len,
-            "words": tuple(res[:n_words]),
-            "cap": None if uniform_cap else res[n_words].to(torch.int64),
-        }
+        return widen_u32(res[-1]), lanes_view(
+            True, max_kmer_len, res, None if uniform_cap else res[n_words].to(torch.int64)
+        )
     if max_kmer_len is not None and max_kmer_len <= WINDOW_BASES:
         n_words = _cdiv(max_kmer_len, BASES_PER_WORD)
         words = build_key_words(packed, positions, cap_len, n_words)
         res = sort_lanes_cuda(words + (pos_lane,))
         if not return_lanes:
             return widen_u32(res[-1])
-        return widen_u32(res[-1]), {
-            "two_bit": False,
-            "built_k": max_kmer_len,
-            "words": tuple(res[:n_words]),
-            "cap": None,  # the 4-bit encoding carries termination in-word
-        }
+        # the 4-bit encoding carries termination in-word: no cap lane
+        return widen_u32(res[-1]), lanes_view(False, max_kmer_len, res, None)
     # refinement rounds of 32 bases, on the 2-bit pack where there is one
     # (half the key lanes); the host reads one scalar a round
     def sort_round(pos, cap, gid, offset, first):

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.groups import hist_to_host
 from ..ops.sort import _cdiv
 from .distributed import _dist_sizes_digest, distributed_hist_from_sizes, mesh_lanes_filter_flags
 from .sample_sort import _ONES, int64_tensor, strided_keys
@@ -120,7 +121,7 @@ def distributed_group_size_histogram_large_ragged(
         )
     size, qualifies, total, boundary = digest
     counts = distributed_hist_from_sizes(size, qualifies, max_counts_bin, mesh)
-    counts = counts.cpu().numpy().astype(np.uint64)
+    counts = hist_to_host(counts, np.uint64)
     if return_rows:
         return counts, total, {"boundary": boundary, "size": size, "qualifies": qualifies}
     return counts, total

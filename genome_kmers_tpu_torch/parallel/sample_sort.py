@@ -704,8 +704,10 @@ def distributed_adjacent_gids(
 
 # --------------------------------------------------------------------------- #
 # dense fresh path: the key lanes of every SBA position, built shard by
-# shard from slices of the replicated pack (no per-row gather). Valid only
-# while the index is the canonical dense start set (a fresh Kmers sort).
+# shard from the shard's own slice of the pack and its halo, sent to each
+# card alone (``_dense_shards``; no per-row gather, no card holds the whole
+# pack but the one it lives on). Valid only while the index is the
+# canonical dense start set (a fresh Kmers sort).
 # --------------------------------------------------------------------------- #
 
 

@@ -179,7 +179,7 @@ def test_filtered_queries_match_jax(kind, mn, mx, sort, route):
     third = CASES.index((kind, mn, mx, sort, route)) % 3
     pairs = zip(_filters(jf), _filters(tf))
     for i, ((name, jfil, k), (_, tfil, _)) in enumerate(pairs):
-        lanes = sort and tkm._filtered_lanes_stats(k, tfil) is not None
+        lanes = sort and tkm._stats_route(k, tfil)[0] == "lanes_filtered"
         assert lanes == (sort and jkm._filtered_lanes_stats(k, jfil) is not None), name
         planes_before = None if tdc.filter_flags is None else len(tdc.filter_flags)
         twin = _c2_twin(kind, mn, mx, name, route, tkm) if lanes else None
@@ -228,7 +228,7 @@ def test_homopolymer_lanes4_raise_on_truncated_rows():
         for km in (jkm, tkm):
             km.sort()
             _route(km, route)
-        assert (tkm._filtered_lanes_stats(12, tf.HomopolymerFilter(2, 12)) is not None) == (
+        assert (tkm._stats_route(12, tf.HomopolymerFilter(2, 12))[0] == "lanes_filtered") == (
             route == "lanes")
         got[("jax", route)] = _outcome(lambda: call(jkm, jf.HomopolymerFilter(2, 12)))
         got[("port", route)] = _outcome(lambda: call(tkm, tf.HomopolymerFilter(2, 12)))
@@ -326,14 +326,14 @@ def test_crispr_lanes_gate_refuses_an_assigned_index_short_of_23(kind):
     want = _outcome(lambda: jkm.get_kmer_group_counts(23, kmer_filter_func=jf.crispr_ngg_pam_filter))
     assert _same(got, want)
     assert tkm._lanes_cache is not None and tkm._cap_cover_ok is False
-    assert tkm._filtered_lanes_stats(23, tf.crispr_ngg_pam_filter) is None
+    assert tkm._stats_route(23, tf.crispr_ngg_pam_filter)[0] == "plane"
     assert ("crispr",) in tkm._dc().filter_flags
     got = tkm.get_kmer_count(23, kmer_filter_func=tf.crispr_ngg_pam_filter)
     assert got == jkm.get_kmer_count(23, kmer_filter_func=jf.crispr_ngg_pam_filter)
     # a fresh index keeps the cap coverage, and the gate lets the lanes in
     fresh = _pair(kind, 23, 32)[1]
     fresh.sort()
-    assert fresh._filtered_lanes_stats(23, tf.crispr_ngg_pam_filter) is not None
+    assert fresh._stats_route(23, tf.crispr_ngg_pam_filter)[0] == "lanes_filtered"
 
 
 def _odd(sba, strand, idx):

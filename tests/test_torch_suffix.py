@@ -391,7 +391,8 @@ def test_kmers_fresh_sort_and_statistics_match_jax_and_oracle(kind, mn, mx):
     assert np.array_equal(got, jkm.kmer_sba_start_indices)
     # no single-window lanes; the converged run ids are kept instead
     assert tkm._lanes_cache is None and tkm._ensure_lanes() is None
-    assert all(tkm._lanes_fast(k) is None for k in (1, mn, 31, 100))
+    assert all(tkm._stats_route(k, gt.kmer_filter_keep_all)[0] == "boundary"
+               for k in (1, mn, 31, 100))
     assert _same(tkm._suffix_gid_cache[0], jkm._suffix_gid_cache[0])
     assert tkm._suffix_gid_cache[1] == jkm._suffix_gid_cache[1] == mx
     _same_statistics(tkm, jkm, _stat_lens(mn, mx), sorted_kmers, mx)

@@ -5,7 +5,8 @@ build, a statistics session's calls and a suffix sort draw their ``gk:``
 ranges in order, each a direct child of the caller's range around the
 public call, none nested in another and none of user-annotation scope;
 the records pair one to one with the ranges. The answers are the same bits
-with the spans on and off. Small genomes: a few seconds in all.
+with the spans on and off. On every statistics route a count opens the
+histogram call's spans but its histogram and readback. Small genomes: a few seconds in all.
 """
 
 import random
@@ -193,3 +194,62 @@ def test_kernel_passes_recorded_where_it_launched():
             with tracing.span("gk:sort.order", torch.zeros(5), kernel=Kernel):
                 pass
     assert [(r["passes"], r["rows"]) for r in tracing.take()] == [(17, 5), (0, 5)]
+
+
+def _route_case(route):
+    """(index, filter) of a case that takes ``route``: plane and window
+    forced as tests/test_torch_filtered_stats.py's ``_route`` does."""
+    sc = _collection(False)
+    gc = gk.gen_kmer_gc_content_filter_func(0.3, 0.7, 31)
+    if route == "suffix":
+        km = gk.Kmers(sc)
+    else:
+        km = gk.Kmers(sc, 31, 31)
+    if route != "unsorted":
+        km.sort()
+    if route in ("plane", "window"):
+        km._lanes_cache = None
+        km._lanes_rebuild = False
+    if route == "window":
+        km._dc().filter_flags = None
+    keep = route in ("lanes", "suffix", "unsorted")
+    return km, gk.kmer_filter_keep_all if keep else gc
+
+
+ROUTES = [  # (case, the resolver's route, the count's spans)
+    ("lanes", "lanes", COUNT),
+    ("lanes_filtered", "lanes_filtered", ["gk:filters.flags"] + COUNT),
+    ("plane", "plane", ["gk:groups.sizes"]),
+    ("window", "plane", ["gk:groups.sizes"]),
+    ("suffix", "boundary", ["gk:groups.sizes"]),
+    ("unsorted", "boundary", ["gk:groups.sizes"]),
+]
+
+
+@pytest.mark.parametrize("case,route,count_spans", ROUTES, ids=[r[0] for r in ROUTES])
+def test_count_and_histogram_share_each_route(case, route, count_spans):
+    """On every route of ``Kmers._stats_route`` the count is the
+    histogram's total and opens the histogram call's spans but its
+    histogram and readback; canonical statistics open the histogram, then
+    the readback. An unsorted index has no histogram: its count is one a
+    k-mer."""
+    km, f = _route_case(case)
+    assert km._stats_route(31, f)[0] == route
+
+    def traced(op, fn):
+        answer, events = _run([(op, fn)], traced=True)
+        names = [e.name for e in _gk_ranges(events)]
+        assert [r["name"] for r in tracing.take()] == names
+        return answer[0], names
+
+    total, names = traced("count", lambda: km.get_kmer_count(31, kmer_filter_func=f))
+    assert names == count_spans
+    if case == "unsorted":
+        assert total == len(km)
+    else:
+        (counts, hist_total), hist_names = traced(
+            "group_counts", lambda: km.get_kmer_group_counts(31, kmer_filter_func=f))
+        assert hist_total == total and counts.dtype == np.int64
+        assert hist_names == names + HIST[2:]
+    _, names = traced("canonical", lambda: km.get_canonical_kmer_group_counts(31))
+    assert names == HIST[2:]
